@@ -1,0 +1,580 @@
+"""Wavefront Whitted renderer (counterpart of ``raytracer_tpu/render/renderer.py``).
+
+Every generation traces one wavefront of rays (primary = one ray per pixel), shades
+it, adds its contribution into the framebuffer weighted by the throughput along its
+ancestry, and compacts the surviving reflection/refraction children into the next
+generation's queue.  The recursion's post-multiplications (reflection colour,
+Fresnel weights, Beer's law) are re-associated into per-ray throughput state
+(``weight``, ``sigma``), exactly as in the JAX package.
+
+Semantics are the JAX package's lossless profile (``lossless_fallback_config``): the
+frame is one wavefront, every ray walks its BVH until it is done, and each queue
+holds exactly the active candidates, so ``num_dropped`` is 0 by construction and
+``num_incomplete`` counts stack overflow only.  The TPU workarounds (iteration
+ladders, static queue capacities, scanned bounces, chunking and checkpointing,
+one-hot matmul gathers) are not rebuilt.
+
+Kernels on this path: K1/K2 traversal (``ops/traversal_wide``), K3 texture
+(``ops/texture_sample``), K5 sky (``ops/sky_sample``), K6 compaction
+(``ops/compaction``).  Everything else is elementwise torch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import devices
+from ..config import AIR_IOR, RenderConfig
+from ..core import vecmath as vm
+from ..ops import compaction, intersect, sky_sample, texture_sample, traversal_wide
+from ..ops.intersect import Hits, Rays
+from ..scene.tensors import scene_from_numpy
+from . import shading
+
+_BEER_DIST_CLAMP = 1.0e8
+
+
+class RenderStats(NamedTuple):
+    """Per-category ray counters (PerformanceStats, Raytracer.h:4-9), counted per
+    active lane; each a 0-dim int32 tensor."""
+
+    num_primary: torch.Tensor
+    num_shadow: torch.Tensor
+    num_reflection: torch.Tensor
+    num_refraction: torch.Tensor
+    num_dropped: torch.Tensor  # 0 by construction: queues are exact
+    num_incomplete: torch.Tensor  # rays whose traversal stack overflowed
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Primary rays
+# ---------------------------------------------------------------------------
+
+
+def primary_rays_for(scene, cfg: RenderConfig, pixel_idx) -> Rays:
+    """Camera rays + closed-form direction differentials (Raytracer.cpp:34-59) for a
+    batch of global pixel indices (row-major)."""
+    i = (pixel_idx % cfg.width).to(torch.float32)
+    j = (pixel_idx // cfg.width).to(torch.float32)
+    direction = (
+        scene.cam_x[None, :] * i[:, None]
+        + scene.cam_y[None, :] * j[:, None]
+        + scene.cam_top_left[None, :]
+    )
+    d_dot_d = vm.dot(direction, direction)
+    inv_len = torch.rsqrt(d_dot_d)
+    denom = (inv_len / d_dot_d)[:, None]  # d_dot_d^-3/2
+
+    dD_dx = (
+        d_dot_d[:, None] * scene.cam_x[None, :]
+        - vm.dot(direction, scene.cam_x.expand(direction.shape))[:, None] * direction
+    ) * denom
+    dD_dy = (
+        d_dot_d[:, None] * scene.cam_y[None, :]
+        - vm.dot(direction, scene.cam_y.expand(direction.shape))[:, None] * direction
+    ) * denom
+
+    n = pixel_idx.shape[0]
+    zeros = torch.zeros((n, 3), dtype=torch.float32, device=direction.device)
+    return Rays(
+        origin=scene.cam_pos.expand(n, 3).contiguous(),
+        direction=direction * inv_len[:, None],
+        dO_dx=zeros,
+        dO_dy=zeros,
+        dD_dx=dD_dx,
+        dD_dy=dD_dy,
+    )
+
+
+def generate_primary_rays(scene, cfg: RenderConfig) -> Rays:
+    """Full-frame primary rays in row-major order."""
+    idx = torch.arange(cfg.num_pixels, dtype=torch.int32, device=scene.cam_pos.device)
+    return primary_rays_for(scene, cfg, idx)
+
+
+# ---------------------------------------------------------------------------
+# Scene intersection (Scene::trace_primitives / intersect_primitives)
+# ---------------------------------------------------------------------------
+
+
+def _xp(m, p):
+    """Rows of a batch of 3x4 matrices applied to points, as component sums."""
+    return torch.stack(
+        [m[:, r, 0] * p[:, 0] + m[:, r, 1] * p[:, 1] + m[:, r, 2] * p[:, 2] + m[:, r, 3]
+         for r in range(3)], dim=-1,
+    )
+
+
+def _xd(m, d):
+    """Rows of a batch of 3x4 matrices applied to directions, as component sums."""
+    return torch.stack(
+        [m[:, r, 0] * d[:, 0] + m[:, r, 1] * d[:, 1] + m[:, r, 2] * d[:, 2]
+         for r in range(3)], dim=-1,
+    )
+
+
+def _mesh_hits_into(scene, rays: Rays, res: traversal_wide.TraceResult, hits: Hits,
+                    object_space_diffs: bool = False) -> Hits:
+    """Reconstruct the hit attributes from the discrete traversal ids (K7, torch).
+
+    Re-derives (t, u, v) with Moller-Trumbore from the identified triangle, then the
+    hit attribute + Ray Tracing Gems ch.20 differential formulas
+    (BottomLevelBVH.cpp:260-305)."""
+    valid = res.tri >= 0
+    ti = torch.clamp_min(res.tri, 0)
+    ii = torch.clamp_min(res.inst, 0)
+
+    def g(arr, idx):
+        return arr.index_select(0, idx)
+
+    inv = g(scene.inst_inv, ii)  # [N,3,4]
+    world = g(scene.inst_world, ii)
+
+    o_obj = _xp(inv, rays.origin)
+    d_obj = _xd(inv, rays.direction)
+
+    p0 = g(scene.tr_p0, ti)
+    e1 = g(scene.tr_e1, ti)
+    e2 = g(scene.tr_e2, ti)
+
+    hmt = vm.cross(d_obj, e2)
+    a = vm.dot(e1, hmt)
+    f = 1.0 / intersect._nonzero(a)
+    s = o_obj - p0
+    u = f * vm.dot(s, hmt)
+    q = vm.cross(s, e1)
+    v = f * vm.dot(d_obj, q)
+    t = f * vm.dot(e2, q)
+
+    point = rays.origin + t[:, None] * rays.direction
+
+    n0 = g(scene.tr_n0, ti)
+    ne1 = g(scene.tr_ne1, ti)
+    ne2 = g(scene.tr_ne2, ti)
+    n_raw = n0 + u[:, None] * ne1 + v[:, None] * ne2
+    normal = _xd(world, vm.normalize(n_raw, eps=1e-20))
+
+    t0 = g(scene.tr_t0, ti)
+    te1 = g(scene.tr_te1, ti)
+    te2 = g(scene.tr_te2, ti)
+    uv = t0 + u[:, None] * te1 + v[:, None] * te2
+
+    material = g(scene.tr_material, ti)
+
+    dO_dx_o = _xd(inv, rays.dO_dx)
+    dO_dy_o = _xd(inv, rays.dO_dy)
+    dD_dx_o = _xd(inv, rays.dD_dx)
+    dD_dy_o = _xd(inv, rays.dD_dy)
+    one_over_k = 1.0 / intersect._nonzero(vm.dot(vm.cross(e1, e2), d_obj))
+    qx = dO_dx_o + t[:, None] * dD_dx_o
+    qy = dO_dy_o + t[:, None] * dD_dy_o
+    c_u = vm.cross(e2, d_obj)
+    c_v = vm.cross(d_obj, e1)
+    du_dx = one_over_k * vm.dot(c_u, qx)
+    du_dy = one_over_k * vm.dot(c_u, qy)
+    dv_dx = one_over_k * vm.dot(c_v, qx)
+    dv_dy = one_over_k * vm.dot(c_v, qy)
+
+    # cfg.differentials_object_space: identity keeps the reference's object-space
+    # differentials; the default rotates them to world space
+    rot = (lambda m, x: x) if object_space_diffs else _xd
+    dP_dx = rot(world, du_dx[:, None] * e1 + dv_dx[:, None] * e2)
+    dP_dy = rot(world, du_dy[:, None] * e1 + dv_dy[:, None] * e2)
+
+    dn_dx = du_dx[:, None] * ne1 + dv_dx[:, None] * ne2
+    dn_dy = du_dy[:, None] * ne1 + dv_dy[:, None] * ne2
+    n_dot_n = vm.dot(n_raw, n_raw) + 1e-20
+    n_denom = (torch.rsqrt(n_dot_n) / n_dot_n)[:, None]
+    dN_dx = rot(world, (n_dot_n[:, None] * dn_dx - vm.dot(n_raw, dn_dx)[:, None] * n_raw)
+                * n_denom)
+    dN_dy = rot(world, (n_dot_n[:, None] * dn_dy - vm.dot(n_raw, dn_dy)[:, None] * n_raw)
+                * n_denom)
+
+    ds_dx = du_dx * te1[:, 0] + dv_dx * te2[:, 0]
+    ds_dy = du_dy * te1[:, 0] + dv_dy * te2[:, 0]
+    dt_dx = du_dx * te1[:, 1] + dv_dx * te2[:, 1]
+    dt_dy = du_dy * te1[:, 1] + dv_dy * te2[:, 1]
+
+    m3 = valid[:, None]
+    return hits._replace(
+        hit=hits.hit | valid,
+        t=torch.where(valid, t, hits.t),
+        point=torch.where(m3, point, hits.point),
+        normal=torch.where(m3, normal, hits.normal),
+        material_id=torch.where(valid, material, hits.material_id),
+        u=torch.where(valid, uv[:, 0], hits.u),
+        v=torch.where(valid, uv[:, 1], hits.v),
+        ds_dx=torch.where(valid, ds_dx, hits.ds_dx),
+        ds_dy=torch.where(valid, ds_dy, hits.ds_dy),
+        dt_dx=torch.where(valid, dt_dx, hits.dt_dx),
+        dt_dy=torch.where(valid, dt_dy, hits.dt_dy),
+        dO_dx=torch.where(m3, dP_dx, hits.dO_dx),
+        dO_dy=torch.where(m3, dP_dy, hits.dO_dy),
+        dN_dx=torch.where(m3, dN_dx, hits.dN_dx),
+        dN_dy=torch.where(m3, dN_dy, hits.dN_dy),
+        bvh_steps=hits.bvh_steps + res.steps,
+    )
+
+
+def trace_scene(scene, bvh, rays: Rays, active, cfg: RenderConfig):
+    """Closest hit over spheres -> planes -> two-level BVH (Scene.cpp:173-177).
+
+    Returns (Hits, incomplete [] int32)."""
+    n = rays.count
+    dev = rays.origin.device
+    incomplete = torch.zeros((), dtype=torch.int32, device=dev)
+    hits = intersect.make_miss_hits(n, dev)
+    for i in range(scene.n_spheres):
+        hits = intersect.sphere_trace(
+            rays, hits, scene.sph_center[i], scene.sph_radius[i], scene.sph_material[i]
+        )
+    for i in range(scene.n_planes):
+        hits = intersect.plane_trace(
+            rays, hits, scene.pln_normal[i], scene.pln_distance[i], scene.pln_u[i],
+            scene.pln_v[i], scene.pln_material[i],
+        )
+    if bvh is not None:
+        res = traversal_wide.trace_closest(
+            bvh, rays.origin, rays.direction, hits.t, active, cfg
+        )
+        hits = _mesh_hits_into(scene, rays, res, hits,
+                               object_space_diffs=cfg.differentials_object_space)
+        incomplete = res.incomplete
+    # lanes outside the wavefront are misses
+    return hits._replace(hit=hits.hit & active), incomplete
+
+
+def intersect_scene(scene, bvh, origin, direction, max_distance, active, cfg):
+    """Any-hit chain with early-outs (Scene.cpp:179-190).
+
+    Returns (blocked mask, incomplete [] int32)."""
+    rays = intersect.make_rays(origin, direction)
+    blocked = torch.zeros((origin.shape[0],), dtype=torch.bool, device=origin.device)
+    incomplete = torch.zeros((), dtype=torch.int32, device=origin.device)
+    for i in range(scene.n_spheres):
+        blocked = blocked | intersect.sphere_intersect(
+            rays, max_distance, scene.sph_center[i], scene.sph_radius[i]
+        )
+    for i in range(scene.n_planes):
+        blocked = blocked | intersect.plane_intersect(
+            rays, max_distance, scene.pln_normal[i], scene.pln_distance[i]
+        )
+    if bvh is not None:
+        found, incomplete = traversal_wide.trace_any(
+            bvh, origin, direction, max_distance, active & ~blocked, cfg
+        )
+        blocked = blocked | found
+    return blocked & active, incomplete
+
+
+# ---------------------------------------------------------------------------
+# One bounce generation
+# ---------------------------------------------------------------------------
+
+
+class _Generation(NamedTuple):
+    rays: Rays
+    weight: torch.Tensor  # [N,3] throughput
+    sigma: torch.Tensor  # [N,3] Beer absorption for this segment (<= 0)
+    pixel: torch.Tensor  # [N] int32 framebuffer index
+    active: torch.Tensor  # [N] bool
+
+
+def _material_gather(scene, mid):
+    """Per-lane material rows: a plain gather (the JAX package's one-hot matmul
+    computes the same rows)."""
+    return (
+        scene.mat_diffuse.index_select(0, mid),
+        scene.mat_reflection.index_select(0, mid),
+        scene.mat_transmittance.index_select(0, mid),
+        scene.mat_ior.index_select(0, mid),
+        scene.mat_texture.index_select(0, mid),
+    )
+
+
+def _tex_tuple(scene):
+    return (scene.tex_data, scene.tex_width, scene.tex_height, scene.tex_levels,
+            scene.tex_offsets, scene.tex_quad)
+
+
+def _shade_generation(scene, bvh, gen: _Generation, fb, spawn: bool, cfg, stats,
+                      tex4=None, identity_pixels: bool = False):
+    """Trace + shade one generation; returns (fb, child candidates or None, stats).
+
+    ``identity_pixels`` declares gen.pixel == arange(n) (generation 0): the
+    framebuffer accumulation is then a dense add instead of a scatter-add."""
+    rays = gen.rays
+    n = rays.count
+    dev = rays.origin.device
+    hits, incomplete = trace_scene(scene, bvh, rays, gen.active, cfg)
+    stats = stats._replace(num_incomplete=stats.num_incomplete + incomplete)
+    hit = hits.hit
+
+    def fb_add(fb, contribution):
+        if identity_pixels:
+            return fb + contribution
+        return fb.index_add_(0, gen.pixel, contribution)
+
+    # Beer's law along this segment (evaluated at the child level)
+    t_seg = torch.clamp_max(torch.where(hit, hits.t, float("inf")), _BEER_DIST_CLAMP)
+    beer = torch.exp(gen.sigma * t_seg[:, None])
+    w = gen.weight * beer
+
+    # sky on miss (Raytracer.cpp:104-111), added with the surface term below
+    miss = gen.active & ~hit
+    sky_rgb = sky_sample.sample_sky(scene.sky_data, rays.direction)
+    contribution = torch.where(miss[:, None], w * sky_rgb, 0.0)
+
+    # material albedo: per-lane gather + texture filter (Raytracer.cpp:117-141)
+    mid = torch.where(hit, hits.material_id, 0)
+    diffuse_c, refl_c, trans_c, ior, tex_id = _material_gather(scene, mid)
+    if scene.tex_data.shape[0] > 1:
+        albedo = diffuse_c * texture_sample.sample(
+            _tex_tuple(scene), tex_id, hits.u, hits.v, hits.ds_dx, hits.ds_dy,
+            hits.dt_dx, hits.dt_dy, cfg, data4=tex4,
+        )
+    else:
+        # no textures in the scene (the atlas is the white texel)
+        albedo = diffuse_c
+    albedo = torch.where(hit[:, None], albedo, 0.0)
+    diffuse_mask = vm.length_squared(albedo) > 0.0
+
+    # direct lighting; all lights' shadow rays in ONE any-hit launch
+    to_camera = vm.normalize(scene.cam_pos[None, :] - hits.point, eps=1e-20)
+    light_acc = torch.zeros((n, 3), dtype=torch.float32, device=dev) + scene.ambient
+    shadow_active = diffuse_mask  # already implies hit
+    inf = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+
+    n_lights = scene.n_point_lights + scene.n_spot_lights + scene.n_directional_lights
+    if n_lights:
+        # shadow rays only where the light could contribute (front-facing, inside
+        # the spot cone): culling is result-identical (Light.h:15-19)
+        dirs, dists, contribs = [], [], []
+        for i in range(scene.n_point_lights):
+            to_l = scene.pl_pos[i][None, :] - hits.point
+            d2 = vm.length_squared(to_l)
+            dist = torch.sqrt(d2)
+            to_l = to_l / dist[:, None]
+            dirs.append(to_l)
+            dists.append(dist)
+            contribs.append(shading.point_light(
+                hits.normal, to_l, to_camera, scene.pl_colour[i][None, :], d2))
+        for i in range(scene.n_spot_lights):
+            to_l = scene.sl_pos[i][None, :] - hits.point
+            d2 = vm.length_squared(to_l)
+            dist = torch.sqrt(d2)
+            to_l = to_l / dist[:, None]
+            dirs.append(to_l)
+            dists.append(dist)
+            contribs.append(shading.spot_light(
+                hits.normal, to_l, to_camera, scene.sl_colour[i][None, :], d2,
+                scene.sl_neg_dir[i][None, :], scene.sl_inner[i], scene.sl_outer[i]))
+        for i in range(scene.n_directional_lights):
+            dirs.append(scene.dl_neg_dir[i].expand(hits.point.shape))
+            dists.append(inf)
+            contribs.append(shading.directional_light(
+                hits.normal, to_camera, scene.dl_colour[i][None, :], scene.dl_neg_dir[i]))
+        shadow_origin = hits.point
+        if cfg.shadow_normal_offset:
+            shadow_origin = shadow_origin + cfg.shadow_normal_offset * hits.normal
+        contrib_mask = torch.stack(
+            [vm.length_squared(c) > 0.0 for c in contribs], dim=0
+        )  # [L,N]
+        blocked, shadow_incomplete = intersect_scene(
+            scene, bvh,
+            shadow_origin.repeat(n_lights, 1),
+            torch.cat(dirs).contiguous(),
+            torch.cat(dists),
+            shadow_active.repeat(n_lights) & contrib_mask.reshape(-1),
+            cfg,
+        )
+        blocked = blocked.reshape(n_lights, n)
+        stats = stats._replace(num_incomplete=stats.num_incomplete + shadow_incomplete)
+        for li in range(n_lights):
+            light_acc = light_acc + torch.where(
+                (shadow_active & ~blocked[li])[:, None], contribs[li], 0.0
+            )
+        stats = stats._replace(
+            num_shadow=stats.num_shadow + _count(shadow_active[None, :] & contrib_mask)
+        )
+
+    fb = fb_add(fb, contribution + w * albedo * light_acc)
+
+    if not spawn:
+        return fb, None, stats
+
+    # ---- spawn reflection / refraction children (Raytracer.cpp:204-396) ----
+    refl_flag = hit & (vm.length_squared(refl_c) > 0.0)
+    refr_flag = hit & (vm.length_squared(trans_c) > 0.0)
+
+    d = rays.direction
+    nrm = hits.normal
+    dot_dn = vm.dot(d, nrm)
+    entering = dot_dn < 0.0  # dot_mask (Raytracer.cpp:275)
+
+    n1 = torch.where(entering, AIR_IOR, ior)
+    n2 = torch.where(entering, ior, AIR_IOR)
+    cos_theta = torch.where(entering, -dot_dn, dot_dn)
+    n_oriented = torch.where(entering[:, None], nrm, -nrm)
+    eta = n1 / n2
+    k = 1.0 - eta * eta * (1.0 - cos_theta * cos_theta)
+    tir = refr_flag & (k < 0.0)
+
+    refr_dir = vm.refract(d, n_oriented, eta, cos_theta, k)
+
+    # Schlick Fresnel (Raytracer.cpp:378-391)
+    r0 = (n1 - n2) / (n1 + n2)
+    r0 = r0 * r0
+    cos_f = torch.where(n1 > n2, -vm.dot(refr_dir, n_oriented), cos_theta)
+    omc = 1.0 - cos_f
+    omc2 = omc * omc
+    f_r = r0 + ((1.0 - r0) * omc2) * (omc2 * omc)
+    f_t = 1.0 - f_r
+
+    # reflection child
+    refl_dir = vm.reflect(d, nrm)
+    refl_coeff = refl_c * (
+        1.0 + torch.where(refr_flag, torch.where(tir, 1.0, f_r), 0.0)[:, None]
+    )
+    w_refl = w * refl_coeff
+
+    # Igehy reflection differentials (Raytracer.cpp:254-262)
+    ddn_dx = vm.dot(rays.dD_dx, nrm) + vm.dot(d, hits.dN_dx)
+    ddn_dy = vm.dot(rays.dD_dy, nrm) + vm.dot(d, hits.dN_dy)
+    refl_dD_dx = rays.dD_dx - 2.0 * (dot_dn[:, None] * hits.dN_dx + ddn_dx[:, None] * nrm)
+    refl_dD_dy = rays.dD_dy - 2.0 * (dot_dn[:, None] * hits.dN_dy + ddn_dy[:, None] * nrm)
+
+    # Igehy refraction differentials (Raytracer.cpp:325-342)
+    d_dot_n = -cos_theta
+    dprime_dot_n = -vm.safe_sqrt(k)
+    mu = -(eta * cos_theta + dprime_dot_n)
+    refr_dD_dx = eta[:, None] * rays.dD_dx - (
+        (mu * d_dot_n)[:, None] + vm.dot(hits.dN_dx, nrm)[:, None] * nrm
+    ) * ddn_dx[:, None]
+    refr_dD_dy = eta[:, None] * rays.dD_dy - (
+        (mu * d_dot_n)[:, None] + vm.dot(hits.dN_dy, nrm)[:, None] * nrm
+    ) * ddn_dy[:, None]
+
+    refr_active = refr_flag & ~tir
+    w_refr = w * f_t[:, None]
+    refr_sigma = torch.where((refr_active & entering)[:, None], trans_c - 1.0, 0.0)
+
+    stats = stats._replace(
+        num_reflection=stats.num_reflection + _count(refl_flag),
+        num_refraction=stats.num_refraction + _count(refr_active),
+    )
+
+    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    cand = dict(
+        origin=torch.cat([hits.point, hits.point]),
+        direction=torch.cat([refl_dir, refr_dir]),
+        dO_dx=torch.cat([hits.dO_dx, hits.dO_dx]),
+        dO_dy=torch.cat([hits.dO_dy, hits.dO_dy]),
+        dD_dx=torch.cat([refl_dD_dx, refr_dD_dx]),
+        dD_dy=torch.cat([refl_dD_dy, refr_dD_dy]),
+        weight=torch.cat([w_refl, w_refr]),
+        sigma=torch.cat([zeros3, refr_sigma]),
+        pixel=torch.cat([gen.pixel, gen.pixel]),
+        active=torch.cat([refl_flag, refr_active]),
+    )
+    return fb, cand, stats
+
+
+def _compact(cand: dict) -> _Generation:
+    """Stable-compact the active child candidates into the next generation's queue
+    (K6); the queue holds exactly the active candidates, in candidate order."""
+    sel, _n_active = compaction.compact(cand["active"])
+    out = {k: v.index_select(0, sel) for k, v in cand.items()}
+    return _Generation(
+        rays=Rays(origin=out["origin"], direction=out["direction"], dO_dx=out["dO_dx"],
+                  dO_dy=out["dO_dy"], dD_dx=out["dD_dx"], dD_dy=out["dD_dy"]),
+        weight=out["weight"],
+        sigma=out["sigma"],
+        pixel=out["pixel"],
+        active=out["active"],
+    )
+
+
+# ---------------------------------------------------------------------------
+# Top-level render
+# ---------------------------------------------------------------------------
+
+
+def render_wavefront(scene, cfg: RenderConfig, bvh=None, tex4=None):
+    """Render the full frame as one wavefront; returns (rgb [H*W,3], RenderStats)."""
+    if cfg.visualize_heatmap:
+        raise NotImplementedError(
+            "visualize_heatmap is not ported yet (ROADMAP.md queue A, A9)")
+    n = cfg.num_pixels
+    dev = scene.cam_pos.device
+    pixel = torch.arange(n, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    stats = RenderStats(
+        num_primary=zero + n, num_shadow=zero, num_reflection=zero,
+        num_refraction=zero, num_dropped=zero, num_incomplete=zero,
+    )
+    if bvh is None and scene.n_instances > 0:
+        bvh = traversal_wide.build_scene_bvh(scene)
+    if tex4 is None and scene.tex_data.shape[0] > 1:
+        tex4 = texture_sample.expand_quads(_tex_tuple(scene))
+
+    gen = _Generation(
+        rays=primary_rays_for(scene, cfg, pixel),
+        weight=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        sigma=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        pixel=pixel,
+        active=torch.ones((n,), dtype=torch.bool, device=dev),
+    )
+    fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    depth = cfg.num_bounces
+    for bounce in range(depth + 1):
+        fb, cand, stats = _shade_generation(
+            scene, bvh, gen, fb, bounce < depth, cfg, stats, tex4=tex4,
+            identity_pixels=bounce == 0,
+        )
+        if cand is None:
+            break
+        gen = _compact(cand)
+        if gen.pixel.shape[0] == 0:
+            break
+    return fb, stats
+
+
+def render_with_stats(scene, cfg: RenderConfig):
+    """Render one full frame; returns (linear [H,W,3] image, RenderStats)."""
+    fb, stats = render_wavefront(scene, cfg)
+    return fb.reshape(cfg.height, cfg.width, 3), stats
+
+
+def present(image, cfg: RenderConfig):
+    """Post pass: plain gamma (Window.cpp:52-63, fragment_identity.glsl).  FXAA
+    (kernel K8) is not ported yet."""
+    if cfg.enable_fxaa:
+        raise NotImplementedError("FXAA (K8) is not ported yet (ROADMAP.md queue B, K8)")
+    return torch.clamp(image, 0.0, 1.0) ** (1.0 / 2.2)
+
+
+class Renderer:
+    """Entry point: renders packed scenes on one device (``cuda`` by default;
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels)."""
+
+    def __init__(self, cfg: RenderConfig, device=None):
+        self.cfg = cfg
+        self.device = devices.resolve(device)
+
+    def upload(self, packed):
+        """A packed scene (``ScenePacker.frame()``, or any mapping of its fields)
+        as tensors on this renderer's device."""
+        fields = packed._asdict() if hasattr(packed, "_asdict") else packed
+        return scene_from_numpy(fields, self.device)
+
+    def __call__(self, scene):
+        """(linear [H,W,3] image, RenderStats) of one frame, forward only."""
+        with torch.no_grad():
+            return render_with_stats(scene, self.cfg)
