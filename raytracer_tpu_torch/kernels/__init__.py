@@ -23,7 +23,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("traverse", "texture", "sky", "compact")
+SOURCES = ("traverse", "texture", "texture_bwd", "sky", "compact")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -135,16 +135,21 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_input(what: str, *tensors) -> None:
-    """Checks shared by every wrapper before a launch: contiguous, and nothing
-    that asks for a gradient (this slice's kernels are forward-only)."""
+def require_contiguous(what: str, *tensors) -> None:
+    """Checked by every wrapper before a launch: the kernels index flat memory."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def require_no_grad(what: str, *tensors) -> None:
+    """Checked by the traversal wrappers: a walk is discrete and has no gradient,
+    so an input that asks for one is refused rather than silently detached."""
+    for t in tensors:
         if t.requires_grad:
-            raise NotImplementedError(
-                f"{what}: the CUDA kernel is forward-only; its backward comes with "
-                "training (ROADMAP.md queue A, A7)"
+            raise ValueError(
+                f"{what}: traversal is discrete and has no gradient; the renderer "
+                "detaches its inputs (trace_scene, intersect_scene)"
             )
 
 

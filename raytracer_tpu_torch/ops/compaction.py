@@ -36,7 +36,7 @@ def compact(flags: torch.Tensor) -> tuple:
         return compact_plain(flags)
     if flags.dtype != torch.bool or flags.dim() != 1:
         raise TypeError("compact: flags must be a 1-D bool tensor")
-    kernels.require_cuda_input("compact", flags)
+    kernels.require_contiguous("compact", flags)
     n = flags.shape[0]
     if n == 0:
         return torch.empty((0,), dtype=torch.int32, device=flags.device), 0

@@ -6,8 +6,10 @@ Reference (clayne/CPU-Raytracer): Texture.cpp — bilinear (157-186) and anisotr
 filters the whole wavefront across all textures.
 
 This slice ports what config3 runs: MIPMAP mode with the ANISOTROPIC filter.
-``sample`` launches ``csrc/texture.cu`` for CUDA tensors and runs ``sample_plain``
-for CPU tensors.  NEAREST, BILINEAR, TRILINEAR and EWA raise
+``sample`` launches ``csrc/texture.cu`` (K3) for CUDA tensors and runs
+``sample_plain`` for CPU tensors; its gradient on the card is
+``csrc/texture_bwd.cu`` (K4, ``TextureSample``), on the CPU autograd of
+``sample_plain``.  NEAREST, BILINEAR, TRILINEAR and EWA raise
 ``NotImplementedError``: they are still to be ported (ROADMAP.md queue B, K3).
 """
 
@@ -18,7 +20,10 @@ import torch
 from .. import kernels
 from ..config import MipmapFilter, RenderConfig, TextureSampleMode
 
-launches = 0  # rt_texture_aniso launches (reset and read by chip_smoke.py)
+# rt_texture_aniso (K3) and rt_texture_aniso_bwd (K4) launches (reset and read by
+# chip_smoke.py)
+launches = 0
+bwd_launches = 0
 
 _NOT_PORTED = (
     "texture filtering mode {} is not ported yet: only MIPMAP + ANISOTROPIC "
@@ -29,7 +34,9 @@ _NOT_PORTED = (
 def expand_quads(tex) -> torch.Tensor:
     """[X,12] quad-row atlas: each row holds a texel's full 2x2 bilinear footprint
     (wrap baked into tex.quad_idx at pack time), so one tap reads ONE row.
-    Scene-only: the renderer builds it once per frame."""
+    Scene-only: the renderer builds it once per frame.  A torch gather, so its
+    autograd carries the [X,12] row gradient back to tex data, as the transpose
+    of ``jnp.take`` does in JAX."""
     data, _w, _h, _l, _o, quad = tex
     return data[quad.reshape(-1).long()].reshape(-1, 12)
 
@@ -130,16 +137,9 @@ def sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfi
     return torch.where((levels[tex_id] > 1)[:, None], mip, bil)
 
 
-def sample(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfig,
-           data4) -> torch.Tensor:
-    """K3.  CPU tensors take ``sample_plain``; CUDA tensors launch
-    ``rt_texture_aniso`` (module attribute ``launches`` counts them)."""
-    global launches
-    if s.device.type == "cpu":
-        return sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg, data4)
-    _check_mode(cfg)
+def _check_inputs(tex, lanes, data4) -> None:
     data, width, height, levels, offsets, _quad = tex
-    lanes = (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)
+    tex_id, s = lanes[0], lanes[1]
     n = s.shape[0]
     if any(x.shape != (n,) for x in lanes):
         raise ValueError("texture sample: per-lane inputs must all be [N]")
@@ -154,17 +154,113 @@ def sample(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfig,
     if any(x.device != s.device for x in (data, data4, width, height, levels, offsets,
                                           *lanes)):
         raise ValueError("texture sample: inputs on different devices")
-    kernels.require_cuda_input("texture sample", data, data4, width, height, levels,
+    kernels.require_contiguous("texture sample", data, data4, width, height, levels,
                                offsets, *lanes)
-    out = torch.empty((n, 3), dtype=torch.float32, device=s.device)
+
+
+def _atlas_ptrs(tex, data4) -> list:
+    data, width, height, levels, offsets, _quad = tex
+    return [x.data_ptr() for x in (data, data4, width, height, levels, offsets)]
+
+
+def sample_forward(tex, lanes, max_anisotropy: float, data4) -> torch.Tensor:
+    """K3, one ``rt_texture_aniso`` launch (counted in ``launches``).
+    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy), each [N]."""
+    global launches
+    _check_inputs(tex, lanes, data4)
+    n = lanes[1].shape[0]
+    dev = lanes[1].device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     P, I, F = kernels.P, kernels.I, kernels.F
     fn = kernels.entry("texture", "rt_texture_aniso", [P] * 13 + [I, F, P, P])
-    err = fn(data.data_ptr(), data4.data_ptr(), width.data_ptr(), height.data_ptr(),
-             levels.data_ptr(), offsets.data_ptr(), *(x.data_ptr() for x in lanes),
-             n, float(cfg.max_anisotropy), out.data_ptr(), kernels.stream_ptr(s.device))
+    err = fn(*_atlas_ptrs(tex, data4), *(x.data_ptr() for x in lanes), n,
+             float(max_anisotropy), out.data_ptr(), kernels.stream_ptr(dev))
     launches += 1
     kernels.check(err, "rt_texture_aniso")
     return out
 
+
+def sample_backward(tex, lanes, max_anisotropy: float, data4, cot, need_data: bool,
+                    need_data4: bool, need_lanes: bool):
+    """K4, one ``rt_texture_aniso_bwd`` launch (counted in ``bwd_launches``).
+
+    Returns (grad data [X,3] or None, grad data4 [X,12] or None, lane gradients
+    [6,N] (s, t, ds_dx, ds_dy, dt_dx, dt_dy) or None), each computed only when
+    asked for.  The atlas gradients are zeroed here and scattered into with fp32
+    atomics, so their summation order changes from run to run."""
+    global bwd_launches
+    _check_inputs(tex, lanes, data4)
+    n = lanes[1].shape[0]
+    dev = lanes[1].device
+    if cot.shape != (n, 3) or cot.dtype != torch.float32 or cot.device != dev:
+        raise ValueError("texture sample backward: cot [N,3] float32 on the lanes' device "
+                         "expected")
+    kernels.require_contiguous("texture sample backward", cot)
+    x = tex[0].shape[0]
+    grad_data = torch.zeros((x, 3), dtype=torch.float32, device=dev) if need_data else None
+    grad_data4 = (torch.zeros((x, 12), dtype=torch.float32, device=dev)
+                  if need_data4 else None)
+    grad_lanes = (torch.empty((6, n), dtype=torch.float32, device=dev)
+                  if need_lanes else None)
+    if n == 0:
+        if grad_lanes is not None:
+            grad_lanes.zero_()
+        return grad_data, grad_data4, grad_lanes
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    P, I, F = kernels.P, kernels.I, kernels.F
+    fn = kernels.entry("texture_bwd", "rt_texture_aniso_bwd", [P] * 14 + [I, F, P, P, P, P])
+    err = fn(*_atlas_ptrs(tex, data4), *(x.data_ptr() for x in lanes), cot.data_ptr(), n,
+             float(max_anisotropy), ptr(grad_data), ptr(grad_data4), ptr(grad_lanes),
+             kernels.stream_ptr(dev))
+    bwd_launches += 1
+    kernels.check(err, "rt_texture_aniso_bwd")
+    return grad_data, grad_data4, grad_lanes
+
+
+class TextureSample(torch.autograd.Function):
+    """K3 and K4 on the card: the forward launches ``rt_texture_aniso``, the
+    backward ``rt_texture_aniso_bwd``, which recomputes each lane's set-up from
+    the saved inputs.  Gradients reach data (top texels), data4 (quad rows; the
+    caller's ``expand_quads`` gather folds them into the atlas) and the six
+    float lane inputs; the integer tables and tex_id get none."""
+
+    @staticmethod
+    def forward(ctx, max_anisotropy, data, data4, width, height, levels, offsets,
+                tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy):
+        tex = (data, width, height, levels, offsets, None)
+        lanes = (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)
+        out = sample_forward(tex, lanes, max_anisotropy, data4)
+        ctx.max_anisotropy = max_anisotropy
+        ctx.save_for_backward(data, data4, width, height, levels, offsets, *lanes)
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        data, data4, width, height, levels, offsets, *lanes = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        lane_needs = needs[8:14]
+        grad_data, grad_data4, grad_lanes = sample_backward(
+            (data, width, height, levels, offsets, None), tuple(lanes),
+            ctx.max_anisotropy, data4, cot.contiguous(), needs[1], needs[2],
+            any(lane_needs))
+        lane_grads = [grad_lanes[k] if need else None for k, need in enumerate(lane_needs)]
+        return (None, grad_data, grad_data4, None, None, None, None, None, *lane_grads)
+
+
+def sample(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfig,
+           data4) -> torch.Tensor:
+    """K3, differentiable.  CPU tensors take ``sample_plain`` (differentiated by
+    autograd); CUDA tensors go through ``TextureSample``, whose forward launches
+    ``rt_texture_aniso`` (counted in ``launches``) and whose backward launches
+    ``rt_texture_aniso_bwd`` (counted in ``bwd_launches``)."""
+    if s.device.type == "cpu":
+        return sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg, data4)
+    _check_mode(cfg)
+    data, width, height, levels, offsets, _quad = tex
+    return TextureSample.apply(float(cfg.max_anisotropy), data, data4, width, height,
+                               levels, offsets, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)

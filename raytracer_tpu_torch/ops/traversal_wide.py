@@ -254,7 +254,8 @@ def _check_rays(what, bvh, o, d, t_max, active, stack_size):
         raise ValueError(f"{what}: inputs on different devices")
     if not 1 <= stack_size <= _MAX_STACK:
         raise ValueError(f"{what}: wide_stack_size must be in 1..{_MAX_STACK}")
-    kernels.require_cuda_input(what, o, d, t_max, active, bvh.table, bvh.inst_mat)
+    kernels.require_contiguous(what, o, d, t_max, active, bvh.table, bvh.inst_mat)
+    kernels.require_no_grad(what, o, d, t_max, bvh.table, bvh.inst_mat)
 
 
 def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig):

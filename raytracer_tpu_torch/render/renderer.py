@@ -17,6 +17,10 @@ one-hot matmul gathers) are not rebuilt.
 Kernels on this path: K1/K2 traversal (``ops/traversal_wide``), K3 texture
 (``ops/texture_sample``), K5 sky (``ops/sky_sample``), K6 compaction
 (``ops/compaction``).  Everything else is elementwise torch.
+
+The render is differentiable (``diff/train.py``): the texture and sky carry
+their own backward kernels (K4, K5 bwd), the rest is torch autograd, and the
+traversal is discrete, so its inputs are detached as JAX stops gradients there.
 """
 
 from __future__ import annotations
@@ -240,8 +244,10 @@ def trace_scene(scene, bvh, rays: Rays, active, cfg: RenderConfig):
             scene.pln_v[i], scene.pln_material[i],
         )
     if bvh is not None:
+        # traversal is discrete: no gradient flows through the walk (JAX wraps it
+        # in stop_gradient); the hit is re-derived differentiably from its ids
         res = traversal_wide.trace_closest(
-            bvh, rays.origin, rays.direction, hits.t, active, cfg
+            bvh, rays.origin.detach(), rays.direction.detach(), hits.t.detach(), active, cfg
         )
         hits = _mesh_hits_into(scene, rays, res, hits,
                                object_space_diffs=cfg.differentials_object_space)
@@ -267,7 +273,8 @@ def intersect_scene(scene, bvh, origin, direction, max_distance, active, cfg):
         )
     if bvh is not None:
         found, incomplete = traversal_wide.trace_any(
-            bvh, origin, direction, max_distance, active & ~blocked, cfg
+            bvh, origin.detach(), direction.detach(), max_distance.detach(),
+            active & ~blocked, cfg
         )
         blocked = blocked | found
     return blocked & active, incomplete
@@ -506,17 +513,25 @@ def _compact(cand: dict) -> _Generation:
 # ---------------------------------------------------------------------------
 
 
-def render_wavefront(scene, cfg: RenderConfig, bvh=None, tex4=None):
-    """Render the full frame as one wavefront; returns (rgb [H*W,3], RenderStats)."""
+def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=None):
+    """Render a batch of pixels as one wavefront; returns (rgb [n,3], RenderStats).
+
+    ``pixel_idx`` [n] int32 holds global row-major pixel indices in any order
+    (default: the whole frame); row k of the result is pixel ``pixel_idx[k]``.
+    Negative indices are padding lanes: they trace nothing and contribute zero.
+    ``bvh`` and ``tex4`` are the frame's traversal table and quad atlas, built
+    here when not given."""
     if cfg.visualize_heatmap:
         raise NotImplementedError(
             "visualize_heatmap is not ported yet (ROADMAP.md queue A, A9)")
-    n = cfg.num_pixels
     dev = scene.cam_pos.device
-    pixel = torch.arange(n, dtype=torch.int32, device=dev)
+    if pixel_idx is None:
+        pixel_idx = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
+    n = pixel_idx.shape[0]
+    lane_active = pixel_idx >= 0
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     stats = RenderStats(
-        num_primary=zero + n, num_shadow=zero, num_reflection=zero,
+        num_primary=_count(lane_active), num_shadow=zero, num_reflection=zero,
         num_refraction=zero, num_dropped=zero, num_incomplete=zero,
     )
     if bvh is None and scene.n_instances > 0:
@@ -525,11 +540,11 @@ def render_wavefront(scene, cfg: RenderConfig, bvh=None, tex4=None):
         tex4 = texture_sample.expand_quads(_tex_tuple(scene))
 
     gen = _Generation(
-        rays=primary_rays_for(scene, cfg, pixel),
+        rays=primary_rays_for(scene, cfg, torch.clamp_min(pixel_idx, 0)),
         weight=torch.ones((n, 3), dtype=torch.float32, device=dev),
         sigma=torch.zeros((n, 3), dtype=torch.float32, device=dev),
-        pixel=pixel,
-        active=torch.ones((n,), dtype=torch.bool, device=dev),
+        pixel=torch.arange(n, dtype=torch.int32, device=dev),
+        active=lane_active,
     )
     fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     depth = cfg.num_bounces
@@ -544,6 +559,16 @@ def render_wavefront(scene, cfg: RenderConfig, bvh=None, tex4=None):
         if gen.pixel.shape[0] == 0:
             break
     return fb, stats
+
+
+def render_pixels(scene, cfg: RenderConfig, pixel_idx):
+    """Render an arbitrary pixel batch as one wavefront; returns (rgb [n,3],
+    RenderStats).  Kept under the JAX package's name so that code written
+    against ``raytracer_tpu.render.renderer.render_pixels`` (``render_loss``
+    among it) ports line for line; it is ``render_wavefront`` with a batch.  The
+    JAX package cuts the batch into ``lax.map`` chunks to bound its program
+    size; a CUDA wavefront has no such limit."""
+    return render_wavefront(scene, cfg, pixel_idx)
 
 
 def render_with_stats(scene, cfg: RenderConfig):

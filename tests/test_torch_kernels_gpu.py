@@ -53,29 +53,80 @@ def test_compact_kernel_matches_plain(cuda, n):
     assert torch.equal(k_idx, p_idx)
 
 
-def test_texture_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(1)
+def _random_texture_inputs(cuda, seed=1, n=50_000):
+    rng = np.random.default_rng(seed)
     texs = [textures.from_array(rng.random((h, w, 3), dtype=np.float32), srgb=False)
             for h, w in ((64, 64), (16, 32), (8, 8))]
     atlas = textures.build_atlas(texs)
     tex = tuple(torch.from_numpy(np.asarray(a)).to(cuda) for a in (
         atlas.data, atlas.width, atlas.height, atlas.mip_levels, atlas.mip_offsets,
         atlas.quad_idx))
-    n = 50_000
     tex_id = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(cuda)
     st = torch.from_numpy(rng.uniform(-2, 3, (2, n)).astype(np.float32)).to(cuda)
     # derivatives from 1e-5 to 10 texture widths: every level, level < 0 and top
     der = torch.from_numpy(
         (10.0 ** rng.uniform(-5, 1, (4, n)) * rng.choice([-1, 1], (4, n)))
         .astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda)
+    lanes = (tex_id, st[0].contiguous(), st[1].contiguous(), *(x.contiguous() for x in der))
+    return tex, lanes, cot
+
+
+def test_texture_kernel_matches_plain(cuda):
+    tex, lanes, _ = _random_texture_inputs(cuda)
     cfg = RenderConfig()
     data4 = texture_sample.expand_quads(tex)
-    args = (tex, tex_id, st[0].contiguous(), st[1].contiguous(),
-            *(x.contiguous() for x in der))
-    k = texture_sample.sample(*args, cfg, data4=data4)
-    p = texture_sample.sample_plain(*args, cfg, data4)
+    k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
+    p = texture_sample.sample_plain(tex, *lanes, cfg, data4)
     err = (k - p).abs().amax(dim=1)
     assert float((err <= 1e-5).float().mean()) >= 0.999
+
+
+def _texture_grads(sample, tex, lanes, cot, cfg):
+    """Gradients of data, data4 and the six float lane inputs through ``sample``."""
+    data = tex[0].detach().clone().requires_grad_()
+    data4 = texture_sample.expand_quads(tex).detach().requires_grad_()
+    floats = [x.detach().clone().requires_grad_() for x in lanes[1:]]
+    out = sample((data, *tex[1:]), lanes[0], *floats, cfg, data4)
+    return out.detach(), torch.autograd.grad(out, [data, data4, *floats], cot)
+
+
+def test_texture_backward_kernel_matches_plain(cuda):
+    """K4 against autograd of sample_plain, on lanes whose forward agrees (a lane
+    that takes another mip level in K3 sends its gradient elsewhere)."""
+    tex, lanes, cot = _random_texture_inputs(cuda)
+    cfg = RenderConfig()
+    before = texture_sample.bwd_launches
+    k_out, _ = _texture_grads(texture_sample.sample, tex, lanes, cot, cfg)
+    p_out, _ = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
+    same = (k_out - p_out).abs().amax(dim=1) <= 1e-5
+    assert float(same.float().mean()) >= 0.999
+    cot = cot * same[:, None]
+    _, kg = _texture_grads(texture_sample.sample, tex, lanes, cot, cfg)
+    _, pg = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
+    assert texture_sample.bwd_launches == before + 2
+    for name, a, b in zip(("data", "data4"), kg[:2], pg[:2]):
+        assert float((a - b).norm() / b.norm()) <= 1e-5, name
+    for a, b in zip(kg[2:], pg[2:]):
+        err = (a - b).abs() / b.abs().max()
+        assert float((err <= 1e-5).float().mean()) >= 0.999
+
+
+def test_sky_backward_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(2)
+    sky = torch.from_numpy(rng.random((64 * 64, 3), dtype=np.float32)).to(cuda)
+    d = torch.from_numpy(_unit(rng, 65536)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(65536, 3)).astype(np.float32)).to(cuda)
+    same = (sky_sample.sample_sky(sky, d) == sky_sample.sample_sky_plain(sky, d)).all(dim=1)
+    cot = cot * same[:, None]
+    before = sky_sample.bwd_launches
+    grads = []
+    for fn in (sky_sample.sample_sky, sky_sample.sample_sky_plain):
+        leaf = sky.clone().requires_grad_()
+        grads.append(torch.autograd.grad(fn(leaf, d), [leaf], cot)[0])
+    assert sky_sample.bwd_launches == before + 1
+    k, p = grads
+    assert float((k - p).norm() / p.norm()) <= 1e-5
 
 
 def _config1(device, w=32, h=32):
@@ -124,10 +175,49 @@ def test_render_on_card_matches_cpu(cuda):
     assert float((d.amax(dim=-1) <= 1e-3).float().mean()) >= 0.995
 
 
-def test_wrappers_are_forward_only_on_the_card(cuda):
-    """This slice's kernels have no backward: a CUDA input that asks for a
-    gradient is refused, not silently detached."""
-    sky = torch.rand(16, 3, device=cuda)
+def test_traversal_refuses_gradients_sky_and_texture_take_them(cuda):
+    """The walk is discrete: a traversal input that asks for a gradient is
+    refused (the renderer detaches them).  Sky and texture differentiate."""
+    rend, packed = _config1(cuda, 8, 8)
+    scene = rend.upload(packed)
+    bvh = traversal_wide.build_scene_bvh(scene)
+    rays = renderer.generate_primary_rays(scene, rend.cfg)
+    n = rays.count
+    t_max = torch.full((n,), float("inf"), device=cuda)
+    active = torch.ones((n,), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="discrete"):
+        traversal_wide.trace_closest(bvh, rays.origin, rays.direction.requires_grad_(),
+                                     t_max, active, rend.cfg)
+    with pytest.raises(ValueError, match="discrete"):
+        traversal_wide.trace_any(bvh, rays.origin, rays.direction, t_max, active, rend.cfg)
+    sky = torch.rand(16, 3, device=cuda, requires_grad=True)
     d = torch.nn.functional.normalize(torch.randn(8, 3, device=cuda), dim=1)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        sky_sample.sample_sky(sky, d.requires_grad_())
+    sky_sample.sample_sky(sky, d.requires_grad_()).sum().backward()
+    assert float(sky.grad.sum()) > 0
+
+
+def test_render_grads_on_card_match_cpu(cuda):
+    """config1 fwd+bwd of the image loss: the card (K1-K6 and the two backward
+    kernels) against the CPU (plain versions under autograd)."""
+    from raytracer_tpu_torch.diff import train
+
+    rend, packed = _config1(cuda)
+    cpu = renderer.Renderer(rend.cfg, device="cpu")
+    target = torch.from_numpy(np.random.default_rng(4).random((32, 32, 3), dtype=np.float32))
+    out = []
+    for r in (rend, cpu):
+        scene = r.upload(packed)
+        params = train.extract_params(scene)
+        loss = train.render_loss(params, scene, target.to(r.device), r.cfg)
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad for k, p in params.items()}))
+    (gl, gg), (cl, cg) = out
+    assert abs(gl - cl) <= 1e-5 * cl
+    for k, c in cg.items():
+        if c is None:
+            assert gg[k] is None, k
+            continue
+        g = gg[k].cpu()
+        assert torch.isfinite(g).all(), k
+        if c.norm() > 0:
+            assert float((g - c).norm() / c.norm()) <= 1e-3, k

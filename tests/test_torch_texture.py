@@ -8,7 +8,7 @@ import torch
 from raytracer_tpu.ops import texture_sample as jax_texture
 from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode
 from raytracer_tpu_torch.ops import texture_sample
-from torch_parity import fields, jax_scene, torch_config
+from torch_parity import fields, jax_scene, texture_lanes, torch_config
 
 TEX_FIELDS = ("tex_data", "tex_width", "tex_height", "tex_levels", "tex_offsets", "tex_quad")
 
@@ -20,20 +20,9 @@ def atlas():
     return tuple(f[k] for k in TEX_FIELDS), cfg
 
 
-def _lanes(tex, n=20_000, seed=3):
-    rng = np.random.default_rng(seed)
-    k = tex[1].shape[0]
-    tex_id = rng.integers(0, k, n).astype(np.int32)
-    st = rng.uniform(-1.0, 2.0, (2, n)).astype(np.float32)
-    # derivative magnitudes from 1e-6 to 10 texture widths: below level 0, every
-    # level, and past the top (the 1x1 mip)
-    der = (10.0 ** rng.uniform(-6, 1, (4, n)) * rng.choice([-1.0, 1.0], (4, n)))
-    return (tex_id, st[0], st[1], *der.astype(np.float32))
-
-
 def test_texture_matches_jax(atlas):
     tex, cfg = atlas
-    lanes = _lanes(tex)
+    lanes = texture_lanes(tex)
     jtex = tuple(jnp.asarray(a) for a in tex)
     ref = np.asarray(jax_texture.sample(
         jtex, *(jnp.asarray(a) for a in lanes), cfg, data4=jax_texture.expand_quads(jtex)))
@@ -58,7 +47,7 @@ def test_texture_matches_jax(atlas):
 ])
 def test_modes_not_ported_raise(atlas, change):
     tex, cfg = atlas
-    lanes = [torch.from_numpy(a) for a in _lanes(tex, n=16)]
+    lanes = [torch.from_numpy(a) for a in texture_lanes(tex, n=16)]
     ttex = tuple(torch.from_numpy(a) for a in tex)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         texture_sample.sample(ttex, *lanes, torch_config(cfg).replace(**change),

@@ -83,3 +83,16 @@ def torch_config(cfg) -> TorchConfig:
 
 def jit(fn):
     return jax.jit(fn)
+
+
+def texture_lanes(tex, n=20_000, seed=3):
+    """Seeded per-lane texture inputs (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)
+    over the atlas arrays ``tex``."""
+    rng = np.random.default_rng(seed)
+    k = tex[1].shape[0]
+    tex_id = rng.integers(0, k, n).astype(np.int32)
+    st = rng.uniform(-1.0, 2.0, (2, n)).astype(np.float32)
+    # derivative magnitudes from 1e-6 to 10 texture widths: below level 0, every
+    # level, and past the top (the 1x1 mip)
+    der = (10.0 ** rng.uniform(-6, 1, (4, n)) * rng.choice([-1.0, 1.0], (4, n)))
+    return (tex_id, st[0], st[1], *der.astype(np.float32))
