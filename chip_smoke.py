@@ -23,16 +23,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    a warm-up split into forward and backward, fwd+bwd MRays/s, each kernel's time
    inside a step, an Adam update's time, peak device memory and one profiled
    step; then 3 steps of ``diff.train.make_train_step``, whose loss must fall;
-5. kernel vs plain: each kernel and its plain PyTorch version on the card, on
-   the inputs the main path gave that kernel in generation 0, with the stated
-   tolerance (a backward kernel against autograd of the plain forward, with a
-   seeded cotangent); then each kernel's time, its plain version's time, the one
-   PyTorch call that computes the same function where there is one, and the
-   least time the card could take (bytes over 3.35 TB/s or float32 operations
-   over 67 TFLOP/s, whichever is larger);
-6. small-input check: config3 at 64x36 (20k triangles) on the card against the
-   same render on the CPU through the plain versions, forward and fwd+bwd;
-7. the kernels line, the ``nvidia-smi`` line, and last the device line.
+5. the interactive frame loop: ``raytracer_tpu_torch.app.main`` renders config4
+   (900x600, 3 bounces, animated, TLAS rebuilt on the host every frame) for 30
+   frames with FXAA into PNGs — its own per-frame ms (median, p90), MRays/s,
+   dropped rays (0 on every frame), the launches of every kernel in the run
+   (K8 FXAA and K9 spheres/planes among them, each > 0), every PNG read back
+   with the port's ``load_png``; then the pieces of one frame timed apart
+   (animate + pack, upload, render, present, PNG write);
+6. configs 0 (256², no bounce) and 2 (512², 8 bounces) forward: frame ms
+   (median of 3 after a warm-up), MRays/s, the six counters (dropped and
+   incomplete must be 0) and each kernel's launches in one frame;
+7. kernel vs plain: each kernel and its plain PyTorch version on the card, on
+   the inputs the main path gave that kernel in generation 0 (the forward
+   kernels on config3's frame and on config4's; K8 on config4's presented
+   frame and on config3's 1080p frame; K9 on every generation of config4,
+   config0 and config2, the rays that start inside a dielectric sphere
+   among them), with the stated tolerance (a backward kernel against
+   autograd of the plain forward, with a seeded cotangent); then each kernel's
+   time, its plain version's time, the one PyTorch call that computes the same
+   function where there is one, and the least time the card could take (bytes
+   over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger);
+8. small-input checks, the card against the same render on the CPU through the
+   plain versions: config3 at 64x36 (20k triangles), config4 at 96x64 on
+   animation frames 0 and 2, config2 at 64x64 and 8 bounces, forward; config3
+   and config4 fwd+bwd;
+9. the kernels line, the ``nvidia-smi`` line, and last the device line.
 
 It imports nothing of JAX.  Without a CUDA card, or run outside the repository,
 it exits non-zero and prints no result.
@@ -40,9 +55,12 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,6 +83,16 @@ OPS_TEX_LANE, OPS_TEX_TAP = 25, 30  # per lane; per bilinear tap (csrc/texture.c
 # and accumulate; per lane the set-up and the cotangent / n (28)
 OPS_TEXBWD_LANE, OPS_TEXBWD_TAP = 28, 99
 OPS_SKYBWD = 6  # per lane: 3 products and 3 atomic adds (csrc/sky.cu)
+# csrc/fxaa.cu, per pixel (a powf counted as one operation): 21 texel fetches
+# of 3 gamma'd channels (9 each), 6 lumas (5), the min / max, direction, reduce
+# and span clamp (31), 4 tap positions (16), 4 bilinear taps (43), the means and
+# the range test (20)
+OPS_FXAA = 21 * 9 + 6 * 5 + 31 + 16 + 4 * 43 + 20
+# csrc/primitives.cu: per closest-hit lane the ray's a and 1/2a (7), each sphere
+# 30, each plane 17; per any-hit test a sphere 27, a plane 17
+OPS_PRIM_LANE, OPS_PRIM_SPHERE, OPS_PRIM_PLANE = 7, 30, 17
+OPS_ANY_SPHERE, OPS_ANY_PLANE = 27, 17
+APP_FRAMES = 30  # config4 frames rendered through app.main
 # card against CPU on config3 64x36 fwd+bwd: per-field l2-relative bound on the
 # gradients ("*" for every other field).  Measured on an H100: <= 2.5e-5 (the
 # camera fields), tex_data 8.8e-4 (the card's log2 moves a few lanes to another
@@ -206,19 +234,21 @@ def main() -> int:
         return fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script needs one CUDA card")
+    import numpy as np
     if not os.path.isdir(os.path.join(REPO, "raytracer_tpu_torch")):
         return fail(f"{REPO} holds no raytracer_tpu_torch package: run from a checkout")
     sys.path.insert(0, REPO)
 
-    from raytracer_tpu_torch import kernels
+    from raytracer_tpu_torch import app, kernels
     from raytracer_tpu_torch.config import TraversalStrategy
     from raytracer_tpu_torch.diff import train
     from raytracer_tpu_torch.ops import (
-        compaction, sky_sample, texture_sample, traversal_wide,
+        compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide,
     )
     from raytracer_tpu_torch.render import renderer
     from raytracer_tpu_torch.scene import scenes
     from raytracer_tpu_torch.scene.device import ScenePacker
+    from raytracer_tpu_torch.utils import image as image_util
 
     # -------------------------------------------------------------- 1. environment
     smi = nvidia_smi_line()
@@ -258,7 +288,13 @@ def main() -> int:
     }
     counts = {**fwd_counts,
               "texture_aniso_bwd": (texture_sample, "bwd_launches"),
-              "sky_bwd": (sky_sample, "bwd_launches")}
+              "sky_bwd": (sky_sample, "bwd_launches"),
+              "fxaa": (fxaa, "launches"),
+              "prim_closest": (intersect, "closest_launches"),
+              "prim_any": (intersect, "any_launches")}
+    train_kernels = (*fwd_counts, "texture_aniso_bwd", "sky_bwd")
+    # config4 through the app: every forward kernel, FXAA and the primitives
+    app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any")
     targets = [(traversal_wide, "trace_closest", "traverse_closest"),
                (traversal_wide, "trace_any", "traverse_any"),
                (texture_sample, "sample", "texture_aniso"),
@@ -387,8 +423,8 @@ def main() -> int:
          max_memory_allocated_bytes=train_peak_mem,
          make_train_step_fields=list(TRAIN_FIELDS), make_train_step_losses=train_losses,
          nvidia_smi=smi)
-    problems = [f"{k} launched {n} times in the training step"
-                for k, n in train_launches.items() if n <= 0]
+    problems = [f"{k} launched {train_launches[k]} times in the training step"
+                for k in train_kernels if train_launches[k] <= 0]
     if tcounters["num_dropped"] or tcounters["num_incomplete"]:
         problems.append(f"loss counters not 0 in the training step: {tcounters}")
     norms = [v for v in grad_norms.values() if v is not None]
@@ -399,12 +435,154 @@ def main() -> int:
     if problems:
         return fail("; ".join(problems))
 
-    # --------------------------------------------------------- 5. kernel vs plain
+    # ------------------------------------------------ 5. the interactive frame loop
+    app_out = os.path.join(REPO, "build", "chip_smoke_app")
+    shutil.rmtree(app_out, ignore_errors=True)
+    reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        app.main(["--scene", "config4", "--frames", str(APP_FRAMES), "--fxaa",
+                  "--out", app_out])
+    app_s = time.perf_counter() - t0
+    app_launches = read_counts()
+    frames = [json.loads(x) for x in printed.getvalue().splitlines() if x.startswith("{")]
+    frame_ms_app = [f["ms"] for f in frames]
+    pngs = sorted(os.listdir(app_out))
+    png_shapes = {tuple(image_util.load_png(os.path.join(app_out, f)).shape) for f in pngs}
+    shutil.rmtree(app_out)
+    emit("app", command="raytracer_tpu_torch.app.main --scene config4 --frames "
+         f"{APP_FRAMES} --fxaa", frames=len(frames), seconds=app_s,
+         frame_ms_median=statistics.median(frame_ms_app),
+         frame_ms_p90=statistics.quantiles(frame_ms_app, n=10, method="inclusive")[-1],
+         frame_ms_all=frame_ms_app,
+         total_mrays_s_median=statistics.median(f["total_mrays_s"] for f in frames),
+         dropped_rays=[f["dropped_rays"] for f in frames], launches=app_launches,
+         launches_per_frame={k: n / APP_FRAMES for k, n in app_launches.items()},
+         pngs=len(pngs), png_shapes=[list(x) for x in png_shapes], nvidia_smi=smi)
+    problems = [f"{k} launched {app_launches[k]} times in the app run"
+                for k in app_kernels if app_launches[k] <= 0]
+    if app_launches["fxaa"] != APP_FRAMES:
+        problems.append(f"FXAA launched {app_launches['fxaa']} times in {APP_FRAMES} frames")
+    if len(frames) != APP_FRAMES or any(f["dropped_rays"] for f in frames):
+        problems.append("the app printed the wrong frames or dropped rays")
+    if len(pngs) != APP_FRAMES + 1 or png_shapes != {(600, 900, 3)}:
+        problems.append(f"the app wrote {len(pngs)} PNGs of shapes {png_shapes}")
+    if problems:
+        return fail("; ".join(problems))
+
+    # the pieces of one config4 frame, apart: one warm-up frame, then the median
+    # of 5 (the app's frame clock holds them all, the previous frame's PNG write
+    # included)
+    desc4, cfg4 = scenes.make_scene("config4")
+    cfg4 = cfg4.replace(enable_fxaa=True)
+    packer4 = ScenePacker(desc4, cfg4.width, cfg4.height)
+    rend4 = renderer.Renderer(cfg4, device="cuda")
+    png_path = os.path.join(REPO, "build", "chip_smoke_piece.png")
+    piece_s = {k: [] for k in ("animate_and_pack", "upload", "render", "present",
+                               "save_png")}
+    for i in range(6):
+        t0 = time.perf_counter()
+        desc4.update(1.0 / 60.0)
+        packed4 = packer4.frame()
+        t1 = time.perf_counter()
+        scene4 = rend4.upload(packed4)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        img4, stats4 = rend4(scene4)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        with torch.no_grad():
+            renderer.present(img4, cfg4)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        image_util.save_png(png_path, img4.cpu().numpy())
+        t5 = time.perf_counter()
+        if i:
+            for k, a, b in (("animate_and_pack", t0, t1), ("upload", t1, t2),
+                            ("render", t2, t3), ("present", t3, t4), ("save_png", t4, t5)):
+                piece_s[k].append(b - a)
+    os.remove(png_path)
+    pieces_ms = {k: statistics.median(v) * 1e3 for k, v in piece_s.items()}
+    # the PNG write split: the copy to the host, the gamma in numpy, zlib + chunks
+    t0 = time.perf_counter()
+    host4 = img4.cpu().numpy()
+    t1 = time.perf_counter()
+    u8 = image_util.to_srgb_u8(host4)
+    t2 = time.perf_counter()
+    image_util.encode_png(u8)
+    png_split_ms = {"to_host": (t1 - t0) * 1e3, "gamma_u8": (t2 - t1) * 1e3,
+                    "encode": (time.perf_counter() - t2) * 1e3}
+    counters4 = {k: int(v) for k, v in stats4._asdict().items()}
+    emit("frame_pieces", config="config4", width=cfg4.width, height=cfg4.height,
+         ms_median_of_5=pieces_ms, sum_ms=sum(pieces_ms.values()),
+         save_png_split_ms=png_split_ms, render_profile=profile_frame(lambda: rend4(scene4)),
+         host_share=(pieces_ms["animate_and_pack"] + pieces_ms["upload"]
+                     + pieces_ms["save_png"]) / sum(pieces_ms.values()),
+         scene_bytes=sum(int(np.asarray(v).nbytes) for v in packed4), counters=counters4,
+         triangles=int(packed4.tr_p0.shape[0]), instances=int(packed4.inst_inv.shape[0]),
+         spheres=int(packed4.sph_radius.shape[0]), planes=int(packed4.pln_distance.shape[0]),
+         nvidia_smi=smi)
+    if counters4["num_dropped"] or counters4["num_incomplete"]:
+        return fail(f"config4 loss counters not 0: {counters4}")
+
+    # the kernels' inputs of one more frame, for the kernel rows: the first call
+    # of each forward kernel and of K8, every call of K9 (each generation's
+    # closest hit and shadow rays)
+    k9_targets = [(intersect, "pick_closest", "prim_closest"),
+                  (intersect, "pick_any", "prim_any")]
+    k9_every = ("prim_closest", "prim_any")
+    rec4 = Recorder(targets + k9_targets + [(fxaa, "fxaa", "fxaa")], every_call=k9_every)
+    with rec4:
+        rec4.capture = True
+        img4, _ = rend4(scene4)
+        with torch.no_grad():
+            renderer.present(img4, cfg4)
+        torch.cuda.synchronize()
+
+    # ------------------------------------------------------ 6. configs 0 and 2
+    k9_calls = {"config4": rec4.calls}  # K9's inputs, every call of one frame
+    for name in ("config0", "config2"):
+        sdesc, scfg = scenes.make_scene(name)
+        r = renderer.Renderer(scfg, device="cuda")
+        sc = r.upload(ScenePacker(sdesc, scfg.width, scfg.height).frame())
+        reset_counts()
+        with Recorder(k9_targets, every_call=k9_every) as srec:
+            srec.capture = True
+            simg, sstats = r(sc)
+            torch.cuda.synchronize()
+        slaunches = read_counts()
+        k9_calls[name] = srec.calls
+        scount = {k: int(v) for k, v in sstats._asdict().items()}
+        r(sc)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            r(sc)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sms = statistics.median(times) * 1e3
+        srays = (scount["num_primary"] + scount["num_shadow"] + scount["num_reflection"]
+                 + scount["num_refraction"])
+        sfinite = bool(torch.isfinite(simg).all())
+        emit("scenes", config=name, width=scfg.width, height=scfg.height,
+             bounces=scfg.num_bounces, frame_ms=sms, frame_ms_all=[t * 1e3 for t in times],
+             fwd_mrays_per_s=srays / (sms / 1e3) / 1e6, counters=scount,
+             launches={k: n for k, n in slaunches.items() if n}, image_mean=float(simg.mean()),
+             image_finite=sfinite, nvidia_smi=smi)
+        if (scount["num_dropped"] or scount["num_incomplete"] or not sfinite
+                or slaunches["prim_closest"] <= 0 or slaunches["prim_any"] <= 0):
+            return fail(f"{name}: counters {scount}, finite {sfinite}, launches {slaunches}")
+        del r, sc, simg
+
+    # --------------------------------------------------------- 7. kernel vs plain
     inputs, tex_calls = rec.inputs, rec.calls["texture_aniso"]
     del rec
     report = []
     ok = True
     launches.update({k: train_launches[k] for k in ("texture_aniso_bwd", "sky_bwd")})
+    launches.update({k: app_launches[k] for k in ("fxaa", "prim_closest", "prim_any")})
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def l2rel(a, b) -> float:
@@ -422,19 +600,128 @@ def main() -> int:
                        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms})
         ok = ok and passed
 
+    # The forward kernels' checks against their plain versions on one frame's
+    # generation-0 inputs: each returns a dict with max_abs_err and passed.
+    def check_sky(sky_data, direction):
+        diff = (sky_sample.sample_sky(sky_data, direction)
+                - sky_sample.sample_sky_plain(sky_data, direction)).abs().amax(dim=1)
+        frac = float((diff > 0).float().mean())
+        return diff, {"max_abs_err": float(diff.max()), "passed": frac <= 1e-3,
+                      "lanes": direction.shape[0], "lanes_other_texel": frac}
+
+    def check_texture(tex, lanes, tcfg, data4):
+        err = (texture_sample.sample(tex, *lanes, tcfg, data4=data4)
+               - texture_sample.sample_plain(tex, *lanes, tcfg, data4)).abs().amax(dim=1)
+        frac = float((err <= 1e-5).float().mean())
+        return {"max_abs_err": float(err.max()), "passed": frac >= 0.999,
+                "lanes": err.shape[0], "lanes_within_tolerance": frac}
+
+    def check_compact(flags):
+        k_idx, k_n = compaction.compact(flags)
+        p_idx, p_n = compaction.compact_plain(flags)
+        exact = k_n == p_n and bool(torch.equal(k_idx, p_idx))
+        return {"max_abs_err": 0.0 if exact else float("inf"), "passed": exact,
+                "lanes": flags.shape[0], "active": int(p_n)}
+
+    def ordered(kcfg) -> bool:
+        return kcfg.traversal_strategy == TraversalStrategy.ORDERED
+
+    def check_traverse(any_hit, bvh, o, d, t_max, active, kcfg):
+        """K1 / K2 against the plain walk; also returns the walk (its visits
+        count the work)."""
+        walk = traversal_wide.trace_plain(bvh, o, d, t_max, active, kcfg.wide_stack_size,
+                                          ordered(kcfg), any_hit)
+        if any_hit:
+            kfound, kinc = traversal_wide.trace_any(bvh, o, d, t_max, active, kcfg)
+            same = bool(torch.equal(kfound, walk.found))
+            got = {"max_abs_err": 0.0 if same else float("inf"),
+                   "found_differs": int((kfound != walk.found).sum())}
+        else:
+            res = traversal_wide.trace_closest(bvh, o, d, t_max, active, kcfg)
+            kinc = res.incomplete
+            kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
+            same = bool(torch.equal(kbest, walk.best) and torch.equal(res.steps, walk.steps))
+            fin = torch.isfinite(walk.t)
+            gap = (res.t - walk.t)[fin].abs()
+            rel = float((gap / walk.t[fin].abs()).max()) if bool(fin.any()) else 0.0
+            same = same and rel <= 1e-6
+            got = {"max_abs_err": float(gap.max()) if bool(fin.any()) else 0.0,
+                   "ids_differ": int((kbest != walk.best).sum()),
+                   "steps_differ": int((res.steps != walk.steps).sum()), "t_max_rel": rel}
+        got.update(passed=same and int(kinc) == 0 and int(walk.incomplete) == 0,
+                   lanes=o.shape[0], active=int(active.sum()), incomplete=int(kinc))
+        return got, walk
+
+    def check_forward(inp):
+        (tex, *lanes, tcfg), kw = inp["texture_aniso"]
+        return {"sky": check_sky(*inp["sky"][0])[1],
+                "texture_aniso": check_texture(tex, tuple(lanes), tcfg, kw["data4"]),
+                "compact": check_compact(*inp["compact"][0]),
+                "traverse_closest": check_traverse(False, *inp["traverse_closest"][0])[0],
+                "traverse_any": check_traverse(True, *inp["traverse_any"][0])[0]}
+
+    def inside_sphere(prims, o) -> int:
+        """Lanes whose origin lies inside a sphere (where the sphere's t is t1)."""
+        if not prims.sph_center.shape[0] or not o.shape[0]:
+            return 0
+        d2 = ((o[:, None, :] - prims.sph_center[None]) ** 2).sum(dim=-1)
+        return int((d2 < prims.sph_radius[None] ** 2).any(dim=1).sum())
+
+    def check_k9(calls) -> dict:
+        """K9 closest and any hit against their plain versions on every call of
+        one frame (one of each per generation): per kernel, per call, the lanes,
+        those starting inside a sphere, and those whose result differs."""
+        closest, anyhit = [], []
+        for (prims, o, d), _ in calls.get("prim_closest", []):
+            kw9, kt = intersect.pick_closest(prims, o, d)
+            pw, pt = intersect.pick_closest_plain(prims, o, d)
+            fin = torch.isfinite(pt) & torch.isfinite(kt)
+            closest.append({
+                "lanes": o.shape[0], "inside_sphere": inside_sphere(prims, o),
+                "winners_differ": int((kw9 != pw).sum()), "t_differ": int((kt != pt).sum()),
+                "max_abs_err": float((kt - pt)[fin].abs().max()) if bool(fin.any()) else 0.0})
+        for (prims, o, d, tmax, act), _ in calls.get("prim_any", []):
+            kb = intersect.pick_any(prims, o, d, tmax, act)
+            pb = intersect.pick_any_plain(prims, o, d, tmax, act)
+            anyhit.append({
+                "lanes": o.shape[0], "active": int(act.sum()),
+                "inside_sphere": inside_sphere(prims, o[act]), "blocked": int(pb.sum()),
+                "blocked_differ": int((kb != pb).sum()),
+                "max_abs_err": 0.0 if bool(torch.equal(kb, pb)) else float("inf")})
+        out = {}
+        for name, per_call, differ in (("prim_closest", closest, ("winners_differ", "t_differ")),
+                                       ("prim_any", anyhit, ("blocked_differ",))):
+            g = max(range(len(per_call)), key=lambda i: per_call[i]["inside_sphere"])
+            out[name] = {"calls": len(per_call),
+                         "passed": all(c[k] == 0 for c in per_call for k in differ),
+                         "max_abs_err": max(c["max_abs_err"] for c in per_call),
+                         "lanes": sum(c["lanes"] for c in per_call),
+                         **{k: sum(c[k] for c in per_call) for k in differ},
+                         "most_inside_sphere_generation": g,
+                         "most_inside_sphere_lanes": per_call[g]["inside_sphere"],
+                         "per_generation": per_call}
+        return out
+
+    # config4 (the app's frame): the forward kernels on generation 0, K9 on
+    # every generation; configs 0 and 2: K9 on every generation.  Folded into
+    # the rows below.
+    on4 = check_forward(rec4.inputs)
+    k9 = {label: check_k9(calls) for label, calls in k9_calls.items()}
+    del k9_calls
+
     # K5 sky, on generation 0's directions (every primary ray)
     (sky_data, direction), _ = inputs["sky"]
-    k_out = sky_sample.sample_sky(sky_data, direction)
-    p_out = sky_sample.sample_sky_plain(sky_data, direction)
-    diff = (k_out - p_out).abs().amax(dim=1)
-    frac_other = float((diff > 0).float().mean())
+    diff, sky_check = check_sky(sky_data, direction)
     n = direction.shape[0]
     record("sky", "raytracer_tpu_torch/csrc/sky.cu", "raytracer_tpu/ops/sky_sample.py:16",
-           float(diff.max()), cuda_ms(lambda: sky_sample.sample_sky(sky_data, direction), 20),
+           max(sky_check.pop("max_abs_err"), on4["sky"]["max_abs_err"]),
+           cuda_ms(lambda: sky_sample.sample_sky(sky_data, direction), 20),
            cuda_ms(lambda: sky_sample.sample_sky_plain(sky_data, direction), 5),
            bound_ms(nbytes(direction, sky_data) + n * 12, n * OPS_SKY), None,
-           frac_other <= 1e-3, lanes=n, lanes_other_texel=frac_other,
-           tolerance="texel values equal; <= 1e-3 of lanes may take a neighbouring texel")
+           sky_check.pop("passed") and on4["sky"]["passed"], **sky_check,
+           config4_900x600=on4["sky"],
+           tolerance="texel values equal; <= 1e-3 of lanes may take a neighbouring "
+                     "texel; on config3 and on config4")
 
     # K5 backward, on the same directions with a seeded cotangent.  A lane that
     # took a neighbouring texel in the forward scatters there, so the lanes
@@ -494,17 +781,18 @@ def main() -> int:
         return (float(torch.where(aniso, taps, torch.where(top, 0.0, 1.0)).sum()),
                 float(top.sum()))
 
-    err = (k3() - p3()).abs().amax(dim=1)
+    tex_check = check_texture(tex, lanes_in, tcfg, data4)
     n = lanes_in[1].shape[0]
-    frac_ok = float((err <= 1e-5).float().mean())
     n_taps, n_top = branches(lanes_in)
     record("texture_aniso", "raytracer_tpu_torch/csrc/texture.cu",
-           "raytracer_tpu/ops/texture_sample.py:290", float(err.max()), cuda_ms(k3, 20),
-           cuda_ms(p3, 5),
+           "raytracer_tpu/ops/texture_sample.py:290",
+           max(tex_check.pop("max_abs_err"), on4["texture_aniso"]["max_abs_err"]),
+           cuda_ms(k3, 20), cuda_ms(p3, 5),
            bound_ms(nbytes(*lanes_in, tex[0], data4, *tex[1:5]) + n * 12,
                     n * OPS_TEX_LANE + n_taps * OPS_TEX_TAP), None,
-           frac_ok >= 0.999, lanes=n, lanes_within_tolerance=frac_ok, bilinear_taps=n_taps,
-           top_lanes=n_top, tolerance="max abs <= 1e-5 on >= 99.9% of lanes")
+           tex_check.pop("passed") and on4["texture_aniso"]["passed"], **tex_check,
+           bilinear_taps=n_taps, top_lanes=n_top, config4_900x600=on4["texture_aniso"],
+           tolerance="max abs <= 1e-5 on >= 99.9% of lanes, on config3 and on config4")
 
     # K4 against autograd of sample_plain, same lanes, seeded cotangent.  A lane
     # whose K3 result differs (another mip level at a rounding boundary) sends
@@ -585,112 +873,180 @@ def main() -> int:
 
     # K6 compaction, on generation 0's 2N candidate flags
     (flags,), _ = inputs["compact"]
-    k_idx, k_n = compaction.compact(flags)
-    p_idx, p_n = compaction.compact_plain(flags)
-    exact = k_n == p_n and bool(torch.equal(k_idx, p_idx))
+    got = check_compact(flags)
     n = flags.shape[0]
     record("compact", "raytracer_tpu_torch/csrc/compact.cu",
-           "raytracer_tpu/ops/compaction.py:26", 0.0 if exact else float("inf"),
+           "raytracer_tpu/ops/compaction.py:26",
+           max(got.pop("max_abs_err"), on4["compact"]["max_abs_err"]),
            cuda_ms(lambda: compaction.compact(flags), 20),
            cuda_ms(lambda: compaction.compact_plain(flags), 20),
-           bound_ms(n + 4 * k_n + 4, n), cuda_ms(lambda: torch.nonzero(flags), 20),
-           exact, lanes=n, active=k_n, tolerance="exact")
+           bound_ms(n + 4 * got["active"] + 4, n), cuda_ms(lambda: torch.nonzero(flags), 20),
+           got.pop("passed") and on4["compact"]["passed"], **got,
+           config4_900x600=on4["compact"], tolerance="exact, on config3 and on config4")
 
     # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow rays
-    ordered = cfg.traversal_strategy == TraversalStrategy.ORDERED
     for name, any_hit, replaces in (
         ("traverse_closest", False, "raytracer_tpu/ops/traversal_wide.py:503"),
         ("traverse_any", True, "raytracer_tpu/ops/traversal_wide.py:523"),
     ):
         (bvh, o, d, t_max, active, kcfg), _ = inputs[name]
         fn = traversal_wide.trace_any if any_hit else traversal_wide.trace_closest
-        walk = traversal_wide.trace_plain(bvh, o, d, t_max, active, kcfg.wide_stack_size,
-                                          ordered, any_hit)
-        if any_hit:
-            kfound, kinc = fn(bvh, o, d, t_max, active, kcfg)
-            same = bool(torch.equal(kfound, walk.found))
-            max_err = 0.0 if same else float("inf")
-            extra = {"found_differs": int((kfound != walk.found).sum())}
-        else:
-            res = fn(bvh, o, d, t_max, active, kcfg)
-            kinc = res.incomplete
-            kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
-            same = bool(torch.equal(kbest, walk.best) and torch.equal(res.steps, walk.steps))
-            fin = torch.isfinite(walk.t)
-            gap = (res.t - walk.t)[fin].abs()
-            max_err = float(gap.max()) if bool(fin.any()) else 0.0
-            rel = float((gap / walk.t[fin].abs()).max()) if bool(fin.any()) else 0.0
-            same = same and rel <= 1e-6
-            extra = {"ids_differ": int((kbest != walk.best).sum()),
-                     "steps_differ": int((res.steps != walk.steps).sum()), "t_max_rel": rel}
+        got, walk = check_traverse(any_hit, bvh, o, d, t_max, active, kcfg)
         nodes = float(walk.steps.sum())
         leaves_ = float(walk.leaves.sum())
         out_bytes = o.shape[0] * (1 if any_hit else 12)
         plain_ms = cuda_ms(lambda: traversal_wide.trace_plain(
-            bvh, o, d, t_max, active, kcfg.wide_stack_size, ordered, any_hit), 1)
-        record(name, "raytracer_tpu_torch/csrc/traverse.cu", replaces, max_err,
+            bvh, o, d, t_max, active, kcfg.wide_stack_size, ordered(kcfg), any_hit), 1)
+        record(name, "raytracer_tpu_torch/csrc/traverse.cu", replaces,
+               max(got.pop("max_abs_err"), on4[name]["max_abs_err"]),
                cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5), plain_ms,
                bound_ms(nbytes(o, d, t_max, active, bvh.table, bvh.inst_mat) + out_bytes,
                         (nodes + leaves_) * OPS_ITER + nodes * OPS_NODE
                         + leaves_ * OPS_LEAF), None,
-               same and int(kinc) == 0 and int(walk.incomplete) == 0,
-               lanes=o.shape[0], active=int(active.sum()), node_visits=nodes,
-               leaf_visits=leaves_, incomplete=int(kinc),
-               tolerance="ids, steps and found identical; t within 1e-6 relative",
-               **extra)
+               got.pop("passed") and on4[name]["passed"], **got, node_visits=nodes,
+               leaf_visits=leaves_, config4_900x600=on4[name],
+               tolerance="ids, steps and found identical; t within 1e-6 relative; "
+                         "on config3 and on config4")
+        del walk
     del inputs
 
-    # ------------------------------------------------------ 6. small-input check
+    # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame
+    fx = {}
+    for label, img_in in (("900x600", rec4.inputs["fxaa"][0][0]), ("1920x1080", image)):
+        px = img_in.shape[0] * img_in.shape[1]
+        err = (fxaa.fxaa(img_in) - fxaa.fxaa_plain(img_in)).abs().amax(dim=-1)
+        fx[label] = {
+            "pixels": px, "max_abs_err": float(err.max()),
+            "pixels_within_tolerance": float((err <= 1e-5).float().mean()),
+            "mean_abs_err": float(err.mean()),
+            "ms": cuda_ms(lambda: fxaa.fxaa(img_in), 20),
+            "plain_ms": cuda_ms(lambda: fxaa.fxaa_plain(img_in), 5),
+            "bound": bound_ms(2 * nbytes(img_in), px * OPS_FXAA)}
+    fx_ok = all(v["pixels_within_tolerance"] >= 0.999 and v["mean_abs_err"] <= 1e-6
+                for v in fx.values())
+    row = fx.pop("900x600")
+    record("fxaa", "raytracer_tpu_torch/csrc/fxaa.cu", "raytracer_tpu/ops/fxaa.py:45",
+           row.pop("max_abs_err"), row.pop("ms"), row.pop("plain_ms"), row.pop("bound"),
+           None, fx_ok, **row, launches_per_frame=app_launches["fxaa"] / APP_FRAMES,
+           at_1920x1080={**fx["1920x1080"], "bound_ms": fx["1920x1080"].pop("bound")[0]},
+           tolerance="<= 1e-5 abs on >= 99.9% of pixels, mean <= 1e-6, at both sizes")
+
+    # K9, timed on config4's generation 0: the primaries' closest hit, the shadow
+    # rays' any hit (3 lights in one launch).  Its check covers every generation
+    # of config4, config0 and config2 (check_k9): the refraction chains start
+    # inside the dielectric spheres, where the sphere's t is t1.
+    def k9_checked(name):
+        per_config = {label: {k: v for k, v in got[name].items() if k != "max_abs_err"}
+                      for label, got in k9.items()}
+        return (max(got[name]["max_abs_err"] for got in k9.values()),
+                all(got[name]["passed"] for got in k9.values()), per_config)
+
+    (prims, o9, d9), _ = rec4.inputs["prim_closest"]
+    n_s, n_p = prims.n_spheres, prims.n_planes
+    n = o9.shape[0]
+    max_err, passed, per_config = k9_checked("prim_closest")
+    record("prim_closest", "raytracer_tpu_torch/csrc/primitives.cu",
+           "raytracer_tpu/ops/intersect.py:122", max_err,
+           cuda_ms(lambda: intersect.pick_closest(prims, o9, d9), 20),
+           cuda_ms(lambda: intersect.pick_closest_plain(prims, o9, d9), 5),
+           bound_ms(nbytes(o9, d9) + n * 8,
+                    n * (OPS_PRIM_LANE + n_s * OPS_PRIM_SPHERE + n_p * OPS_PRIM_PLANE)),
+           None, passed, lanes=n, spheres=n_s, planes=n_p, checked=per_config,
+           launches_per_frame=app_launches["prim_closest"] / APP_FRAMES,
+           also_replaces="raytracer_tpu/ops/intersect.py:222 (plane_trace)",
+           tolerance="winner ids and t identical on every lane of every generation "
+                     "of config4, config0 and config2")
+
+    (prims, oa, da, tmax, act), _ = rec4.inputs["prim_any"]
+    n, n_act = oa.shape[0], int(act.sum())
+    max_err, passed, per_config = k9_checked("prim_any")
+    # operations as if every active lane tested every primitive: bytes bind either way
+    record("prim_any", "raytracer_tpu_torch/csrc/primitives.cu",
+           "raytracer_tpu/ops/intersect.py:203", max_err,
+           cuda_ms(lambda: intersect.pick_any(prims, oa, da, tmax, act), 20),
+           cuda_ms(lambda: intersect.pick_any_plain(prims, oa, da, tmax, act), 5),
+           bound_ms(n * 2 + n_act * 28, n_act * (n_s * OPS_ANY_SPHERE + n_p * OPS_ANY_PLANE)),
+           None, passed, lanes=n, active=n_act, checked=per_config,
+           launches_per_frame=app_launches["prim_any"] / APP_FRAMES,
+           also_replaces="raytracer_tpu/ops/intersect.py:265 (plane_intersect)",
+           tolerance="blocked identical on every lane of every generation of config4, "
+                     "config0 and config2")
+    del rec4, prims, k9
+
+    # ----------------------------------------------------- 8. small-input checks
+    def small_forward(label, packed, scfg) -> bool:
+        """One frame on the card against the same frame on the CPU."""
+        on_card = renderer.Renderer(scfg, device="cuda")
+        gimg, gstats = on_card(on_card.upload(packed))
+        on_cpu = renderer.Renderer(scfg, device="cpu")
+        cimg, cstats = on_cpu(on_cpu.upload(packed))
+        gcount = {k: int(v) for k, v in gstats._asdict().items()}
+        ccount = {k: int(v) for k, v in cstats._asdict().items()}
+        d = (gimg.cpu() - cimg).abs()
+        mean_abs = float(d.mean())
+        frac_1e3 = float((d.amax(dim=-1) <= 1e-3).float().mean())
+        # The elementwise torch between the kernels rounds differently on the
+        # card (rsqrt, transcendental functions) and shadow rays start ON
+        # surfaces, so a marginal shadow decision may flip: the shadow count may
+        # differ by 0.5%.
+        shadow_rel = (abs(gcount["num_shadow"] - ccount["num_shadow"])
+                      / max(ccount["num_shadow"], 1))
+        passed = (all(gcount[k] == ccount[k] for k in gcount if k != "num_shadow")
+                  and shadow_rel <= 5e-3 and mean_abs <= 1e-3 and frac_1e3 >= 0.99
+                  and gcount["num_dropped"] == 0 and gcount["num_incomplete"] == 0
+                  and bool(torch.isfinite(gimg).all()))
+        emit("small_input", config=label, width=scfg.width, height=scfg.height,
+             bounces=scfg.num_bounces, counters_cuda=gcount, counters_cpu=ccount,
+             image_mean_abs_diff=mean_abs, frac_pixels_within_tolerance=frac_1e3,
+             passed=passed, tolerance="counters equal (shadow within 0.5%), dropped and "
+                                      "incomplete 0; mean abs <= 1e-3; >= 99% of pixels "
+                                      "within 1e-3")
+        return passed
+
+    def small_grads(label, packed, scfg) -> bool:
+        """fwd+bwd (zero target, all 17 fields), the card against the CPU."""
+        sgrads, slosses = [], []
+        for dev in ("cuda", "cpu"):
+            r = renderer.Renderer(scfg, device=dev)
+            sscene = r.upload(packed)
+            sparams = train.extract_params(sscene)
+            sloss = train.render_loss(sparams, sscene, torch.zeros(
+                (scfg.height, scfg.width, 3), device=r.device), scfg)
+            sloss.backward()
+            slosses.append(float(sloss.detach()))
+            sgrads.append({k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                           for k, p in sparams.items()})
+        field_rel = {k: l2rel(sgrads[0][k], c) if float(c.norm()) > 0
+                     else float(sgrads[0][k].norm()) for k, c in sgrads[1].items()}
+        loss_rel = abs(slosses[0] - slosses[1]) / slosses[1]
+        passed = (all(bool(torch.isfinite(g).all()) for g in sgrads[0].values())
+                  and loss_rel <= 1e-3
+                  and all(v <= SMALL_GRAD_TOL.get(k, SMALL_GRAD_TOL["*"])
+                          for k, v in field_rel.items()))
+        emit("small_input_grads", config=label, width=scfg.width, height=scfg.height,
+             loss_cuda=slosses[0], loss_cpu=slosses[1], loss_rel=loss_rel,
+             l2_rel_per_field=field_rel, passed=passed,
+             tolerance=f"loss within 1e-3; per-field l2-relative {SMALL_GRAD_TOL}")
+        return passed
+
     sdesc, scfg = scenes.config3_sponza(64, 36, target_triangles=20_000)
-    spacked = ScenePacker(sdesc, 64, 36).frame()
-    on_card = renderer.Renderer(scfg, device="cuda")
-    gimg, gstats = on_card(on_card.upload(spacked))
-    on_cpu = renderer.Renderer(scfg, device="cpu")
-    cimg, cstats = on_cpu(on_cpu.upload(spacked))
-    gcount = {k: int(v) for k, v in gstats._asdict().items()}
-    ccount = {k: int(v) for k, v in cstats._asdict().items()}
-    d = (gimg.cpu() - cimg).abs()
-    mean_abs = float(d.mean())
-    frac_1e3 = float((d.amax(dim=-1) <= 1e-3).float().mean())
-    # The elementwise torch between the kernels rounds differently on the card
-    # (rsqrt, transcendental functions) and shadow rays start ON surfaces, so a
-    # marginal shadow decision may flip: the shadow count may differ by 0.5%.
-    shadow_rel = abs(gcount["num_shadow"] - ccount["num_shadow"]) / max(ccount["num_shadow"], 1)
-    small_ok = (all(gcount[k] == ccount[k] for k in gcount if k != "num_shadow")
-                and shadow_rel <= 5e-3 and mean_abs <= 1e-3 and frac_1e3 >= 0.99
-                and bool(torch.isfinite(gimg).all()))
-    emit("small_input", config="config3_sponza", width=64, height=36, triangles=20_000,
-         counters_cuda=gcount, counters_cpu=ccount, image_mean_abs_diff=mean_abs,
-         frac_pixels_within_tolerance=frac_1e3, passed=small_ok,
-         tolerance="counters equal (shadow within 0.5%); mean abs <= 1e-3; "
-                   ">= 99% of pixels within 1e-3")
-    ok = ok and small_ok
+    small = [("config3_sponza, 20k triangles", ScenePacker(sdesc, 64, 36).frame(), scfg,
+              True)]
+    sdesc, scfg = scenes.config4_dynamic(96, 64)
+    spacker = ScenePacker(sdesc, 96, 64)
+    small.append(("config4, frame 0", spacker.frame(), scfg, True))
+    sdesc.update(1.0 / 60.0)
+    sdesc.update(1.0 / 60.0)
+    small.append(("config4, frame 2", spacker.frame(), scfg, False))
+    sdesc, scfg = scenes.config2_dielectric()
+    scfg = scfg.replace(width=64, height=64)
+    small.append(("config2", ScenePacker(sdesc, 64, 64).frame(), scfg, False))
+    for label, packed, scfg, with_grads in small:
+        ok = small_forward(label, packed, scfg) and ok
+        if with_grads:
+            ok = small_grads(label, packed, scfg) and ok
 
-    # the same scene fwd+bwd (zero target, all 17 fields), card against CPU
-    sgrads, slosses = [], []
-    for r in (on_card, on_cpu):
-        sscene = r.upload(spacked)
-        sparams = train.extract_params(sscene)
-        sloss = train.render_loss(sparams, sscene,
-                                  torch.zeros((36, 64, 3), device=r.device), scfg)
-        sloss.backward()
-        slosses.append(float(sloss.detach()))
-        sgrads.append({k: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
-                       for k, p in sparams.items()})
-    field_rel = {k: l2rel(sgrads[0][k], c) if float(c.norm()) > 0
-                 else float(sgrads[0][k].norm()) for k, c in sgrads[1].items()}
-    loss_rel = abs(slosses[0] - slosses[1]) / slosses[1]
-    grads_ok = (all(bool(torch.isfinite(g).all()) for g in sgrads[0].values())
-                and loss_rel <= 1e-3
-                and all(v <= SMALL_GRAD_TOL.get(k, SMALL_GRAD_TOL["*"])
-                        for k, v in field_rel.items()))
-    emit("small_input_grads", config="config3_sponza", width=64, height=36,
-         loss_cuda=slosses[0], loss_cpu=slosses[1], loss_rel=loss_rel,
-         l2_rel_per_field=field_rel, passed=grads_ok,
-         tolerance=f"loss within 1e-3; per-field l2-relative {SMALL_GRAD_TOL}")
-    ok = ok and grads_ok
-
-    # ------------------------------------------------------------- 7. result lines
+    # ------------------------------------------------------------- 9. result lines
     print(json.dumps({"kernels": report}), flush=True)
     print(smi, flush=True)
     if not ok:

@@ -23,7 +23,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("traverse", "texture", "texture_bwd", "sky", "compact")
+SOURCES = ("traverse", "texture", "texture_bwd", "sky", "compact", "fxaa", "primitives")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -143,13 +143,14 @@ def require_contiguous(what: str, *tensors) -> None:
 
 
 def require_no_grad(what: str, *tensors) -> None:
-    """Checked by the traversal wrappers: a walk is discrete and has no gradient,
-    so an input that asks for one is refused rather than silently detached."""
+    """Checked by the traversal and primitive-pick wrappers: a walk or a pick is
+    discrete and has no gradient, so an input that asks for one is refused
+    rather than silently detached."""
     for t in tensors:
         if t.requires_grad:
             raise ValueError(
-                f"{what}: traversal is discrete and has no gradient; the renderer "
-                "detaches its inputs (trace_scene, intersect_scene)"
+                f"{what}: the walk or pick is discrete and has no gradient; the "
+                "renderer detaches its inputs (trace_scene, intersect_scene)"
             )
 
 

@@ -7,12 +7,16 @@ may lack and these tests do not use):
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
 from raytracer_tpu_torch.config import RenderConfig
-from raytracer_tpu_torch.ops import compaction, sky_sample, texture_sample, traversal_wide
+from raytracer_tpu_torch.ops import (
+    compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide,
+)
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import scenes, textures
 from raytracer_tpu_torch.scene.device import ScenePacker
@@ -221,3 +225,56 @@ def test_render_grads_on_card_match_cpu(cuda):
         assert torch.isfinite(g).all(), k
         if c.norm() > 0:
             assert float((g - c).norm() / c.norm()) <= 1e-3, k
+
+
+@pytest.mark.parametrize("h,w", [(1, 7), (37, 53), (600, 900)])
+def test_fxaa_kernel_matches_plain(cuda, h, w):
+    """K8 against fxaa_plain: values outside [0, 1], hard edges, odd sizes."""
+    rng = np.random.default_rng(h * w)
+    img = rng.uniform(-0.2, 1.4, (h, w, 3)).astype(np.float32)
+    img[:, w // 2:] *= 0.05
+    img = torch.from_numpy(img).to(cuda)
+    before = fxaa.launches
+    k = fxaa.fxaa(img)
+    p = fxaa.fxaa_plain(img)
+    assert fxaa.launches == before + 1
+    d = (k - p).abs().amax(dim=-1)
+    assert float((d <= 1e-5).float().mean()) >= 0.999 and float(d.mean()) <= 1e-6
+
+
+def _primitive_inputs(cuda, n=200_000, seed=3):
+    """Three spheres (two of them equal: a tie) and two planes, with seeded rays,
+    some starting inside a sphere and some parallel to a plane."""
+    rng = np.random.default_rng(seed)
+    prims = types.SimpleNamespace(
+        sph_center=torch.tensor([[0, 0, 5], [0, 0, 5], [2, 0.5, 8]], dtype=torch.float32),
+        sph_radius=torch.tensor([1.0, 1.0, 1.5]),
+        pln_normal=torch.tensor([[0, 1, 0], [0, 0, -1]], dtype=torch.float32),
+        pln_distance=torch.tensor([1.0, 20.0]))
+    prims = types.SimpleNamespace(**{k: v.to(cuda) for k, v in vars(prims).items()})
+    o = rng.uniform([-3, -0.5, -2], [3, 3, 9], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32) + np.float32([0, -0.2, 1.5])
+    d[::5, 1] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.uniform(0, 25, n).astype(np.float32)
+    tmax[::7] = np.inf
+    active = rng.random(n) < 0.9
+    return prims, *(torch.from_numpy(x).to(cuda) for x in (o, d, tmax, active))
+
+
+def test_primitive_kernels_match_plain(cuda):
+    """K9 closest and any hit against their plain versions: identical winners, t
+    and blocked flags on every lane."""
+    prims, o, d, tmax, active = _primitive_inputs(cuda)
+    before = (intersect.closest_launches, intersect.any_launches)
+    kw, kt = intersect.pick_closest(prims, o, d)
+    pw, pt = intersect.pick_closest_plain(prims, o, d)
+    kb = intersect.pick_any(prims, o, d, tmax, active)
+    pb = intersect.pick_any_plain(prims, o, d, tmax, active)
+    assert (intersect.closest_launches, intersect.any_launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    assert torch.equal(kw, pw) and torch.equal(kt, pt) and torch.equal(kb, pb)
+    assert int((kw == 1).sum()) == 0 and int((kw == 0).sum()) > 0  # ties to sphere 0
+    assert bool(kb.any()) and not bool(kb.all())
+    with pytest.raises(ValueError, match="discrete"):
+        intersect.pick_closest(prims, o, d.clone().requires_grad_())

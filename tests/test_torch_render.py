@@ -45,5 +45,3 @@ def test_present_is_gamma():
     cfg = torch_config(jax_scene("config1")[1])
     out = renderer.present(img, cfg)
     np.testing.assert_allclose(out.numpy(), [[[0.0, 0.25 ** (1 / 2.2), 1.0]]], rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="K8"):
-        renderer.present(img, cfg.replace(enable_fxaa=True))

@@ -1,8 +1,6 @@
 """Training with the port: gradients of the image loss against the JAX package's,
 chunked accumulation, the Adam step against JAX's, and checkpointing."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,7 +19,10 @@ from raytracer_tpu_torch.scene import scenes
 from raytracer_tpu_torch.scene.description import PointLight, SceneDescription
 from raytracer_tpu_torch.scene.device import ScenePacker, pack_scene
 from raytracer_tpu_torch.utils import checkpoint
-from torch_parity import jax_scene, private_bvh_cache, torch_config, torch_scene
+from torch_parity import (
+    grad_mismatches, jax_scene, masked_grads, private_bvh_cache, seeded_target,
+    torch_config, torch_scene,
+)
 
 # every field within 1e-4 l2-relative (measured: <= 1.4e-5 on config1, <= 4.3e-5
 # on config3-tiny, the camera fields largest); on config3-tiny tex_data within
@@ -32,55 +33,11 @@ FIELD_TOL = 1e-4
 TEX_DATA_TOL = {"config1": 1e-4, "config3": 1e-2}
 
 
-def l2rel(a, b) -> float:
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    nb = np.linalg.norm(b)
-    return float(np.linalg.norm(a - b) / nb) if nb > 0 else float(np.linalg.norm(a))
-
-
-def _seeded_target(cfg, seed):
-    rng = np.random.default_rng(seed)
-    return rng.uniform(0.0, 1.0, (cfg.height, cfg.width, 3)).astype(np.float32)
-
-
 @pytest.fixture(scope="module")
 def grads(request):
     """JAX and port (loss, {field: grad}) for one scene, with the loss masked to
     the pixels whose forward images agree within 1e-3 (ROADMAP C1)."""
-    name = request.param
-    scene, cfg = jax_scene(name)
-    target = _seeded_target(cfg, 21)
-    params = jax_train.extract_params(scene)
-
-    def masked_loss(p, mask):
-        img, _ = jax_renderer.render_with_stats(jax_train.apply_params(scene, p), cfg)
-        se = jnp.where(mask[..., None], (img - target) ** 2, 0.0)
-        return jnp.sum(se) / (jnp.sum(mask) * 3), img
-
-    # one program; the first run (nothing masked) gives the forward image
-    vg = jax.jit(jax.value_and_grad(masked_loss, has_aux=True))
-    all_px = np.ones((cfg.height, cfg.width), bool)
-    (_, jimg), _ = vg(params, all_px)
-
-    tscene, tcfg = torch_scene(scene), torch_config(cfg)
-    with torch.no_grad():
-        timg, _ = renderer.render_with_stats(tscene, tcfg)
-    mask = np.abs(np.asarray(jimg) - timg.numpy()).max(axis=-1) <= 1e-3
-    (jloss, _), jgrads = vg(params, mask)
-
-    tparams = train.extract_params(tscene)
-    img, _ = renderer.render_with_stats(train.apply_params(tscene, tparams), tcfg)
-    m = torch.from_numpy(mask)
-    se = torch.where(m[..., None], (img - torch.from_numpy(target)) ** 2, 0.0)
-    loss = se.sum() / (m.sum() * 3)
-    loss.backward()
-    return dict(
-        n_masked=int((~mask).sum()),
-        jax=(float(jloss), {k: np.asarray(v) for k, v in jgrads.items()}),
-        port=(float(loss.detach()),
-              {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().numpy()
-               for k, p in tparams.items()}),
-    )
+    return masked_grads(*jax_scene(request.param), seed=21)
 
 
 @pytest.mark.parametrize("grads", ["config1", "config3"], indirect=True)
@@ -88,19 +45,10 @@ def test_render_grads_match_jax(grads, request):
     name = request.node.callspec.params["grads"]
     # config1 agrees everywhere; config3-tiny loses a few pixels to C1 (6 measured)
     assert grads["n_masked"] <= (0 if name == "config1" else 12), grads["n_masked"]
-    jloss, jgrads = grads["jax"]
-    loss, tgrads = grads["port"]
-    assert abs(loss - jloss) <= 1e-5 * abs(jloss), (loss, jloss)
-    assert set(tgrads) == set(train.DIFFERENTIABLE_FIELDS) == set(jgrads)
-    bad = {}
-    for f in train.DIFFERENTIABLE_FIELDS:
-        g, r = tgrads[f], jgrads[f]
-        assert g.shape == r.shape and np.isfinite(g).all(), f
-        tol = TEX_DATA_TOL[name] if f == "tex_data" else FIELD_TOL
-        if l2rel(g, r) > tol:
-            bad[f] = l2rel(g, r)
+    bad = grad_mismatches(grads, {"*": FIELD_TOL, "tex_data": TEX_DATA_TOL[name]})
     assert not bad, bad
     # the loss reaches the camera, the materials and the sky
+    tgrads = grads["port"][1]
     for f in ("cam_pos", "cam_x", "mat_diffuse", "sky_data"):
         assert np.abs(tgrads[f]).sum() > 0, f
 
@@ -134,7 +82,7 @@ def test_accum_grads_match_whole_frame():
     whole-frame loss's gradients."""
     scene, cfg = _config1_port(24, 16, num_bounces=1)
     params = train.extract_params(scene)
-    target = torch.from_numpy(_seeded_target(cfg, 23))
+    target = torch.from_numpy(seeded_target(cfg, 23))
     loss = train.render_loss(params, scene, target, cfg)
     loss.backward()
 

@@ -10,13 +10,17 @@ import contextlib
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from raytracer_tpu.diff import train as jax_train
 from raytracer_tpu.render import renderer as jax_renderer
 from raytracer_tpu.scene import scenes as jax_scenes
 from raytracer_tpu.scene.device import ScenePacker as JaxPacker
 from raytracer_tpu_torch.config import RenderConfig as TorchConfig
+from raytracer_tpu_torch.diff import train
+from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene.tensors import scene_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,6 +57,14 @@ def jax_scene(name: str):
         return _jax_scene(name)
 
 
+def _lossless(cfg, w, h, **changes):
+    """The JAX lossless profile at w x h in one chunk: the port's semantics."""
+    return jax_renderer.lossless_fallback_config(
+        cfg.replace(width=w, height=h, traversal_chunk=max(cfg.traversal_chunk, w * h),
+                    **changes)
+    )
+
+
 def _jax_scene(name: str):
     if name == "config3":
         w, h = CONFIG3_TINY["width"], CONFIG3_TINY["height"]
@@ -61,10 +73,90 @@ def _jax_scene(name: str):
     else:
         w, h = CONFIG1_TINY["width"], CONFIG1_TINY["height"]
         desc, cfg = jax_scenes.make_scene(name)
-    cfg = jax_renderer.lossless_fallback_config(
-        cfg.replace(width=w, height=h, traversal_chunk=max(cfg.traversal_chunk, w * h))
+    return JaxPacker(desc, w, h).frame(), _lossless(cfg, w, h)
+
+
+def jax_frames(name: str, width: int, height: int, updates=(0,), **changes):
+    """([JAX DeviceScene of the frame after k animation steps of 1/60 s, for k in
+    ``updates``], lossless JAX RenderConfig) of ``make_scene(name)`` at
+    width x height, with ``changes`` to its config."""
+    with private_bvh_cache():
+        desc, cfg = jax_scenes.make_scene(name)
+        packer = JaxPacker(desc, width, height)
+        frames, done = [], 0
+        for k in updates:
+            while done < k:
+                desc.update(1.0 / 60.0)
+                done += 1
+            frames.append(packer.frame())
+    return frames, _lossless(cfg, width, height, **changes)
+
+
+def seeded_target(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.0, 1.0, (cfg.height, cfg.width, 3)).astype(np.float32)
+
+
+def masked_grads(scene, cfg, seed=21) -> dict:
+    """JAX and port (loss, {field: grad}) of the mean squared error against a
+    seeded target, over the 17 differentiable fields of a JAX DeviceScene, with
+    the loss masked to the pixels whose forward images agree within 1e-3
+    (ROADMAP C1); ``n_masked`` counts the pixels left out."""
+    target = seeded_target(cfg, seed)
+    params = jax_train.extract_params(scene)
+
+    def masked_loss(p, mask):
+        img, _ = jax_renderer.render_with_stats(jax_train.apply_params(scene, p), cfg)
+        se = jnp.where(mask[..., None], (img - target) ** 2, 0.0)
+        return jnp.sum(se) / (jnp.sum(mask) * 3), img
+
+    # one program; the first run (nothing masked) gives the forward image
+    vg = jax.jit(jax.value_and_grad(masked_loss, has_aux=True))
+    all_px = np.ones((cfg.height, cfg.width), bool)
+    (_, jimg), _ = vg(params, all_px)
+
+    tscene, tcfg = torch_scene(scene), torch_config(cfg)
+    with torch.no_grad():
+        timg, _ = renderer.render_with_stats(tscene, tcfg)
+    mask = np.abs(np.asarray(jimg) - timg.numpy()).max(axis=-1) <= 1e-3
+    (jloss, _), jgrads = vg(params, mask)
+
+    tparams = train.extract_params(tscene)
+    img, _ = renderer.render_with_stats(train.apply_params(tscene, tparams), tcfg)
+    m = torch.from_numpy(mask)
+    se = torch.where(m[..., None], (img - torch.from_numpy(target)) ** 2, 0.0)
+    loss = se.sum() / (m.sum() * 3)
+    loss.backward()
+    return dict(
+        n_masked=int((~mask).sum()),
+        jax=(float(jloss), {k: np.asarray(v) for k, v in jgrads.items()}),
+        port=(float(loss.detach()),
+              {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().numpy()
+               for k, p in tparams.items()}),
     )
-    return JaxPacker(desc, w, h).frame(), cfg
+
+
+def l2rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nb = np.linalg.norm(b)
+    return float(np.linalg.norm(a - b) / nb) if nb > 0 else float(np.linalg.norm(a))
+
+
+def grad_mismatches(grads: dict, tol: dict) -> dict:
+    """{field: l2-relative error} of the port's gradients against JAX's where it
+    exceeds ``tol[field]`` (``tol["*"]`` for the rest); asserts equal field sets,
+    shapes, finite gradients and the losses within 1e-5 relative."""
+    jloss, jgrads = grads["jax"]
+    loss, tgrads = grads["port"]
+    assert abs(loss - jloss) <= 1e-5 * abs(jloss), (loss, jloss)
+    assert set(tgrads) == set(train.DIFFERENTIABLE_FIELDS) == set(jgrads)
+    bad = {}
+    for f in train.DIFFERENTIABLE_FIELDS:
+        g, r = tgrads[f], jgrads[f]
+        assert g.shape == r.shape and np.isfinite(g).all(), f
+        if l2rel(g, r) > tol.get(f, tol["*"]):
+            bad[f] = l2rel(g, r)
+    return bad
 
 
 def fields(scene) -> dict:
