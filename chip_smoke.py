@@ -23,6 +23,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    a warm-up split into forward and backward, fwd+bwd MRays/s, each kernel's time
    inside a step, an Adam update's time, peak device memory and one profiled
    step; then 3 steps of ``diff.train.make_train_step``, whose loss must fall;
+   the filters: the same config3 1080p scene under ``mipmap_filter=TRILINEAR``,
+   ``mipmap_filter=EWA``, ``texture_sample_mode=BILINEAR`` and
+   ``texture_sample_mode=NEAREST``, each forward (median of 3 frames after a
+   warm-up, MRays/s, the six counters, the mode's K3 launches) and as a
+   fwd+bwd step over the 17 fields (step ms and its split, MRays/s, peak memory,
+   every gradient norm, the mode's K4 launches; under TRILINEAR the camera's
+   gradients must be finite and not zero);
 5. the interactive frame loop: ``raytracer_tpu_torch.app.main`` renders config4
    (900x600, 3 bounces, animated, TLAS rebuilt on the host every frame) for 30
    frames with FXAA into PNGs — its own per-frame ms (median, p90), MRays/s,
@@ -35,14 +42,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    incomplete must be 0) and each kernel's launches in one frame;
 7. kernel vs plain: each kernel and its plain PyTorch version on the card, on
    the inputs the main path gave that kernel in generation 0 (the forward
-   kernels on config3's frame and on config4's; K8 on config4's presented
-   frame and on config3's 1080p frame; K9 on every generation of config4,
-   config0 and config2, the rays that start inside a dielectric sphere
-   among them), with the stated tolerance (a backward kernel against
-   autograd of the plain forward, with a seeded cotangent); then each kernel's
-   time, its plain version's time, the one PyTorch call that computes the same
-   function where there is one, and the least time the card could take (bytes
-   over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger);
+   kernels on config3's frame and on config4's; K3 and K4 in every mode on
+   that mode's config3 frame, K4 also on its generation with the most
+   top-texel lanes; K8 on config4's presented frame and on config3's 1080p
+   frame; K9 on every generation of config4, config0 and config2, the rays
+   that start inside a dielectric sphere among them), with the stated
+   tolerance (a backward kernel against autograd of the plain forward, with a
+   seeded cotangent); then each kernel's time, its plain version's time, the
+   one PyTorch call that computes the same function where there is one, and
+   the least time the card could take (bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger);
 8. small-input checks, the card against the same render on the CPU through the
    plain versions: config3 at 64x36 (20k triangles), config4 at 96x64 on
    animation frames 0 and 2, config2 at 64x64 and 8 bounces, forward; config3
@@ -77,12 +86,29 @@ WIDTH, HEIGHT, TRIANGLES = 1920, 1080, 260_000
 # 8 Moller-Trumbore tests of 54.
 OPS_ITER, OPS_NODE, OPS_LEAF = 33, 3 + 8 * 25, 8 * 54
 OPS_SKY = 25  # per lane (csrc/sky.cu)
-OPS_TEX_LANE, OPS_TEX_TAP = 25, 30  # per lane; per bilinear tap (csrc/texture.cu)
-# csrc/texture_bwd.cu: per tap the forward set-up (20), the weight and position
-# cotangents (49), 12 products and 12 atomic adds into the row, and 6 to move
-# and accumulate; per lane the set-up and the cotangent / n (28)
-OPS_TEXBWD_LANE, OPS_TEXBWD_TAP = 28, 99
 OPS_SKYBWD = 6  # per lane: 3 products and 3 atomic adds (csrc/sky.cu)
+# K3 / K4, every mode (csrc/texture.cuh, texture.cu, texture_bwd.cu).  A
+# bilinear tap: 30 forward; 99 backward (the forward set-up 20, the weight and
+# position cotangents 49, 12 products and 12 atomic adds into the row, 6 to move
+# and accumulate).  Per lane, the set-up: NEAREST the texel's position and wrap
+# (15; 3 atomic adds backward), BILINEAR 2, TRILINEAR 4 abs, 4 max, log2, floor
+# and the clamps (20) and its blend (10; backward 70 for the blend's cotangent
+# through lam and the maxes to the derivatives), ANISOTROPIC 25 (backward 28 with
+# the cotangent / n), EWA the axes, the eccentricity clamp, the level, the
+# quadratic form, its inverse and the box (80; 83 backward).  EWA per texel of
+# its window scanned: 11 for r2 and the test (twice backward: the weight sum,
+# then the scatter); per texel inside the ellipse 27 more (the weight with its
+# expf, the wrap, 7 to accumulate), backward 34 (the weight twice, the wrap, 3
+# products and 3 atomic adds).
+OPS_TAP, OPS_TAPBWD = 30, 99
+OPS_MODE = {  # mode: (fwd per lane, fwd per filter tap, bwd per lane, bwd per filter tap)
+    "nearest": (15, 0, 18, 0), "bilinear": (2, OPS_TAP, 5, OPS_TAPBWD),
+    "trilinear": (30, OPS_TAP, 90, OPS_TAPBWD), "aniso": (25, OPS_TAP, 28, OPS_TAPBWD),
+    "ewa": (80, 11, 83, 22),
+}
+OPS_EWA_TEXEL, OPS_EWABWD_TEXEL = 27, 34
+# the modes the filters phase drives, besides the main path's ANISOTROPIC
+FILTER_MODES = ("trilinear", "ewa", "bilinear", "nearest")
 # csrc/fxaa.cu, per pixel (a powf counted as one operation): 21 texel fetches
 # of 3 gamma'd channels (9 each), 6 lumas (5), the min / max, direction, reduce
 # and span clamp (31), 4 tap positions (16), 4 bilinear taps (43), the means and
@@ -144,6 +170,12 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rays_of(counters: dict) -> int:
+    """The rays a frame traced (bench.py:192-211's count)."""
+    return (counters["num_primary"] + counters["num_shadow"] + counters["num_reflection"]
+            + counters["num_refraction"])
 
 
 class Recorder:
@@ -240,7 +272,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
 
     from raytracer_tpu_torch import app, kernels
-    from raytracer_tpu_torch.config import TraversalStrategy
+    from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode, TraversalStrategy
     from raytracer_tpu_torch.diff import train
     from raytracer_tpu_torch.ops import (
         compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide,
@@ -278,20 +310,24 @@ def main() -> int:
          wide_records=list(packed.wd_rec.shape), texels=int(packed.tex_data.shape[0]),
          seconds=time.perf_counter() - t0)
 
-    # where each kernel's wrapper counts its launches
+    # where each kernel's wrapper counts its launches: a module attribute, or
+    # the texture wrappers' per-mode dicts
     fwd_counts = {
         "traverse_closest": (traversal_wide, "closest_launches"),
         "traverse_any": (traversal_wide, "any_launches"),
-        "texture_aniso": (texture_sample, "launches"),
+        "texture_aniso": (texture_sample.launches, "aniso"),
         "sky": (sky_sample, "launches"),
         "compact": (compaction, "launches"),
     }
     counts = {**fwd_counts,
-              "texture_aniso_bwd": (texture_sample, "bwd_launches"),
+              "texture_aniso_bwd": (texture_sample.bwd_launches, "aniso"),
               "sky_bwd": (sky_sample, "bwd_launches"),
               "fxaa": (fxaa, "launches"),
               "prim_closest": (intersect, "closest_launches"),
               "prim_any": (intersect, "any_launches")}
+    for mode in FILTER_MODES:
+        counts[f"texture_{mode}"] = (texture_sample.launches, mode)
+        counts[f"texture_{mode}_bwd"] = (texture_sample.bwd_launches, mode)
     train_kernels = (*fwd_counts, "texture_aniso_bwd", "sky_bwd")
     # config4 through the app: every forward kernel, FXAA and the primitives
     app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any")
@@ -304,11 +340,15 @@ def main() -> int:
                    (sky_sample, "sample_backward", "sky_bwd")]
 
     def reset_counts():
-        for module, attr in counts.values():
-            setattr(module, attr, 0)
+        for holder, key in counts.values():
+            if isinstance(holder, dict):
+                holder[key] = 0
+            else:
+                setattr(holder, key, 0)
 
     def read_counts():
-        return {name: getattr(module, attr) for name, (module, attr) in counts.items()}
+        return {name: holder[key] if isinstance(holder, dict) else getattr(holder, key)
+                for name, (holder, key) in counts.items()}
 
     # one frame with the counts at 0: the forward path's run
     reset_counts()
@@ -340,8 +380,7 @@ def main() -> int:
         frame_kernel_ms = timer.kernel_ms()
     profile = profile_frame(lambda: rend(scene))
     frame_ms = statistics.median(frame_s) * 1e3
-    rays = (counters["num_primary"] + counters["num_shadow"]
-            + counters["num_reflection"] + counters["num_refraction"])
+    rays = rays_of(counters)
     emit("frame", config="config3_sponza", width=WIDTH, height=HEIGHT,
          frame_ms=frame_ms, frame_ms_all=[s * 1e3 for s in frame_s],
          fwd_mrays_per_s=rays / (frame_ms / 1e3) / 1e6, counters=counters,
@@ -361,13 +400,13 @@ def main() -> int:
     params = train.extract_params(scene)
     target = torch.zeros((HEIGHT, WIDTH, 3), dtype=torch.float32, device="cuda")
 
-    def fwd_bwd(split=None):
+    def fwd_bwd(params, scfg, split=None):
         """One fwd+bwd step over the whole frame (one autograd graph); with
         ``split``, synchronise after the forward and append (fwd s, bwd s)."""
         for p in params.values():
             p.grad = None
         t0 = time.perf_counter()
-        img, st = renderer.render_with_stats(train.apply_params(scene, params), cfg)
+        img, st = renderer.render_with_stats(train.apply_params(scene, params), scfg)
         loss = train.image_loss(img, target)
         if split is not None:
             torch.cuda.synchronize()
@@ -380,7 +419,7 @@ def main() -> int:
 
     # one step with the counts at 0: the training path's run (and the warm-up)
     reset_counts()
-    loss, tstats = fwd_bwd()
+    loss, tstats = fwd_bwd(params, cfg)
     torch.cuda.synchronize()
     train_launches = read_counts()
     tcounters = {k: int(v) for k, v in tstats._asdict().items()}
@@ -391,16 +430,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     splits = []
     for _ in range(3):
-        fwd_bwd(splits)
+        fwd_bwd(params, cfg, splits)
     train_peak_mem = torch.cuda.max_memory_allocated()
     step_ms = statistics.median((a + b) * 1e3 for a, b in splits)
     with Recorder(targets + bwd_targets) as timer:
         timer.timing = True
-        fwd_bwd()
+        fwd_bwd(params, cfg)
         step_kernel_ms = timer.kernel_ms()
     opt = torch.optim.Adam(params.values(), lr=1e-2)
     adam_ms = cuda_ms(opt.step, 3)  # on the last step's gradients
-    train_profile = profile_frame(fwd_bwd)
+    train_profile = profile_frame(lambda: fwd_bwd(params, cfg))
     del opt, params
 
     init, step = train.make_train_step(cfg, fields=TRAIN_FIELDS)
@@ -410,8 +449,7 @@ def main() -> int:
         tparams, topt, tl = step(tparams, topt, scene, target)
         train_losses.append(float(tl))
     del tparams, topt
-    trays = (tcounters["num_primary"] + tcounters["num_shadow"]
-             + tcounters["num_reflection"] + tcounters["num_refraction"])
+    trays = rays_of(tcounters)
     emit("train", config="config3_sponza", width=WIDTH, height=HEIGHT,
          loss="image_loss(render_with_stats(...), zeros), all 17 fields, one graph",
          step_ms=step_ms, step_ms_all=[(a + b) * 1e3 for a, b in splits],
@@ -434,6 +472,95 @@ def main() -> int:
         problems.append(f"make_train_step's loss did not fall: {train_losses}")
     if problems:
         return fail("; ".join(problems))
+
+    # ------------------------------------------------------ 4b. every texture filter
+    # config3 at 1080p under each of the other modes: one frame with the counts
+    # at 0 (K3's inputs of every generation kept for the kernel rows), timed
+    # frames, then one fwd+bwd step with the counts at 0 and 3 timed steps
+    mode_changes = {"trilinear": dict(mipmap_filter=MipmapFilter.TRILINEAR),
+                    "ewa": dict(mipmap_filter=MipmapFilter.EWA),
+                    "bilinear": dict(texture_sample_mode=TextureSampleMode.BILINEAR),
+                    "nearest": dict(texture_sample_mode=TextureSampleMode.NEAREST)}
+    filter_calls, filter_launches = {}, {}
+    for mode in FILTER_MODES:
+        k3_name, k4_name = f"texture_{mode}", f"texture_{mode}_bwd"
+        mcfg = cfg.replace(**mode_changes[mode])
+        mrend = renderer.Renderer(mcfg, device="cuda")
+        reset_counts()
+        with Recorder([(texture_sample, "sample", k3_name)], every_call=(k3_name,)) as mrec:
+            mrec.capture = True
+            mimg, mstats = mrend(scene)
+            torch.cuda.synchronize()
+        mlaunches = read_counts()
+        filter_calls[mode] = mrec.calls[k3_name]
+        mcounters = {k: int(v) for k, v in mstats._asdict().items()}
+        mfinite = bool(torch.isfinite(mimg).all())
+        mrend(scene)
+        torch.cuda.synchronize()
+        mframe_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mrend(scene)
+            torch.cuda.synchronize()
+            mframe_s.append(time.perf_counter() - t0)
+
+        mparams = train.extract_params(scene)
+        reset_counts()
+        _, mtstats = fwd_bwd(mparams, mcfg)
+        torch.cuda.synchronize()
+        mstep_launches = read_counts()
+        mnorms = {k: None if p.grad is None else float(p.grad.norm())
+                  for k, p in mparams.items()}
+        torch.cuda.reset_peak_memory_stats()
+        msplits = []
+        for _ in range(3):
+            fwd_bwd(mparams, mcfg, msplits)
+        mpeak = torch.cuda.max_memory_allocated()
+        with Recorder([(texture_sample, "sample", k3_name),
+                       (texture_sample, "sample_backward", k4_name)]) as timer:
+            timer.timing = True
+            fwd_bwd(mparams, mcfg)
+            mkernel_ms = timer.kernel_ms()
+        mprofile = profile_frame(lambda: fwd_bwd(mparams, mcfg))
+        del mparams
+        mframe_ms = statistics.median(mframe_s) * 1e3
+        mstep_ms = statistics.median((a + b) * 1e3 for a, b in msplits)
+        mtcounters = {k: int(v) for k, v in mtstats._asdict().items()}
+        filter_launches[k3_name] = mlaunches[k3_name]
+        filter_launches[k4_name] = mstep_launches[k4_name]
+        emit("filters", config="config3_sponza", width=WIDTH, height=HEIGHT, mode=mode,
+             change={k: v.name for k, v in mode_changes[mode].items()},
+             frame_ms=mframe_ms, frame_ms_all=[x * 1e3 for x in mframe_s],
+             fwd_mrays_per_s=rays_of(mcounters) / (mframe_ms / 1e3) / 1e6,
+             counters=mcounters, image_mean=float(mimg.mean()), image_finite=mfinite,
+             launches={k: n for k, n in mlaunches.items() if n},
+             step_ms=mstep_ms, step_ms_all=[(a + b) * 1e3 for a, b in msplits],
+             fwd_ms=statistics.median(a * 1e3 for a, _ in msplits),
+             bwd_ms=statistics.median(b * 1e3 for _, b in msplits),
+             fwd_bwd_mrays_per_s=rays_of(mtcounters) / (mstep_ms / 1e3) / 1e6,
+             step_counters=mtcounters, step_launches={k: n for k, n in
+                                                      mstep_launches.items() if n},
+             texture_kernel_ms_in_step=mkernel_ms, step_profile=mprofile, grad_norms=mnorms,
+             max_memory_allocated_bytes=mpeak, nvidia_smi=smi)
+        problems = []
+        if mlaunches[k3_name] <= 0 or mstep_launches[k4_name] <= 0:
+            problems.append(f"K3 launched {mlaunches[k3_name]}, K4 "
+                            f"{mstep_launches[k4_name]} times")
+        for c in (mcounters, mtcounters):
+            if c["num_dropped"] or c["num_incomplete"]:
+                problems.append(f"loss counters not 0: {c}")
+        if not mfinite or tuple(mimg.shape) != (HEIGHT, WIDTH, 3):
+            problems.append("image not finite or of the wrong shape")
+        if not all(v is None or math.isfinite(v) for v in mnorms.values()):
+            problems.append(f"gradients not finite: {mnorms}")
+        if not mnorms["tex_data"]:
+            problems.append("no gradient reached tex_data")
+        cams = [mnorms[k] for k in ("cam_pos", "cam_top_left", "cam_x", "cam_y")]
+        if mode == "trilinear" and not all(v is not None and v > 0 for v in cams):
+            problems.append(f"camera gradients zero under TRILINEAR: {cams}")
+        if problems:
+            return fail(f"filters, {mode}: " + "; ".join(problems))
+        del mrend, mimg
 
     # ------------------------------------------------ 5. the interactive frame loop
     app_out = os.path.join(REPO, "build", "chip_smoke_app")
@@ -563,8 +690,7 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         sms = statistics.median(times) * 1e3
-        srays = (scount["num_primary"] + scount["num_shadow"] + scount["num_reflection"]
-                 + scount["num_refraction"])
+        srays = rays_of(scount)
         sfinite = bool(torch.isfinite(simg).all())
         emit("scenes", config=name, width=scfg.width, height=scfg.height,
              bounces=scfg.num_bounces, frame_ms=sms, frame_ms_all=[t * 1e3 for t in times],
@@ -577,12 +703,12 @@ def main() -> int:
         del r, sc, simg
 
     # --------------------------------------------------------- 7. kernel vs plain
-    inputs, tex_calls = rec.inputs, rec.calls["texture_aniso"]
-    del rec
+    inputs = rec.inputs
     report = []
     ok = True
     launches.update({k: train_launches[k] for k in ("texture_aniso_bwd", "sky_bwd")})
     launches.update({k: app_launches[k] for k in ("fxaa", "prim_closest", "prim_any")})
+    launches.update(filter_launches)
     gen = torch.Generator(device="cuda").manual_seed(7)
 
     def l2rel(a, b) -> float:
@@ -752,124 +878,149 @@ def main() -> int:
            tolerance="sky_data gradient within 1e-5 l2-relative")
     del p_graph, leaf
 
-    # K3 texture, on generation 0's hits
-    (tex, *lanes_in, tcfg), kw = tex_calls[0]
-    lanes_in = tuple(lanes_in)  # tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy
-    data4, maxa = kw["data4"], float(tcfg.max_anisotropy)
+    # K3 and K4 in one mode, on the inputs that mode's 1080p frame gave K3
+    texture_replaces = {"nearest": 53, "bilinear": 64, "trilinear": 115, "aniso": 290,
+                        "ewa": 200}
 
-    def k3(lanes=lanes_in):
-        return texture_sample.sample(tex, *lanes, tcfg, data4=data4)
+    def texture_rows(mode, calls, config4=None):
+        """K3 on generation 0's lanes against sample_plain; K4 there and on the
+        generation with the most top-texel lanes against autograd of
+        sample_plain with a seeded cotangent.  Records both rows."""
+        (tex, *lanes_in, kcfg), kw = calls[0]
+        lanes_in = tuple(lanes_in)  # tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy
+        data4, filt = kw["data4"], texture_sample.filter_of(kcfg)
+        n, x_rows = lanes_in[1].shape[0], tex[0].shape[0]
+        replaces = f"raytracer_tpu/ops/texture_sample.py:{texture_replaces[mode]}"
 
-    def p3(lanes=lanes_in):
-        return texture_sample.sample_plain(tex, *lanes, tcfg, data4)
+        def k3(lanes=lanes_in):
+            return texture_sample.sample(tex, *lanes, kcfg, data4=data4)
 
-    def branches(lanes):
-        """The branch each lane takes (texture.cuh aniso_setup): the level-0 tap,
-        the top texel, or n taps at level_c.  Returns (bilinear taps, top-texel
-        lanes): the work depends on them."""
-        tid, _, _, sx, sy, tx, ty = lanes
-        levels = tex[3][tid.long()]
-        p_x = torch.maximum(sx.abs(), tx.abs())
-        p_y = torch.maximum(sy.abs(), ty.abs())
-        p_max = torch.maximum(p_x, p_y)
-        taps = torch.clamp(torch.ceil(p_max / torch.clamp_min(torch.minimum(p_x, p_y), 1e-20)),
-                           1.0, maxa)
-        level = torch.round(levels.float() - 1.0
-                            + torch.log2(torch.clamp_min(p_max / taps, 1e-20)))
-        top = (levels > 1) & (level >= levels - 1)
-        aniso = (levels > 1) & (level >= 0) & ~top
-        return (float(torch.where(aniso, taps, torch.where(top, 0.0, 1.0)).sum()),
-                float(top.sum()))
+        def p3(lanes=lanes_in):
+            return texture_sample.sample_plain(tex, *lanes, kcfg, data4)
 
-    tex_check = check_texture(tex, lanes_in, tcfg, data4)
-    n = lanes_in[1].shape[0]
-    n_taps, n_top = branches(lanes_in)
-    record("texture_aniso", "raytracer_tpu_torch/csrc/texture.cu",
-           "raytracer_tpu/ops/texture_sample.py:290",
-           max(tex_check.pop("max_abs_err"), on4["texture_aniso"]["max_abs_err"]),
-           cuda_ms(k3, 20), cuda_ms(p3, 5),
-           bound_ms(nbytes(*lanes_in, tex[0], data4, *tex[1:5]) + n * 12,
-                    n * OPS_TEX_LANE + n_taps * OPS_TEX_TAP), None,
-           tex_check.pop("passed") and on4["texture_aniso"]["passed"], **tex_check,
-           bilinear_taps=n_taps, top_lanes=n_top, config4_900x600=on4["texture_aniso"],
-           tolerance="max abs <= 1e-5 on >= 99.9% of lanes, on config3 and on config4")
+        # the work these lanes need (texture_sample.lane_work) and what the mode
+        # reads: NEAREST and BILINEAR no derivative, NEAREST no quad atlas,
+        # BILINEAR no base atlas
+        work = texture_sample.lane_work(tex, lanes_in, kcfg)
+        read_lanes = lanes_in[:3] if mode in ("nearest", "bilinear") else lanes_in
+        atlases = {"nearest": (tex[0],), "bilinear": (data4,)}.get(mode, (tex[0], data4))
+        lane_f, tap_f, lane_b, tap_b = OPS_MODE[mode]
+        fwd_ops = (n * lane_f + work["bilinear"] * OPS_TAP + work["taps"] * tap_f
+                   + work["weighted"] * OPS_EWA_TEXEL)
+        bwd_ops = (n * lane_b + work["bilinear"] * OPS_TAPBWD + work["taps"] * tap_b
+                   + work["weighted"] * OPS_EWABWD_TEXEL + work["top"] * 3)
 
-    # K4 against autograd of sample_plain, same lanes, seeded cotangent.  A lane
-    # whose K3 result differs (another mip level at a rounding boundary) sends
-    # its gradient to other texels, so those lanes are left out of both.
-    def k4_vs_plain(lanes):
-        e = (k3(lanes) - p3(lanes)).abs().amax(dim=1)
-        cot = torch.randn((e.shape[0], 3), generator=gen, device="cuda") * (e <= 1e-5)[:, None]
-        kd, kd4, kl = texture_sample.sample_backward(tex, lanes, maxa, data4, cot,
-                                                     True, True, True)
-        d_leaf = tex[0].detach().clone().requires_grad_()
-        d4_leaf = data4.detach().clone().requires_grad_()
-        f_leaf = [x.detach().clone().requires_grad_() for x in lanes[1:]]
-        p_graph = texture_sample.sample_plain((d_leaf, *tex[1:]), lanes[0], *f_leaf, tcfg,
-                                              d4_leaf)
+        fcheck = check_texture(tex, lanes_in, kcfg, data4)
+        fmax, fpassed = fcheck.pop("max_abs_err"), fcheck.pop("passed")
+        if config4 is not None:
+            fmax, fpassed = max(fmax, config4["max_abs_err"]), fpassed and config4["passed"]
+            fcheck["config4_900x600"] = config4
+        record(f"texture_{mode}", "raytracer_tpu_torch/csrc/texture.cu", replaces, fmax,
+               cuda_ms(k3, 20), cuda_ms(p3, 5),
+               bound_ms(nbytes(*read_lanes, *atlases, *tex[1:5]) + n * 12, fwd_ops), None,
+               fpassed, **fcheck, work=work,
+               tolerance="max abs <= 1e-5 on >= 99.9% of lanes"
+                         + (", on config3 and on config4" if config4 else ""))
 
-        def p4():
-            return torch.autograd.grad(p_graph, [d_leaf, d4_leaf, *f_leaf], cot,
-                                       retain_graph=True)
+        # A lane whose K3 result differs (another mip level at a rounding
+        # boundary) sends its gradient to other texels, so those lanes are left
+        # out of both.
+        def k4_vs_plain(lanes):
+            e = (k3(lanes) - p3(lanes)).abs().amax(dim=1)
+            cot = torch.randn((e.shape[0], 3), generator=gen, device="cuda") * (e <= 1e-5)[:, None]
+            kd, kd4, kl = texture_sample.sample_backward(tex, lanes, filt, data4, cot,
+                                                         True, True, True)
+            leaves = [tex[0].detach().clone().requires_grad_()]
+            if data4 is not None:
+                leaves.append(data4.detach().clone().requires_grad_())
+            leaves += [x.detach().clone().requires_grad_() for x in lanes[1:]]
+            p_graph = texture_sample.sample_plain((leaves[0], *tex[1:]), lanes[0],
+                                                  *leaves[-6:], kcfg,
+                                                  leaves[1] if data4 is not None else None)
 
-        pd, pd4, *pl = p4()
-        lane_ok = [float((((kl[k] - g).abs() / g.abs().max().clamp_min(1e-30)) <= 1e-5)
-                         .float().mean()) for k, g in enumerate(pl)]
-        got = {"lanes": e.shape[0], "lanes_left_out": int((e > 1e-5).sum()),
-               "top_lanes": branches(lanes)[1],
-               "l2_rel_data": l2rel(kd, pd), "l2_rel_data4": l2rel(kd4, pd4),
-               "lanes_within_tolerance": dict(zip(("s", "t", "ds_dx", "ds_dy", "dt_dx",
-                                                   "dt_dy"), lane_ok)),
-               "max_abs_err": max(float((kd - pd).abs().max()), float((kd4 - pd4).abs().max()),
-                                  max(float((kl[k] - g).abs().max())
-                                      for k, g in enumerate(pl)))}
-        got["passed"] = (got["l2_rel_data4"] <= 1e-5 and min(lane_ok) >= 0.999
-                         and (got["top_lanes"] == 0 or got["l2_rel_data"] <= 1e-5))
-        if got["top_lanes"] == 0:  # grad data comes only from top-texel lanes
-            got["l2_rel_data"] = "not exercised: no top-texel lane"
-        return got, cot, p4
+            def p4():
+                grads = torch.autograd.grad(p_graph, leaves, cot, retain_graph=True,
+                                            allow_unused=True)
+                return [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
 
-    # the top-texel branch (K4's grad data atomics), on the main path's
-    # generation with the most top-texel lanes; where none has one, on generation
-    # 0's lanes with each lane's derivatives scaled by 2^u (u seeded, uniform in
-    # [0, 16)), which sends a share of them to the top texel
-    tops = [branches(tuple(c[0][1:8]))[1] for c in tex_calls]
-    g_top = max(range(len(tops)), key=tops.__getitem__)
-    if tops[g_top] > 0:
-        top_in, top_from = tuple(tex_calls[g_top][0][1:8]), f"generation {g_top}"
-    else:
-        u = torch.exp2(torch.rand(n, generator=gen, device="cuda") * 16)
-        top_in = (*lanes_in[:3], *(x * u for x in lanes_in[3:]))
-        top_from = "generation 0, derivatives x 2^u, u seeded uniform in [0, 16)"
-    top_check, _, _ = k4_vs_plain(top_in)
-    top_check.update(inputs=top_from, top_lanes_per_generation=tops)
-    top_ok = top_check["passed"] and top_check["top_lanes"] > 0
-    del top_in, tex_calls
+            pg = p4()
+            pd, pl = pg[0], pg[-6:]
+            lane_ok = [float((((kl[k] - g).abs() / g.abs().max().clamp_min(1e-30)) <= 1e-5)
+                             .float().mean()) for k, g in enumerate(pl)]
+            errs = [float((kd - pd).abs().max())] + [float((kl[k] - g).abs().max())
+                                                     for k, g in enumerate(pl)]
+            got = {"lanes": e.shape[0], "lanes_left_out": int((e > 1e-5).sum()),
+                   "top_lanes": texture_sample.lane_work(tex, lanes, kcfg)["top"],
+                   "l2_rel_data": l2rel(kd, pd),
+                   "lanes_within_tolerance": dict(zip(("s", "t", "ds_dx", "ds_dy", "dt_dx",
+                                                       "dt_dy"), lane_ok))}
+            passed = got["l2_rel_data"] <= 1e-5 and min(lane_ok) >= 0.999
+            if data4 is not None:
+                got["l2_rel_data4"] = l2rel(kd4, pg[1])
+                errs.append(float((kd4 - pg[1]).abs().max()))
+                passed = passed and got["l2_rel_data4"] <= 1e-5
+            if not bool(pd.any()):
+                got["l2_rel_data"] = "not exercised: no lane sends a gradient to data"
+            got.update(max_abs_err=max(errs), passed=passed)
+            return got, cot, p4
 
-    # K4 on generation 0's lanes: timed, and the row of the kernels line
-    check, cot, p4 = k4_vs_plain(lanes_in)
+        # the top-texel branch (grad data atomics), on the mode's generation with
+        # the most top-texel lanes; where none has one, on generation 0's lanes
+        # with each lane's derivatives scaled by 2^u (u seeded, uniform in
+        # [0, 16)), which sends a share of them to the top texel
+        if mode in ("nearest", "bilinear"):
+            top_check = {"passed": True, "max_abs_err": 0.0,
+                         "inputs": "none: the mode has no top-texel branch"}
+        else:
+            tops = [texture_sample.lane_work(tex, tuple(c[0][1:8]), kcfg)["top"]
+                    for c in calls]
+            g_top = max(range(len(tops)), key=tops.__getitem__)
+            if tops[g_top] > 0:
+                top_in, top_from = tuple(calls[g_top][0][1:8]), f"generation {g_top}"
+            else:
+                u = torch.exp2(torch.rand(n, generator=gen, device="cuda") * 16)
+                top_in = (*lanes_in[:3], *(x * u for x in lanes_in[3:]))
+                top_from = "generation 0, derivatives x 2^u, u seeded uniform in [0, 16)"
+            top_check, _, _ = k4_vs_plain(top_in)
+            top_check.update(inputs=top_from, top_lanes_per_generation=tops)
+            top_check["passed"] = top_check["passed"] and top_check["top_lanes"] > 0
+            del top_in
 
-    def k4():
-        return texture_sample.sample_backward(tex, lanes_in, maxa, data4, cot, True, True, True)
+        # K4 on generation 0's lanes: timed, and the row of the kernels line
+        check, cot, p4 = k4_vs_plain(lanes_in)
 
-    kd4, again = k4()[1], k4()[1]
-    spread, spread_rel = float((again - kd4).abs().max()), l2rel(again, kd4)
-    del kd4, again
-    x_rows = tex[0].shape[0]
-    atomics = n_taps * 12 + n_top * 3
-    record("texture_aniso_bwd", "raytracer_tpu_torch/csrc/texture_bwd.cu",
-           "raytracer_tpu/ops/texture_sample.py:290",
-           max(check.pop("max_abs_err"), top_check["max_abs_err"]), cuda_ms(k4, 20),
-           cuda_ms(p4, 5),
-           bound_ms(nbytes(*lanes_in, cot, data4, *tex[1:5]) + x_rows * (12 + 48) + n * 24,
-                    n * OPS_TEXBWD_LANE + n_taps * OPS_TEXBWD_TAP + n_top * 3), None,
-           check.pop("passed") and top_ok, bilinear_taps=n_taps, atomics=atomics,
-           atomic_rmw_bytes_in_l2=atomics * 8, **check, top_texel_check=top_check,
-           run_to_run_max_abs_data4=spread, run_to_run_l2_rel_data4=spread_rel,
-           tolerance="data and data4 gradients within 1e-5 l2-relative (data on the "
-                     "top-texel check, as generation 0 may have no top-texel lane); each "
-                     "lane gradient within 1e-5 of its max |grad| on >= 99.9% of lanes")
-    del p4, cot
+        def k4():
+            return texture_sample.sample_backward(tex, lanes_in, filt, data4, cot, True, True,
+                                                  True)
+
+        first, again = k4(), k4()
+        spread = {k: {"max_abs": float((b - a).abs().max()), "l2_rel": l2rel(b, a)}
+                  for k, a, b in (("data", first[0], again[0]), ("data4", first[1], again[1]))
+                  if a is not None}
+        del first, again
+        # 12 atomic adds per bilinear tap (its quad row), 3 per texel of data
+        tap_rows = work["taps"] if mode in ("bilinear", "trilinear", "aniso") else 0.0
+        texels = work["top"] + work["weighted"] + (work["taps"] if mode == "nearest" else 0.0)
+        atomics = (work["bilinear"] + tap_rows) * 12 + texels * 3
+        bwd_in = nbytes(*read_lanes, cot, *tex[1:5]) + (0 if data4 is None else nbytes(data4))
+        bwd_out = x_rows * (12 * (mode != "bilinear") + 48 * (data4 is not None)) + n * 24
+        record(f"texture_{mode}_bwd", "raytracer_tpu_torch/csrc/texture_bwd.cu", replaces,
+               max(check.pop("max_abs_err"), top_check["max_abs_err"]), cuda_ms(k4, 20),
+               cuda_ms(p4, 1 if mode == "ewa" else 5), bound_ms(bwd_in + bwd_out, bwd_ops),
+               None, check.pop("passed") and top_check["passed"], work=work,
+               atomics=atomics,
+               atomic_rmw_bytes_in_l2=atomics * 8, **check, top_texel_check=top_check,
+               run_to_run=spread,
+               tolerance="data and data4 gradients within 1e-5 l2-relative (data on the "
+                         "top-texel check where the mode has one, as generation 0 may have "
+                         "no top-texel lane); each lane gradient within 1e-5 of its max "
+                         "|grad| on >= 99.9% of lanes")
+
+    tex_calls = rec.calls["texture_aniso"]
+    texture_rows("aniso", tex_calls, config4=on4["texture_aniso"])
+    for mode in FILTER_MODES:
+        texture_rows(mode, filter_calls[mode])
+    del tex_calls, filter_calls, rec
 
     # K6 compaction, on generation 0's 2N candidate flags
     (flags,), _ = inputs["compact"]

@@ -1,34 +1,64 @@
 """Texture filtering over the flat mip atlas (counterpart of
-``raytracer_tpu/ops/texture_sample.py``), kernel K3.
+``raytracer_tpu/ops/texture_sample.py``), kernels K3 (forward) and K4 (its gradient).
 
-Reference (clayne/CPU-Raytracer): Texture.cpp — bilinear (157-186) and anisotropic
-(OpenGL EXT spec; 207-239).  Every lane carries its own texture id, so one call
-filters the whole wavefront across all textures.
+Reference (clayne/CPU-Raytracer): Texture.cpp — nearest (149-155), bilinear
+(157-186), trilinear (PBRT 10.4; 189-204), anisotropic (OpenGL EXT spec; 207-239)
+and EWA (242-337).  Every lane carries its own texture id, so one call filters the
+whole wavefront across all textures.
 
-This slice ports what config3 runs: MIPMAP mode with the ANISOTROPIC filter.
-``sample`` launches ``csrc/texture.cu`` (K3) for CUDA tensors and runs
+Every mode of the JAX package runs: NEAREST, BILINEAR, and MIPMAP with the
+TRILINEAR, ANISOTROPIC or EWA filter.  EWA scans a window of at most
+``ewa_max_span``² texels, as the JAX package does.  ``sample`` launches
+``csrc/texture.cu`` (K3, one template instance per mode) for CUDA tensors and runs
 ``sample_plain`` for CPU tensors; its gradient on the card is
 ``csrc/texture_bwd.cu`` (K4, ``TextureSample``), on the CPU autograd of
-``sample_plain``.  NEAREST, BILINEAR, TRILINEAR and EWA raise
-``NotImplementedError``: they are still to be ported (ROADMAP.md queue B, K3).
+``sample_plain``.  The plain version follows JAX's expressions in JAX's order,
+with ``torch.maximum`` where JAX has ``jnp.maximum`` (both split the gradient of
+a tie in half).
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from .. import kernels
 from ..config import MipmapFilter, RenderConfig, TextureSampleMode
+from ..core.vecmath import safe_sqrt
 
-# rt_texture_aniso (K3) and rt_texture_aniso_bwd (K4) launches (reset and read by
+_EWA_ALPHA = 2.0
+_EWA_TABLE_SIZE = 128  # Texture.h:52-62
+
+# the modes of ``sample``, in the order of texture.cuh's ``enum Mode``
+MODES = ("nearest", "bilinear", "trilinear", "aniso", "ewa")
+# K3 (rt_texture) and K4 (rt_texture_bwd) launches per mode (reset and read by
 # chip_smoke.py)
-launches = 0
-bwd_launches = 0
+launches = dict.fromkeys(MODES, 0)
+bwd_launches = dict.fromkeys(MODES, 0)
 
-_NOT_PORTED = (
-    "texture filtering mode {} is not ported yet: only MIPMAP + ANISOTROPIC "
-    "(ROADMAP.md queue B, K3: NEAREST/TRILINEAR/EWA texture kernels)"
-)
+_FILTERS = {MipmapFilter.TRILINEAR: "trilinear", MipmapFilter.ANISOTROPIC: "aniso",
+            MipmapFilter.EWA: "ewa"}
+
+
+class Filter(NamedTuple):
+    """The non-tensor arguments of K3 and K4: the mode (one of ``MODES``), the
+    anisotropic tap cap and the side of EWA's window."""
+
+    mode: str
+    max_anisotropy: float
+    ewa_span: int
+
+
+def filter_of(cfg: RenderConfig) -> Filter:
+    if cfg.texture_sample_mode == TextureSampleMode.NEAREST:
+        mode = "nearest"
+    elif cfg.texture_sample_mode == TextureSampleMode.BILINEAR:
+        mode = "bilinear"
+    else:
+        mode = _FILTERS[MipmapFilter(cfg.mipmap_filter)]
+    return Filter(mode, float(cfg.max_anisotropy), int(cfg.ewa_max_span))
 
 
 def expand_quads(tex) -> torch.Tensor:
@@ -39,6 +69,30 @@ def expand_quads(tex) -> torch.Tensor:
     of ``jnp.take`` does in JAX."""
     data, _w, _h, _l, _o, quad = tex
     return data[quad.reshape(-1).long()].reshape(-1, 12)
+
+
+def _max(x, c: float):
+    """``jnp.maximum(x, c)`` for a constant c: NaN-propagating, and a tie splits
+    the gradient in half (``torch.clamp_min`` would give x all of it)."""
+    return torch.maximum(x, x.new_full((), c))
+
+
+def _fetch_texel(tex, tex_id, x, y, level):
+    """Wrap-around texel fetch (Texture.cpp:131-147). x, y, level: [N] int32."""
+    data, width, height, _, offsets, _ = tex
+    w = torch.clamp_min(width[tex_id] >> level, 1)
+    h = torch.clamp_min(height[tex_id] >> level, 1)
+    x = torch.remainder(x, w)  # positive mod, as jnp.mod (Math.h:44-52)
+    y = torch.remainder(y, h)
+    return data[(offsets[tex_id, level] + x + y * w).long()]
+
+
+def _sample_nearest(tex, tex_id, s, t):
+    """Texture.cpp:149-155; torch.round rounds half to even, as jnp.round."""
+    _, width, height, _, _, _ = tex
+    x = torch.round(s * width[tex_id].to(torch.float32)).to(torch.int32)
+    y = torch.round(t * height[tex_id].to(torch.float32)).to(torch.int32)
+    return _fetch_texel(tex, tex_id, x, y, torch.zeros_like(x))
 
 
 def _sample_bilinear(tex, tex_id, s, t, level, data4):
@@ -75,12 +129,48 @@ def _top_texel(tex, tex_id):
     return data[offsets[tex_id, levels[tex_id] - 1].long()]
 
 
-def _sample_anisotropic(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy,
-                        max_anisotropy: float, data4, base, top):
-    """OpenGL-EXT-style anisotropic filtering (Texture.cpp:207-239): up to N probes
-    along the major axis at a sharper mip level."""
-    _, _, _, levels, _, _ = tex
-    lv = levels[tex_id]
+def _clip_level(level, lv):
+    """jnp.clip(level, 0, levels - 1) on int32 levels."""
+    return torch.minimum(torch.clamp_min(level, 0), lv - 1)
+
+
+def _trilinear_level(lv, ds_dx, ds_dy, dt_dx, dt_dy):
+    """PBRT's LOD from the max abs derivative (Texture.cpp:189-195): (lam, level).
+    ``torch.abs`` has gradient 0 at 0 where ``jnp.abs`` has 1; that only differs
+    where the max is 0, and there ``max(width, 1e-8)`` takes the constant."""
+    width = 2.0 * torch.maximum(
+        torch.maximum(torch.abs(ds_dx), torch.abs(ds_dy)),
+        torch.maximum(torch.abs(dt_dx), torch.abs(dt_dy)),
+    )
+    lam = lv.to(torch.float32) - 1.0 + torch.log2(_max(width, 1e-8))
+    return lam, torch.floor(lam).to(torch.int32)
+
+
+def _sample_trilinear(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, data4, base, top):
+    """Two bilinear taps at floor(lam) and floor(lam) + 1, blended by frac(lam)
+    (Texture.cpp:189-204)."""
+    lv = tex[3][tex_id]
+    lam, level = _trilinear_level(lv, ds_dx, ds_dy, dt_dx, dt_dy)
+    lo = _clip_level(level, lv)
+    hi = _clip_level(level + 1, lv)
+    f = (lam - torch.floor(lam))[:, None]
+    mixed = (1.0 - f) * _sample_bilinear(
+        tex, tex_id, s, t, lo, data4
+    ) + f * _sample_bilinear(tex, tex_id, s, t, hi, data4)
+    out = torch.where((level < 0)[:, None], base, mixed)
+    return torch.where((level >= lv - 1)[:, None], top, out)
+
+
+class _Aniso(NamedTuple):
+    """_sample_anisotropic's footprint: tap count, level, major axis step."""
+
+    n: torch.Tensor
+    level: torch.Tensor
+    step_s: torch.Tensor
+    step_t: torch.Tensor
+
+
+def _aniso_setup(lv, ds_dx, ds_dy, dt_dx, dt_dy, max_anisotropy: float) -> _Aniso:
     lf = lv.to(torch.float32)
     p_x = torch.maximum(torch.abs(ds_dx), torch.abs(dt_dx))
     p_y = torch.maximum(torch.abs(ds_dy), torch.abs(dt_dy))
@@ -91,107 +181,290 @@ def _sample_anisotropic(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy,
     n = torch.clamp_min(n, 1.0)
     lam = lf - 1.0 + torch.log2(torch.clamp_min(p_max / n, 1e-20))
     level = torch.round(lam).to(torch.int32)  # half to even, as jnp.round
-    level_c = torch.minimum(torch.clamp_min(level, 0), lv - 1)
-
     x_major = p_x > p_y
-    step_s = torch.where(x_major, ds_dx, ds_dy)
-    step_t = torch.where(x_major, dt_dx, dt_dy)
-    inv_np1 = 1.0 / (n + 1.0)
+    return _Aniso(n, level, torch.where(x_major, ds_dx, ds_dy),
+                  torch.where(x_major, dt_dx, dt_dy))
+
+
+def _sample_anisotropic(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy,
+                        max_anisotropy: float, data4, base, top):
+    """OpenGL-EXT-style anisotropic filtering (Texture.cpp:207-239): up to N probes
+    along the major axis at a sharper mip level."""
+    lv = tex[3][tex_id]
+    f = _aniso_setup(lv, ds_dx, ds_dy, dt_dx, dt_dy, max_anisotropy)
+    level_c = _clip_level(f.level, lv)
+    inv_np1 = 1.0 / (f.n + 1.0)
 
     acc = torch.zeros((s.shape[0], 3), dtype=s.dtype, device=s.device)
     for i in range(1, int(max_anisotropy) + 1):
         fi = float(i)
-        use = fi <= n + 0.001
-        x = s + step_s * (fi * inv_np1 - 0.5)
-        y = t + step_t * (fi * inv_np1 - 0.5)
+        use = fi <= f.n + 0.001
+        x = s + f.step_s * (fi * inv_np1 - 0.5)
+        y = t + f.step_t * (fi * inv_np1 - 0.5)
         tap = _sample_bilinear(tex, tex_id, x, y, level_c, data4)
         acc = acc + torch.where(use[:, None], tap, 0.0)
-    aniso = acc / n[:, None]
+    aniso = acc / f.n[:, None]
 
-    out = torch.where((level < 0)[:, None], base, aniso)
-    return torch.where((level >= lv - 1)[:, None], top, out)
+    out = torch.where((f.level < 0)[:, None], base, aniso)
+    return torch.where((f.level >= lv - 1)[:, None], top, out)
 
 
-def _check_mode(cfg: RenderConfig) -> None:
-    if cfg.texture_sample_mode != TextureSampleMode.MIPMAP:
-        raise NotImplementedError(_NOT_PORTED.format(cfg.texture_sample_mode.name))
-    if cfg.mipmap_filter != MipmapFilter.ANISOTROPIC:
-        raise NotImplementedError(_NOT_PORTED.format(cfg.mipmap_filter.name))
+def _ewa_weight(r2):
+    """Quantized gaussian falloff, the reference's 128-entry table (Texture.h:53-62);
+    the index rounds to nearest (Util::float_to_int, Texture.cpp:327)."""
+    idx = torch.clamp_max(torch.floor(r2 * _EWA_TABLE_SIZE + 0.5), _EWA_TABLE_SIZE - 1)
+    r2q = idx / (_EWA_TABLE_SIZE - 1)
+    return torch.exp(-_EWA_ALPHA * r2q) - math.exp(-_EWA_ALPHA)
+
+
+class _Ewa(NamedTuple):
+    """_sample_ewa's ellipse at level_c: its quadratic form (a, b, c) about the
+    texel-space centre (ss, tt), its box [s0, s1] x [t0, t1] and its branch."""
+
+    level_c: torch.Tensor
+    use_top: torch.Tensor  # too_big | at_top
+    degenerate: torch.Tensor
+    ss: torch.Tensor
+    tt: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+    s0: torch.Tensor
+    s1: torch.Tensor
+    t0: torch.Tensor
+    t1: torch.Tensor
+
+
+def _ewa_setup(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, max_anisotropy: float) -> _Ewa:
+    """Texture.cpp:242-301, in the JAX package's form (texture_sample.py:205-260)."""
+    _, width, height, levels, _, _ = tex
+    lv = levels[tex_id]
+    lf = lv.to(torch.float32)
+    wf = width[tex_id].to(torch.float32)
+
+    maj_x, maj_y = ds_dx, dt_dx
+    min_x, min_y = ds_dy, dt_dy
+    maj_len = safe_sqrt(maj_x * maj_x + maj_y * maj_y)
+    min_len = safe_sqrt(min_x * min_x + min_y * min_y)
+    swap = min_len > maj_len
+    maj_x, min_x = torch.where(swap, min_x, maj_x), torch.where(swap, maj_x, min_x)
+    maj_y, min_y = torch.where(swap, min_y, maj_y), torch.where(swap, maj_y, min_y)
+    maj_len, min_len = (torch.where(swap, min_len, maj_len),
+                        torch.where(swap, maj_len, min_len))
+
+    degenerate = min_len < 1e-5
+    too_big = maj_len > wf
+
+    # eccentricity clamp (Texture.cpp:262-268)
+    scale = maj_len / _max(min_len * max_anisotropy, 1e-20)
+    need = min_len * max_anisotropy < maj_len
+    min_x = torch.where(need, min_x * scale, min_x)
+    min_y = torch.where(need, min_y * scale, min_y)
+    min_len = torch.where(need, min_len * scale, min_len)
+
+    lam = _max(lf - 1.0 + torch.log2(_max(min_len, 1e-20)), 0.0)
+    level = torch.round(lam).to(torch.int32)
+    at_top = level >= lv - 1
+    level_c = _clip_level(level, lv)
+
+    lw = torch.clamp_min(width[tex_id] >> level_c, 1).to(torch.float32)
+    lh = torch.clamp_min(height[tex_id] >> level_c, 1).to(torch.float32)
+    ss = s * lw - 0.5
+    tt = t * lh - 0.5
+    majx = maj_x * lw
+    majy = maj_y * lh
+    minx = min_x * lw
+    miny = min_y * lh
+
+    a = 1.0 + (majy * majy + miny * miny)
+    b = -2.0 * (majx * majy + minx * miny)
+    c = 1.0 + (majx * majx + minx * minx)
+    inv_f = 1.0 / (a * c - b * b * 0.25)
+    a, b, c = a * inv_f, b * inv_f, c * inv_f
+
+    det = -b * b + 4.0 * a * c
+    sqrt_u = safe_sqrt(det * c)
+    sqrt_v = safe_sqrt(det * a)
+    two_inv_det = 2.0 / det
+    # Util::float_to_int rounds to nearest: round(x) == floor(x + 0.5)
+    s0 = torch.floor(ss - two_inv_det * sqrt_u + 1.0).to(torch.int32)
+    s1 = torch.floor(ss + two_inv_det * sqrt_u).to(torch.int32)
+    t0 = torch.floor(tt - two_inv_det * sqrt_v + 1.0).to(torch.int32)
+    t1 = torch.floor(tt + two_inv_det * sqrt_v).to(torch.int32)
+    return _Ewa(level_c, too_big | at_top, degenerate, ss, tt, a, b, c, s0, s1, t0, t1)
+
+
+def _ewa_window(e: _Ewa, span: int):
+    """The window's texels in JAX's dj-major order: (si, tj, in_box, r2), each [N];
+    taps outside the ``span`` x ``span`` window are dropped, as in JAX."""
+    for dj in range(span):
+        tj = e.t0 + dj
+        for di in range(span):
+            si = e.s0 + di
+            in_box = (si <= e.s1) & (tj <= e.t1)
+            uu = si.to(torch.float32) - e.ss
+            vv = tj.to(torch.float32) - e.tt
+            yield si, tj, in_box, e.a * uu * uu + e.b * uu * vv + e.c * vv * vv
+
+
+def _sample_ewa(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, filt: Filter, base, top):
+    """Elliptical weighted average (Texture.cpp:242-337), bounded-window form.
+
+    The lanes reach the result only through floor and integer conversions, so
+    EWA's own lane gradient is zero (JAX's floor has a symbolic zero tangent);
+    the set-up runs on detached lanes, which also keeps autograd from forming
+    0 * inf on lanes whose ellipse overflows."""
+    lanes = [x.detach() for x in (s, t, ds_dx, ds_dy, dt_dx, dt_dy)]
+    e = _ewa_setup(tex, tex_id, *lanes, filt.max_anisotropy)
+    acc = torch.zeros((s.shape[0], 3), dtype=s.dtype, device=s.device)
+    wsum = torch.zeros_like(lanes[0])
+    for si, tj, in_box, r2 in _ewa_window(e, filt.ewa_span):
+        wgt = torch.where(in_box & (r2 < 1.0), _ewa_weight(r2), 0.0)
+        acc = acc + wgt[:, None] * _fetch_texel(tex, tex_id, si, tj, e.level_c)
+        wsum = wsum + wgt
+    ewa = acc / _max(wsum, 1e-20)[:, None]
+    out = torch.where(e.degenerate[:, None], base, ewa)
+    return torch.where(e.use_top[:, None], top, out)
 
 
 def sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfig,
-                 data4) -> torch.Tensor:
-    """MIPMAP + ANISOTROPIC sample (texture_sample.py:290-339 of the JAX package).
+                 data4=None) -> torch.Tensor:
+    """Config-dispatched texture sample (texture_sample.py:290-339 of the JAX
+    package).
 
     tex: (data [X,3], width [K], height [K], levels [K], offsets [K,16], quad [X,4]);
-    tex_id: [N] int32 (0 = none -> white); data4: ``expand_quads(tex)``.
+    tex_id: [N] int32 (0 = none -> white); data4: ``expand_quads(tex)``, built here
+    when not given (NEAREST reads ``data`` only and needs none).
     """
-    _check_mode(cfg)
+    filt = filter_of(cfg)
     tex_id = tex_id.long()
-    levels = tex[3]
-    zero = torch.zeros_like(tex_id, dtype=torch.int32)
-    bil = _sample_bilinear(tex, tex_id, s, t, zero, data4)
+    if filt.mode == "nearest":
+        return _sample_nearest(tex, tex_id, s, t)
+    if data4 is None:
+        data4 = expand_quads(tex)
+    bil = _sample_bilinear(tex, tex_id, s, t, torch.zeros_like(tex_id, dtype=torch.int32),
+                           data4)
+    if filt.mode == "bilinear":
+        return bil
+    # MIPMAP: non-mipmapped textures (levels == 1) fall back to bilinear; the
+    # level-0 tap and the top texel are shared with the filter's fallbacks
     top = _top_texel(tex, tex_id)
-    mip = _sample_anisotropic(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy,
-                              cfg.max_anisotropy, data4, base=bil, top=top)
-    return torch.where((levels[tex_id] > 1)[:, None], mip, bil)
+    derivs = (ds_dx, ds_dy, dt_dx, dt_dy)
+    if filt.mode == "trilinear":
+        mip = _sample_trilinear(tex, tex_id, s, t, *derivs, data4, bil, top)
+    elif filt.mode == "aniso":
+        mip = _sample_anisotropic(tex, tex_id, s, t, *derivs, filt.max_anisotropy, data4,
+                                  bil, top)
+    else:
+        mip = _sample_ewa(tex, tex_id, s, t, *derivs, filt, bil, top)
+    return torch.where((tex[3][tex_id] > 1)[:, None], mip, bil)
 
 
-def _check_inputs(tex, lanes, data4) -> None:
+@torch.no_grad()
+def lane_work(tex, lanes, cfg: RenderConfig) -> dict:
+    """What ``sample`` computes on these lanes, for the kernels' bounds and for
+    coverage checks: how many lanes return the level-0 bilinear tap
+    (``bilinear``), the top texel (``top``) or the mode's own filter (``filter``),
+    and that filter's taps (``taps``: texels for NEAREST, bilinear taps for
+    BILINEAR, TRILINEAR and ANISOTROPIC, the window's texels inside the
+    ellipse's box for EWA, of which ``weighted`` lie inside the ellipse).
+    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)."""
+    filt = filter_of(cfg)
+    tex_id, s, t, *derivs = lanes
+    n = float(s.shape[0])
+    if filt.mode in ("nearest", "bilinear"):
+        return {"bilinear": 0.0, "top": 0.0, "filter": n, "taps": n, "weighted": 0.0}
+    tex_id = tex_id.long()
+    lv = tex[3][tex_id]
+    weighted = torch.zeros_like(s)
+    if filt.mode == "trilinear":
+        level = _trilinear_level(lv, *derivs)[1]
+        use_top, use_bil = level >= lv - 1, level < 0
+        taps = torch.full_like(s, 2.0)
+    elif filt.mode == "aniso":
+        f = _aniso_setup(lv, *derivs, filt.max_anisotropy)
+        use_top, use_bil, taps = f.level >= lv - 1, f.level < 0, f.n
+    else:
+        e = _ewa_setup(tex, tex_id, s, t, *derivs, filt.max_anisotropy)
+        use_top, use_bil = e.use_top, e.degenerate
+        taps = torch.zeros_like(s)
+        for _si, _tj, in_box, r2 in _ewa_window(e, filt.ewa_span):
+            taps += in_box
+            weighted += in_box & (r2 < 1.0)
+    mip = lv > 1
+    top = mip & use_top
+    filtered = mip & ~use_top & ~use_bil
+    return {"bilinear": float((~top & ~filtered).sum()), "top": float(top.sum()),
+            "filter": float(filtered.sum()), "taps": float(taps[filtered].sum()),
+            "weighted": float(weighted[filtered].sum())}
+
+
+def _check_inputs(tex, lanes, data4, filt: Filter) -> None:
     data, width, height, levels, offsets, _quad = tex
     tex_id, s = lanes[0], lanes[1]
     n = s.shape[0]
+    if filt.mode not in MODES:
+        raise ValueError(f"texture sample: unknown mode {filt.mode!r}")
+    if filt.mode == "ewa" and filt.ewa_span < 1:
+        raise ValueError("texture sample: ewa_max_span must be at least 1")
     if any(x.shape != (n,) for x in lanes):
         raise ValueError("texture sample: per-lane inputs must all be [N]")
     if tex_id.dtype != torch.int32 or any(x.dtype != torch.float32 for x in lanes[1:]):
         raise TypeError("texture sample: tex_id int32 and float32 coordinates expected")
-    if data.dtype != torch.float32 or data4.dtype != torch.float32:
+    atlases = (data,) if data4 is None else (data, data4)
+    if data4 is None and filt.mode != "nearest":
+        raise ValueError(f"texture sample: mode {filt.mode} reads the quad atlas data4")
+    if any(x.dtype != torch.float32 for x in atlases):
         raise TypeError("texture sample: float32 atlases expected")
-    if data4.shape != (data.shape[0], 12) or offsets.shape[1] != 16:
+    if (data4 is not None and data4.shape != (data.shape[0], 12)) or offsets.shape[1] != 16:
         raise ValueError("texture sample: data4 [X,12] and offsets [K,16] expected")
     if any(x.dtype != torch.int32 for x in (width, height, levels, offsets)):
         raise TypeError("texture sample: int32 atlas tables expected")
-    if any(x.device != s.device for x in (data, data4, width, height, levels, offsets,
-                                          *lanes)):
+    if any(x.device != s.device for x in (*atlases, width, height, levels, offsets, *lanes)):
         raise ValueError("texture sample: inputs on different devices")
-    kernels.require_contiguous("texture sample", data, data4, width, height, levels,
-                               offsets, *lanes)
+    kernels.require_contiguous("texture sample", *atlases, width, height, levels, offsets,
+                               *lanes)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _atlas_ptrs(tex, data4) -> list:
     data, width, height, levels, offsets, _quad = tex
-    return [x.data_ptr() for x in (data, data4, width, height, levels, offsets)]
+    return [_ptr(x) for x in (data, data4, width, height, levels, offsets)]
 
 
-def sample_forward(tex, lanes, max_anisotropy: float, data4) -> torch.Tensor:
-    """K3, one ``rt_texture_aniso`` launch (counted in ``launches``).
-    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy), each [N]."""
-    global launches
-    _check_inputs(tex, lanes, data4)
+def sample_forward(tex, lanes, filt: Filter, data4) -> torch.Tensor:
+    """K3, one ``rt_texture`` launch in ``filt.mode`` (counted in ``launches``).
+    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy), each [N]; data4 may be
+    None under NEAREST."""
+    _check_inputs(tex, lanes, data4, filt)
     n = lanes[1].shape[0]
     dev = lanes[1].device
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     P, I, F = kernels.P, kernels.I, kernels.F
-    fn = kernels.entry("texture", "rt_texture_aniso", [P] * 13 + [I, F, P, P])
-    err = fn(*_atlas_ptrs(tex, data4), *(x.data_ptr() for x in lanes), n,
-             float(max_anisotropy), out.data_ptr(), kernels.stream_ptr(dev))
-    launches += 1
-    kernels.check(err, "rt_texture_aniso")
+    fn = kernels.entry("texture", "rt_texture", [I] + [P] * 13 + [I, F, I, P, P])
+    err = fn(MODES.index(filt.mode), *_atlas_ptrs(tex, data4), *(x.data_ptr() for x in lanes),
+             n, filt.max_anisotropy, filt.ewa_span, out.data_ptr(), kernels.stream_ptr(dev))
+    launches[filt.mode] += 1
+    kernels.check(err, f"rt_texture ({filt.mode})")
     return out
 
 
-def sample_backward(tex, lanes, max_anisotropy: float, data4, cot, need_data: bool,
+def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
                     need_data4: bool, need_lanes: bool):
-    """K4, one ``rt_texture_aniso_bwd`` launch (counted in ``bwd_launches``).
+    """K4, one ``rt_texture_bwd`` launch in ``filt.mode`` (counted in
+    ``bwd_launches``).
 
     Returns (grad data [X,3] or None, grad data4 [X,12] or None, lane gradients
     [6,N] (s, t, ds_dx, ds_dy, dt_dx, dt_dy) or None), each computed only when
-    asked for.  The atlas gradients are zeroed here and scattered into with fp32
-    atomics, so their summation order changes from run to run."""
-    global bwd_launches
-    _check_inputs(tex, lanes, data4)
+    asked for (grad data4 never without data4).  The atlas gradients are zeroed
+    here and scattered into with fp32 atomics, so their summation order changes
+    from run to run."""
+    _check_inputs(tex, lanes, data4, filt)
     n = lanes[1].shape[0]
     dev = lanes[1].device
     if cot.shape != (n, 3) or cot.dtype != torch.float32 or cot.device != dev:
@@ -201,41 +474,38 @@ def sample_backward(tex, lanes, max_anisotropy: float, data4, cot, need_data: bo
     x = tex[0].shape[0]
     grad_data = torch.zeros((x, 3), dtype=torch.float32, device=dev) if need_data else None
     grad_data4 = (torch.zeros((x, 12), dtype=torch.float32, device=dev)
-                  if need_data4 else None)
+                  if need_data4 and data4 is not None else None)
     grad_lanes = (torch.empty((6, n), dtype=torch.float32, device=dev)
                   if need_lanes else None)
     if n == 0:
-        if grad_lanes is not None:
-            grad_lanes.zero_()
         return grad_data, grad_data4, grad_lanes
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     P, I, F = kernels.P, kernels.I, kernels.F
-    fn = kernels.entry("texture_bwd", "rt_texture_aniso_bwd", [P] * 14 + [I, F, P, P, P, P])
-    err = fn(*_atlas_ptrs(tex, data4), *(x.data_ptr() for x in lanes), cot.data_ptr(), n,
-             float(max_anisotropy), ptr(grad_data), ptr(grad_data4), ptr(grad_lanes),
+    fn = kernels.entry("texture_bwd", "rt_texture_bwd", [I] + [P] * 14 + [I, F, I, P, P, P, P])
+    err = fn(MODES.index(filt.mode), *_atlas_ptrs(tex, data4),
+             *(x.data_ptr() for x in lanes), cot.data_ptr(), n, filt.max_anisotropy,
+             filt.ewa_span, _ptr(grad_data), _ptr(grad_data4), _ptr(grad_lanes),
              kernels.stream_ptr(dev))
-    bwd_launches += 1
-    kernels.check(err, "rt_texture_aniso_bwd")
+    bwd_launches[filt.mode] += 1
+    kernels.check(err, f"rt_texture_bwd ({filt.mode})")
     return grad_data, grad_data4, grad_lanes
 
 
 class TextureSample(torch.autograd.Function):
-    """K3 and K4 on the card: the forward launches ``rt_texture_aniso``, the
-    backward ``rt_texture_aniso_bwd``, which recomputes each lane's set-up from
-    the saved inputs.  Gradients reach data (top texels), data4 (quad rows; the
-    caller's ``expand_quads`` gather folds them into the atlas) and the six
-    float lane inputs; the integer tables and tex_id get none."""
+    """K3 and K4 on the card: the forward launches ``rt_texture``, the backward
+    ``rt_texture_bwd``, which recomputes each lane's set-up from the saved inputs.
+    Gradients reach data (top texels, NEAREST's texel, EWA's window), data4
+    (bilinear taps; the caller's ``expand_quads`` gather folds them into the
+    atlas) and the six float lane inputs; the integer tables and tex_id get none.
+    ``data4`` is None under NEAREST."""
 
     @staticmethod
-    def forward(ctx, max_anisotropy, data, data4, width, height, levels, offsets,
+    def forward(ctx, filt, data, data4, width, height, levels, offsets,
                 tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy):
         tex = (data, width, height, levels, offsets, None)
         lanes = (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)
-        out = sample_forward(tex, lanes, max_anisotropy, data4)
-        ctx.max_anisotropy = max_anisotropy
+        out = sample_forward(tex, lanes, filt, data4)
+        ctx.filt = filt
         ctx.save_for_backward(data, data4, width, height, levels, offsets, *lanes)
         return out
 
@@ -245,22 +515,24 @@ class TextureSample(torch.autograd.Function):
         needs = ctx.needs_input_grad
         lane_needs = needs[8:14]
         grad_data, grad_data4, grad_lanes = sample_backward(
-            (data, width, height, levels, offsets, None), tuple(lanes),
-            ctx.max_anisotropy, data4, cot.contiguous(), needs[1], needs[2],
-            any(lane_needs))
+            (data, width, height, levels, offsets, None), tuple(lanes), ctx.filt, data4,
+            cot.contiguous(), needs[1], needs[2], any(lane_needs))
         lane_grads = [grad_lanes[k] if need else None for k, need in enumerate(lane_needs)]
         return (None, grad_data, grad_data4, None, None, None, None, None, *lane_grads)
 
 
 def sample(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfig,
-           data4) -> torch.Tensor:
+           data4=None) -> torch.Tensor:
     """K3, differentiable.  CPU tensors take ``sample_plain`` (differentiated by
     autograd); CUDA tensors go through ``TextureSample``, whose forward launches
-    ``rt_texture_aniso`` (counted in ``launches``) and whose backward launches
-    ``rt_texture_aniso_bwd`` (counted in ``bwd_launches``)."""
+    ``rt_texture`` (counted in ``launches[mode]``) and whose backward launches
+    ``rt_texture_bwd`` (counted in ``bwd_launches[mode]``).  ``data4`` is built
+    here when not given, except under NEAREST, which does not read it."""
     if s.device.type == "cpu":
         return sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg, data4)
-    _check_mode(cfg)
+    filt = filter_of(cfg)
+    if data4 is None and filt.mode != "nearest":
+        data4 = expand_quads(tex)
     data, width, height, levels, offsets, _quad = tex
-    return TextureSample.apply(float(cfg.max_anisotropy), data, data4, width, height,
-                               levels, offsets, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)
+    return TextureSample.apply(filt, data, data4, width, height, levels, offsets,
+                               tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)

@@ -14,10 +14,11 @@ holds exactly the active candidates, so ``num_dropped`` is 0 by construction and
 ladders, static queue capacities, scanned bounces, chunking and checkpointing,
 one-hot matmul gathers) are not rebuilt.
 
-Kernels on this path: K1/K2 traversal (``ops/traversal_wide``), K3 texture
-(``ops/texture_sample``), K5 sky (``ops/sky_sample``), K6 compaction
-(``ops/compaction``), K9 spheres and planes (``ops/intersect``); ``present``
-runs K8 FXAA (``ops/fxaa``).  Everything else is elementwise torch.
+Kernels on this path: K1/K2 traversal (``ops/traversal_wide``), K3 texture in
+every sampling mode (NEAREST, BILINEAR, and MIPMAP with the TRILINEAR,
+ANISOTROPIC or EWA filter; ``ops/texture_sample``), K5 sky (``ops/sky_sample``),
+K6 compaction (``ops/compaction``), K9 spheres and planes (``ops/intersect``);
+``present`` runs K8 FXAA (``ops/fxaa``).  Everything else is elementwise torch.
 
 The render is differentiable (``diff/train.py``): the texture and sky carry
 their own backward kernels (K4, K5 bwd), the rest is torch autograd, and the
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import devices
-from ..config import AIR_IOR, RenderConfig
+from ..config import AIR_IOR, RenderConfig, TextureSampleMode
 from ..core import vecmath as vm
 from ..ops import compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide
 from ..ops.intersect import Hits, Rays
@@ -517,7 +518,8 @@ def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=No
     (default: the whole frame); row k of the result is pixel ``pixel_idx[k]``.
     Negative indices are padding lanes: they trace nothing and contribute zero.
     ``bvh`` and ``tex4`` are the frame's traversal table and quad atlas, built
-    here when not given."""
+    here when not given (no quad atlas under NEAREST, which reads only the base
+    atlas, as in the JAX package)."""
     dev = scene.cam_pos.device
     if pixel_idx is None:
         pixel_idx = torch.arange(cfg.num_pixels, dtype=torch.int32, device=dev)
@@ -530,7 +532,8 @@ def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=No
     )
     if bvh is None and scene.n_instances > 0:
         bvh = traversal_wide.build_scene_bvh(scene)
-    if tex4 is None and scene.tex_data.shape[0] > 1:
+    if (tex4 is None and scene.tex_data.shape[0] > 1
+            and cfg.texture_sample_mode != TextureSampleMode.NEAREST):
         tex4 = texture_sample.expand_quads(_tex_tuple(scene))
 
     gen = _Generation(

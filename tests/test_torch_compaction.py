@@ -24,7 +24,7 @@ def test_compact_matches_jax(n, density):
 
 def test_cpu_tensors_take_the_plain_versions():
     """A wrapper given CPU tensors runs its plain version and launches nothing."""
-    before = (compaction.launches, sky_sample.launches, texture_sample.launches)
+    before = (compaction.launches, sky_sample.launches, dict(texture_sample.launches))
     flags = torch.tensor([True, False, True])
     assert compaction.compact(flags)[1] == compaction.compact_plain(flags)[1]
     sky = torch.rand(16, 3)

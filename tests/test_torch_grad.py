@@ -11,6 +11,7 @@ import torch
 from raytracer_tpu.ops import texture_sample as jax_texture
 from raytracer_tpu.ops.sky_sample import sample_sky as jax_sample_sky
 from raytracer_tpu.scene import sky as jax_sky
+from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode
 from raytracer_tpu_torch.diff import train
 from raytracer_tpu_torch.ops import sky_sample, texture_sample, traversal_wide
 from raytracer_tpu_torch.render import renderer
@@ -37,28 +38,36 @@ def atlas():
 
 def _torch_texture_grads(tex, lanes, cot, cfg, sample=texture_sample.sample_plain):
     """Autograd of expand_quads + ``sample`` over CPU tensors: grads of data and
-    the six float lane inputs."""
+    the six float lane inputs (zeros for an input the mode does not
+    differentiate, as JAX gives)."""
     data = torch.from_numpy(tex[0]).requires_grad_()
     ttex = (data, *(torch.from_numpy(a) for a in tex[1:]))
     floats = [torch.from_numpy(a).requires_grad_() for a in lanes[1:]]
     out = sample(ttex, torch.from_numpy(lanes[0]), *floats, torch_config(cfg),
                  texture_sample.expand_quads(ttex))
-    grads = torch.autograd.grad(out, [data, *floats], torch.from_numpy(cot))
-    return [g.numpy() for g in grads]
+    inputs = [data, *floats]
+    grads = torch.autograd.grad(out, inputs, torch.from_numpy(cot), allow_unused=True)
+    return [(torch.zeros_like(x) if g is None else g).numpy() for x, g in zip(inputs, grads)]
+
+
+def _jax_texture_grads(tex, lanes, cot, cfg):
+    """jax.vjp of sample (which expands the quad atlas itself) w.r.t. data and the
+    six float lane inputs, eager."""
+    jtex_rest = tuple(jnp.asarray(a) for a in tex[1:])
+    tex_id = jnp.asarray(lanes[0])
+
+    def f(data, *floats):
+        return jax_texture.sample((data, *jtex_rest), tex_id, *floats, cfg)
+
+    _, vjp = jax.vjp(f, jnp.asarray(tex[0]), *(jnp.asarray(a) for a in lanes[1:]))
+    return [np.asarray(g) for g in vjp(jnp.asarray(cot))]
 
 
 def test_texture_vjp_matches_jax(atlas):
     tex, cfg = atlas
     lanes = texture_lanes(tex)
     cot = np.random.default_rng(11).normal(size=(lanes[0].shape[0], 3)).astype(np.float32)
-    jtex_rest = tuple(jnp.asarray(a) for a in tex[1:])
-    tex_id = jnp.asarray(lanes[0])
-
-    def f(data, *floats):  # JAX expands the quad atlas itself (data4=None)
-        return jax_texture.sample((data, *jtex_rest), tex_id, *floats, cfg)
-
-    _, vjp = jax.vjp(f, jnp.asarray(tex[0]), *(jnp.asarray(a) for a in lanes[1:]))
-    ref = [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+    ref = _jax_texture_grads(tex, lanes, cot, cfg)
     got = _torch_texture_grads(tex, lanes, cot, cfg)
     for name, g, r in zip(("tex_data",) + LANE_NAMES, got, ref):
         assert g.shape == r.shape
@@ -66,6 +75,66 @@ def test_texture_vjp_matches_jax(atlas):
         assert l2rel(g, r) <= 1e-6, (name, l2rel(g, r))
     # the atlas gradient reaches many texels, and the lanes take all branches
     assert (np.abs(ref[0]).sum(axis=1) > 0).sum() > 1000
+
+
+def _trilinear_ties(lanes):
+    """TRILINEAR's width = 2 max(max(|ds_dx|, |ds_dy|), max(|dt_dx|, |dt_dy|)) with
+    exact ties: |dt_dy| == |ds_dx| on every lane (the outer max), and also
+    |ds_dy| == |ds_dx| on every third lane (an inner max), the other two smaller."""
+    tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy = lanes
+    k = np.arange(ds_dx.shape[0])
+    sign = np.where(k % 2 == 0, 1.0, -1.0).astype(np.float32)
+    ds_dy = np.where(k % 3 == 0, -ds_dx, np.float32(0.25) * ds_dy * (np.abs(ds_dx) /
+                                                                     np.abs(ds_dy)))
+    return (tex_id, s, t, ds_dx, ds_dy.astype(np.float32),
+            (np.float32(0.5) * dt_dx * (np.abs(ds_dx) / np.abs(dt_dx))).astype(np.float32),
+            sign * ds_dx)
+
+
+# mode -> (config change, lanes)
+VJP_MODES = {
+    "nearest": (dict(texture_sample_mode=TextureSampleMode.NEAREST), 20_000),
+    "bilinear": (dict(texture_sample_mode=TextureSampleMode.BILINEAR), 20_000),
+    "trilinear": (dict(mipmap_filter=MipmapFilter.TRILINEAR), 20_000),
+    "trilinear_ties": (dict(mipmap_filter=MipmapFilter.TRILINEAR), 20_000),
+    "ewa": (dict(mipmap_filter=MipmapFilter.EWA), 1024),
+}
+
+
+@pytest.mark.parametrize("mode", list(VJP_MODES))
+def test_texture_vjp_mode_matches_jax(atlas, mode):
+    """Autograd of sample_plain against jax.vjp of jax_texture.sample in NEAREST,
+    BILINEAR, TRILINEAR (also with exact ties in its max of |derivatives|, where
+    both split the cotangent in half) and EWA (the full 16 x 16 window, 1,024
+    lanes): tex_data and the six lane gradients within 1e-6 l2-relative; the
+    modes that send no gradient to a lane input send none in both."""
+    tex, cfg = atlas
+    change, n = VJP_MODES[mode]
+    cfg = cfg.replace(**change)
+    lanes = texture_lanes(tex, n=n)
+    if mode == "trilinear_ties":
+        lanes = _trilinear_ties(lanes)
+    cot = np.random.default_rng(13).normal(size=(n, 3)).astype(np.float32)
+    ref = _jax_texture_grads(tex, lanes, cot, cfg)
+    got = _torch_texture_grads(tex, lanes, cot, cfg)
+    for name, g, r in zip(("tex_data",) + LANE_NAMES, got, ref):
+        assert g.shape == r.shape and np.isfinite(g).all(), name
+        assert l2rel(g, r) <= 1e-6, (name, l2rel(g, r))
+    assert (np.abs(ref[0]).sum(axis=1) > 0).sum() > 100
+    lane_norms = [float(np.linalg.norm(r)) for r in ref[1:]]
+    if mode == "nearest":
+        assert not any(lane_norms)  # round carries no gradient
+    elif mode == "bilinear":
+        assert all(lane_norms[:2]) and not any(lane_norms[2:])
+    elif mode == "ewa":  # the window's weights come through floor: only the
+        # level-0 fallback sends a gradient, to s and t
+        assert all(lane_norms[:2]) and not any(lane_norms[2:])
+    elif mode == "trilinear":
+        assert all(lane_norms)
+    else:  # dt_dx never reaches the max; each tie splits the cotangent in half
+        assert all(lane_norms[:4]) and lane_norms[4] == 0 and lane_norms[5] > 0
+        split = (ref[3] != 0) & (np.abs(ref[3]) == np.abs(ref[6]))  # ds_dx, dt_dy
+        assert split.sum() > 100, split.sum()
 
 
 def test_sky_vjp_matches_jax():
@@ -95,19 +164,18 @@ def test_sky_vjp_matches_jax():
     assert g_dir is None or not g_dir.any()
 
 
-def _plain_texture_forward(tex, lanes, max_anisotropy, data4):
-    cfg = torch_config(jax_scene("config3")[1]).replace(max_anisotropy=max_anisotropy)
+def _plain_texture_forward(cfg, tex, lanes, filt, data4):
+    assert filt == texture_sample.filter_of(cfg)
     return texture_sample.sample_plain(tex, *lanes, cfg, data4)
 
 
-def _plain_texture_backward(tex, lanes, max_anisotropy, data4, cot, need_data,
-                            need_data4, need_lanes):
+def _plain_texture_backward(cfg, tex, lanes, filt, data4, cot, need_data, need_data4,
+                            need_lanes):
     with torch.enable_grad():
         data = tex[0].detach().requires_grad_()
         d4 = data4.detach().requires_grad_()
         floats = [x.detach().requires_grad_() for x in lanes[1:]]
-        out = _plain_texture_forward((data, *tex[1:]), (lanes[0], *floats),
-                                     max_anisotropy, d4)
+        out = _plain_texture_forward(cfg, (data, *tex[1:]), (lanes[0], *floats), filt, d4)
         grads = torch.autograd.grad(out, [data, d4, *floats], cot)
     return (grads[0] if need_data else None, grads[1] if need_data4 else None,
             torch.stack(grads[2:]) if need_lanes else None)
@@ -116,21 +184,22 @@ def _plain_texture_backward(tex, lanes, max_anisotropy, data4, cot, need_data,
 def test_texture_function_plumbing(atlas, monkeypatch):
     """TextureSample's argument order, saved tensors and gradient routing, with its
     two launches replaced by the plain version: equal to autograd of
-    sample_plain, and K3 / K4 each called once."""
+    sample_plain, and K3 / K4 each called once with the config's Filter."""
     tex, cfg = atlas
+    tcfg = torch_config(cfg)
     lanes = texture_lanes(tex, n=4000, seed=7)
     cot = np.random.default_rng(12).normal(size=(4000, 3)).astype(np.float32)
     calls = []
-    monkeypatch.setattr(texture_sample, "sample_forward",
-                        lambda *a: calls.append("fwd") or _plain_texture_forward(*a))
-    monkeypatch.setattr(texture_sample, "sample_backward",
-                        lambda *a: calls.append("bwd") or _plain_texture_backward(*a))
+    monkeypatch.setattr(texture_sample, "sample_forward", lambda *a: calls.append(
+        "fwd") or _plain_texture_forward(tcfg, *a))
+    monkeypatch.setattr(texture_sample, "sample_backward", lambda *a: calls.append(
+        "bwd") or _plain_texture_backward(tcfg, *a))
 
     def through_function(ttex, tex_id, *floats_and_rest):
-        *floats, tcfg, data4 = floats_and_rest
+        *floats, fcfg, data4 = floats_and_rest
         data, width, height, levels, offsets, _ = ttex
         return texture_sample.TextureSample.apply(
-            float(tcfg.max_anisotropy), data, data4, width, height, levels, offsets,
+            texture_sample.filter_of(fcfg), data, data4, width, height, levels, offsets,
             tex_id, *floats)
 
     got = _torch_texture_grads(tex, lanes, cot, cfg, sample=through_function)

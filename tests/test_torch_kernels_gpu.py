@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu_torch.config import RenderConfig
+from raytracer_tpu_torch.config import MipmapFilter, RenderConfig, TextureSampleMode
 from raytracer_tpu_torch.ops import (
     compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide,
 )
@@ -87,12 +87,16 @@ def test_texture_kernel_matches_plain(cuda):
 
 
 def _texture_grads(sample, tex, lanes, cot, cfg):
-    """Gradients of data, data4 and the six float lane inputs through ``sample``."""
+    """Gradients of data, data4 and the six float lane inputs through ``sample``
+    (zeros for an input the mode does not differentiate)."""
     data = tex[0].detach().clone().requires_grad_()
     data4 = texture_sample.expand_quads(tex).detach().requires_grad_()
     floats = [x.detach().clone().requires_grad_() for x in lanes[1:]]
     out = sample((data, *tex[1:]), lanes[0], *floats, cfg, data4)
-    return out.detach(), torch.autograd.grad(out, [data, data4, *floats], cot)
+    inputs = [data, data4, *floats]
+    grads = torch.autograd.grad(out, inputs, cot, allow_unused=True)
+    return out.detach(), [torch.zeros_like(x) if g is None else g
+                          for x, g in zip(inputs, grads)]
 
 
 def test_texture_backward_kernel_matches_plain(cuda):
@@ -100,7 +104,15 @@ def test_texture_backward_kernel_matches_plain(cuda):
     that takes another mip level in K3 sends its gradient elsewhere)."""
     tex, lanes, cot = _random_texture_inputs(cuda)
     cfg = RenderConfig()
-    before = texture_sample.bwd_launches
+    _check_texture_backward(tex, lanes, cot, cfg)
+
+
+def _check_texture_backward(tex, lanes, cot, cfg):
+    """K4 in cfg's mode against autograd of sample_plain: the atlas gradients
+    within 1e-5 l2-relative, each lane gradient within 1e-5 of its max on >= 99.9%
+    of lanes; a gradient the mode does not produce is 0 in both."""
+    mode = texture_sample.filter_of(cfg).mode
+    before = texture_sample.bwd_launches[mode]
     k_out, _ = _texture_grads(texture_sample.sample, tex, lanes, cot, cfg)
     p_out, _ = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
     same = (k_out - p_out).abs().amax(dim=1) <= 1e-5
@@ -108,12 +120,63 @@ def test_texture_backward_kernel_matches_plain(cuda):
     cot = cot * same[:, None]
     _, kg = _texture_grads(texture_sample.sample, tex, lanes, cot, cfg)
     _, pg = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
-    assert texture_sample.bwd_launches == before + 2
+    assert texture_sample.bwd_launches[mode] == before + 2
     for name, a, b in zip(("data", "data4"), kg[:2], pg[:2]):
-        assert float((a - b).norm() / b.norm()) <= 1e-5, name
+        nb = float(b.norm())
+        assert float((a - b).norm()) <= 1e-5 * nb if nb else not a.any(), name
     for a, b in zip(kg[2:], pg[2:]):
+        if not b.any():
+            assert not a.any()
+            continue
         err = (a - b).abs() / b.abs().max()
         assert float((err <= 1e-5).float().mean()) >= 0.999
+
+
+NEW_MODES = {
+    "nearest": dict(texture_sample_mode=TextureSampleMode.NEAREST),
+    "bilinear": dict(texture_sample_mode=TextureSampleMode.BILINEAR),
+    "trilinear": dict(mipmap_filter=MipmapFilter.TRILINEAR),
+    "ewa": dict(mipmap_filter=MipmapFilter.EWA),
+}
+
+
+def _mode_inputs(cuda, mode):
+    """_random_texture_inputs with exact ties |dt_dy| == |ds_dx| on a quarter of
+    the lanes (TRILINEAR's max splits there) and degenerate footprints (ds_dy =
+    dt_dy = 0: EWA's level-0 fallback) on another quarter."""
+    tex, lanes, cot = _random_texture_inputs(cuda, seed=5)
+    tex_id, s, t, sx, sy, tx, ty = lanes
+    k = torch.arange(s.shape[0], device=cuda) % 4
+    ty = torch.where(k == 1, -sx, ty)
+    sy = torch.where(k == 2, 0.0, sy)
+    ty = torch.where(k == 2, 0.0, ty)
+    cfg = RenderConfig(**NEW_MODES[mode])
+    return tex, (tex_id, s, t, sx, sy.contiguous(), tx, ty.contiguous()), cot, cfg
+
+
+@pytest.mark.parametrize("mode", list(NEW_MODES))
+def test_texture_mode_kernel_matches_plain(cuda, mode):
+    """K3 in NEAREST, BILINEAR, TRILINEAR and EWA (16 x 16 window) against
+    sample_plain: max abs <= 1e-5 on >= 99.9% of lanes, one launch, and under
+    TRILINEAR and EWA every branch (level-0 tap, top texel, filter) taken."""
+    tex, lanes, _, cfg = _mode_inputs(cuda, mode)
+    before = texture_sample.launches[mode]
+    data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
+    k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
+    p = texture_sample.sample_plain(tex, *lanes, cfg, data4)
+    assert texture_sample.launches[mode] == before + 1
+    err = (k - p).abs().amax(dim=1)
+    assert float((err <= 1e-5).float().mean()) >= 0.999
+    if mode in ("trilinear", "ewa"):
+        mip = tex[3][lanes[0].long()] > 1
+        work = texture_sample.lane_work(tex, tuple(x[mip] for x in lanes), cfg)
+        assert min(work["bilinear"], work["top"], work["filter"]) > 0, work
+
+
+@pytest.mark.parametrize("mode", list(NEW_MODES))
+def test_texture_mode_backward_kernel_matches_plain(cuda, mode):
+    tex, lanes, cot, cfg = _mode_inputs(cuda, mode)
+    _check_texture_backward(tex, lanes, cot, cfg)
 
 
 def test_sky_backward_kernel_matches_plain(cuda):

@@ -1,4 +1,4 @@
-"""K3: the port's MIPMAP + ANISOTROPIC texture sample against the JAX package's."""
+"""K3: the port's texture sample in every mode against the JAX package's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,16 +39,39 @@ def test_texture_matches_jax(atlas):
     assert (lf > 1).any() and (lf == 1).any()
 
 
-@pytest.mark.parametrize("change", [
-    dict(texture_sample_mode=TextureSampleMode.NEAREST),
-    dict(texture_sample_mode=TextureSampleMode.BILINEAR),
-    dict(mipmap_filter=MipmapFilter.TRILINEAR),
-    dict(mipmap_filter=MipmapFilter.EWA),
-])
-def test_modes_not_ported_raise(atlas, change):
+MODES = {
+    "nearest": dict(texture_sample_mode=TextureSampleMode.NEAREST),
+    "bilinear": dict(texture_sample_mode=TextureSampleMode.BILINEAR),
+    "trilinear": dict(mipmap_filter=MipmapFilter.TRILINEAR),
+    "ewa": dict(mipmap_filter=MipmapFilter.EWA),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_texture_mode_matches_jax(atlas, mode):
+    """NEAREST, BILINEAR, TRILINEAR and EWA (the full 16 x 16 window) against eager
+    jax_texture.sample on 4,096 seeded lanes: max abs <= 1e-5 on >= 99.9% of
+    lanes (measured: every lane, at most 2.4e-7), and every branch of the mode
+    is taken."""
     tex, cfg = atlas
-    lanes = [torch.from_numpy(a) for a in texture_lanes(tex, n=16)]
+    cfg = cfg.replace(**MODES[mode])
+    assert cfg.ewa_max_span == 16
+    lanes = texture_lanes(tex, n=4096)
+    jtex = tuple(jnp.asarray(a) for a in tex)
+    ref = np.asarray(jax_texture.sample(jtex, *(jnp.asarray(a) for a in lanes), cfg))
     ttex = tuple(torch.from_numpy(a) for a in tex)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texture_sample.sample(ttex, *lanes, torch_config(cfg).replace(**change),
-                              data4=texture_sample.expand_quads(ttex))
+    tlanes = tuple(torch.from_numpy(a) for a in lanes)
+    tcfg = torch_config(cfg)
+    out = texture_sample.sample(ttex, *tlanes, tcfg).numpy()
+    err = np.abs(out - ref).max(axis=1)
+    assert (err <= 1e-5).mean() >= 0.999, (err <= 1e-5).mean()
+    # on the mipmapped lanes: the level-0 tap (level < 0, or EWA's degenerate
+    # ellipses), the top texel and the filter itself (EWA's window) all occur
+    mip = torch.from_numpy(tex[3][lanes[0]] > 1)
+    work = texture_sample.lane_work(ttex, tuple(x[mip] for x in tlanes), tcfg)
+    if mode in ("trilinear", "ewa"):
+        assert min(work["bilinear"], work["top"], work["filter"]) > 0, work
+    else:
+        assert work["filter"] == int(mip.sum())
+    if mode == "ewa":
+        assert 0 < work["weighted"] < work["taps"], work
