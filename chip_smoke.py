@@ -17,8 +17,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    frame under torch.profiler (device busy share, top operators by device time);
 4. the training path: fwd+bwd of ``image_loss(render_with_stats(...))`` against
    a zero target over the 17 differentiable fields, one autograd graph over the
-   whole 1080p frame — the launch counts of all seven kernels in one step (the
-   backward kernels K4 and K5 bwd among them), the counters, the loss, every
+   whole 1080p frame — the launch counts of all nine kernels in one step (the
+   backward kernels K7 bwd, K4 and K5 bwd among them), the counters, the loss, every
    field's gradient norm (finite, not all zero), the median step time of 3 after
    a warm-up split into forward and backward, fwd+bwd MRays/s, each kernel's time
    inside a step, an Adam update's time, peak device memory and one profiled
@@ -40,6 +40,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. configs 0 (256², no bounce) and 2 (512², 8 bounces) forward: frame ms
    (median of 3 after a warm-up), MRays/s, the six counters (dropped and
    incomplete must be 0) and each kernel's launches in one frame;
+6b. the threaded walk: config3 at 1080p under ``traversal_kernel="threaded"``
+   (K10 in place of K1/K2), one frame with the counts at 0 (K10's inputs of
+   every generation kept for its rows), the median of 3 timed frames, MRays/s,
+   a profiled frame, the share of pixels more than 1e-3 from the wide walk's
+   frame (ties only), then one fwd+bwd step with the counts at 0 and the median
+   of 3 timed steps (both loss counters 0, finite gradients);
 7. kernel vs plain: each kernel and its plain PyTorch version on the card, on
    the inputs the main path gave that kernel in generation 0 (the forward
    kernels on config3's frame and on config4's; K3 and K4 in every mode on
@@ -48,14 +54,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    frame; K9 on every generation of config4, config0 and config2, the rays
    that start inside a dielectric sphere among them), with the stated
    tolerance (a backward kernel against autograd of the plain forward, with a
-   seeded cotangent); then each kernel's time, its plain version's time, the
+   seeded cotangent; K7 forward and backward on every generation of config3's
+   and config4's frames, the triangle and instance tables' gradients on
+   generation 0; K10 on every generation of the threaded frame); then each
+   kernel's time, its plain version's time, the
    one PyTorch call that computes the same function where there is one, and
    the least time the card could take (bytes over 3.35 TB/s or float32
    operations over 67 TFLOP/s, whichever is larger);
 8. small-input checks, the card against the same render on the CPU through the
-   plain versions: config3 at 64x36 (20k triangles), config4 at 96x64 on
-   animation frames 0 and 2, config2 at 64x64 and 8 bounces, forward; config3
-   and config4 fwd+bwd;
+   plain versions: config3 at 64x36 (20k triangles; also under the threaded
+   walk), config4 at 96x64 on animation frames 0 and 2, config2 at 64x64 and 8
+   bounces, forward; config3 and config4 fwd+bwd; the gradients of a weighted
+   image sum of config3 at 64x36 with respect to the triangle tables and the
+   instance matrices;
 9. the kernels line, the ``nvidia-smi`` line, and last the device line.
 
 It imports nothing of JAX.  Without a CUDA card, or run outside the repository,
@@ -118,6 +129,32 @@ OPS_FXAA = 21 * 9 + 6 * 5 + 31 + 16 + 4 * 43 + 20
 # 30, each plane 17; per any-hit test a sphere 27, a plane 17
 OPS_PRIM_LANE, OPS_PRIM_SPHERE, OPS_PRIM_PLANE = 7, 30, 17
 OPS_ANY_SPHERE, OPS_ANY_PLANE = 27, 17
+# csrc/hits.cuh, per lane with a mesh hit: the forward 410 (Moller-Trumbore 48,
+# the two transforms of the ray 33, the point 6, the normal 37, uv 8, the four
+# differentials' transforms 60, k 18, the du / dv 54, dP 48, dN 83, ds / dt 12,
+# the rest 3); the backward recomputes it and adds ~960 for the adjoint
+OPS_HITS_FWD, OPS_HITS_BWD = 410, 410 + 960
+# csrc/traverse_threaded.cu, what the walk needs: per active ray the ray's 3
+# reciprocals in the TLAS's space (its identity transform is not counted); per
+# TLAS-leaf entry the transform into the instance's space (33) and its 3
+# reciprocals; per node visit one slab test (25); per pair visit two
+# Moller-Trumbore tests (2 x 54)
+OPS_TRAY, OPS_TENTRY, OPS_TNODE, OPS_TPAIR = 3, 36, 25, 108
+# the share of pixels of the threaded walk's 1080p frame that may differ from
+# the wide walk's by more than 1e-3: the walks may take different triangles at
+# an exactly equal t (a shared edge), nothing else
+THREADED_PIXEL_SHARE = 5e-3
+# card against CPU on the vertex loss of config3 64x36: per-table l2-relative
+# bound ("*" for the rest).  Measured on an H100 in four runs, equal to 3
+# digits from run to run (the CPU and card forwards differ, not the sums):
+# tr_p0 2.3e-4, tr_e1 1.3e-4, tr_e2 3.7e-4, inst_inv 8.1e-5; the normal tables
+# tr_n0 1.1e-5, tr_ne1 7.7e-6, tr_ne2 2.7e-5; inst_world 2.0e-6; the uv tables
+# tr_t0 3.9e-3, tr_te1 2.6e-3, tr_te2 5.6e-3 (they reach the image through the
+# texture filter, whose mip level the card's log2 moves, as SMALL_GRAD_TOL's
+# tex_data).  Each limit is 1.8x (the uv tables) to 5x its table's reading.
+VERTEX_GRAD_TOL = {"*": 1e-3, "tr_n0": 1e-4, "tr_ne1": 1e-4, "tr_ne2": 1e-4,
+                   "inst_world": 1e-5, "tr_t0": 1e-2, "tr_te1": 1e-2, "tr_te2": 1e-2}
+INSTANCE_TABLES = ("inst_inv", "inst_world")
 APP_FRAMES = 30  # config4 frames rendered through app.main
 # card against CPU on config3 64x36 fwd+bwd: per-field l2-relative bound on the
 # gradients ("*" for every other field).  Measured on an H100: <= 2.5e-5 (the
@@ -275,7 +312,8 @@ def main() -> int:
     from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode, TraversalStrategy
     from raytracer_tpu_torch.diff import train
     from raytracer_tpu_torch.ops import (
-        compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide,
+        compaction, fxaa, hits, intersect, sky_sample, texture_sample, traversal,
+        traversal_wide,
     )
     from raytracer_tpu_torch.render import renderer
     from raytracer_tpu_torch.scene import scenes
@@ -315,28 +353,37 @@ def main() -> int:
     fwd_counts = {
         "traverse_closest": (traversal_wide, "closest_launches"),
         "traverse_any": (traversal_wide, "any_launches"),
+        "hits": (hits, "launches"),
         "texture_aniso": (texture_sample.launches, "aniso"),
         "sky": (sky_sample, "launches"),
         "compact": (compaction, "launches"),
     }
     counts = {**fwd_counts,
+              "hits_bwd": (hits, "bwd_launches"),
               "texture_aniso_bwd": (texture_sample.bwd_launches, "aniso"),
               "sky_bwd": (sky_sample, "bwd_launches"),
               "fxaa": (fxaa, "launches"),
               "prim_closest": (intersect, "closest_launches"),
-              "prim_any": (intersect, "any_launches")}
+              "prim_any": (intersect, "any_launches"),
+              "threaded_closest": (traversal, "closest_launches"),
+              "threaded_any": (traversal, "any_launches")}
     for mode in FILTER_MODES:
         counts[f"texture_{mode}"] = (texture_sample.launches, mode)
         counts[f"texture_{mode}_bwd"] = (texture_sample.bwd_launches, mode)
-    train_kernels = (*fwd_counts, "texture_aniso_bwd", "sky_bwd")
+    train_kernels = (*fwd_counts, "hits_bwd", "texture_aniso_bwd", "sky_bwd")
     # config4 through the app: every forward kernel, FXAA and the primitives
     app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any")
+    # the threaded walk: K10 in place of K1/K2
+    threaded_kernels = ("threaded_closest", "threaded_any", "hits", "texture_aniso", "sky",
+                        "compact")
     targets = [(traversal_wide, "trace_closest", "traverse_closest"),
                (traversal_wide, "trace_any", "traverse_any"),
+               (hits, "mesh_hits", "hits"),
                (texture_sample, "sample", "texture_aniso"),
                (sky_sample, "sample_sky", "sky"),
                (compaction, "compact", "compact")]
-    bwd_targets = [(texture_sample, "sample_backward", "texture_aniso_bwd"),
+    bwd_targets = [(hits, "hits_backward", "hits_bwd"),
+                   (texture_sample, "sample_backward", "texture_aniso_bwd"),
                    (sky_sample, "sample_backward", "sky_bwd")]
 
     def reset_counts():
@@ -352,7 +399,7 @@ def main() -> int:
 
     # one frame with the counts at 0: the forward path's run
     reset_counts()
-    rec = Recorder(targets, every_call=("texture_aniso",))
+    rec = Recorder(targets, every_call=("texture_aniso", "hits"))
     with rec:
         rec.capture = True
         image, stats = rend(scene)
@@ -659,7 +706,8 @@ def main() -> int:
     k9_targets = [(intersect, "pick_closest", "prim_closest"),
                   (intersect, "pick_any", "prim_any")]
     k9_every = ("prim_closest", "prim_any")
-    rec4 = Recorder(targets + k9_targets + [(fxaa, "fxaa", "fxaa")], every_call=k9_every)
+    rec4 = Recorder(targets + k9_targets + [(fxaa, "fxaa", "fxaa")],
+                    every_call=k9_every + ("hits",))
     with rec4:
         rec4.capture = True
         img4, _ = rend4(scene4)
@@ -702,11 +750,90 @@ def main() -> int:
             return fail(f"{name}: counters {scount}, finite {sfinite}, launches {slaunches}")
         del r, sc, simg
 
+    # ------------------------------------------------------ 6b. the threaded walk
+    # config3 at 1080p under traversal_kernel="threaded": one frame with the
+    # counts at 0 (K10's inputs of every generation kept for its rows), timed
+    # frames, then one fwd+bwd step with the counts at 0 and 3 timed steps
+    th_cfg = cfg.replace(traversal_kernel="threaded")
+    th_rend = renderer.Renderer(th_cfg, device="cuda")
+    reset_counts()
+    with Recorder([(traversal, "trace_closest", "threaded_closest"),
+                   (traversal, "trace_any", "threaded_any")],
+                  every_call=("threaded_closest", "threaded_any")) as th_rec:
+        th_rec.capture = True
+        th_img, th_stats = th_rend(scene)
+        torch.cuda.synchronize()
+    threaded_launches = read_counts()
+    threaded_calls = th_rec.calls
+    th_counters = {k: int(v) for k, v in th_stats._asdict().items()}
+    th_finite = bool(torch.isfinite(th_img).all())
+    th_diff = (th_img - image).abs().amax(dim=-1)
+    share_off = float((th_diff > 1e-3).float().mean())
+    th_rend(scene)
+    torch.cuda.synchronize()
+    th_frame_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        th_rend(scene)
+        torch.cuda.synchronize()
+        th_frame_s.append(time.perf_counter() - t0)
+    th_profile = profile_frame(lambda: th_rend(scene))
+
+    th_params = train.extract_params(scene)
+    reset_counts()
+    _, th_sstats = fwd_bwd(th_params, th_cfg)
+    torch.cuda.synchronize()
+    th_step_launches = read_counts()
+    th_norms = {k: None if p.grad is None else float(p.grad.norm()) for k, p in th_params.items()}
+    th_splits = []
+    for _ in range(3):
+        fwd_bwd(th_params, th_cfg, th_splits)
+    th_step_profile = profile_frame(lambda: fwd_bwd(th_params, th_cfg))
+    del th_params
+    th_frame_ms = statistics.median(th_frame_s) * 1e3
+    th_step_ms = statistics.median((a + b) * 1e3 for a, b in th_splits)
+    th_scounters = {k: int(v) for k, v in th_sstats._asdict().items()}
+    emit("threaded", config="config3_sponza", width=WIDTH, height=HEIGHT,
+         change={"traversal_kernel": "threaded"}, frame_ms=th_frame_ms,
+         frame_ms_all=[x * 1e3 for x in th_frame_s],
+         fwd_mrays_per_s=rays_of(th_counters) / (th_frame_ms / 1e3) / 1e6, counters=th_counters,
+         image_mean=float(th_img.mean()), image_finite=th_finite,
+         pixels_off_wide_share=share_off, pixels_off_wide_bound=THREADED_PIXEL_SHARE,
+         max_abs_off_wide=float(th_diff.max()),
+         launches={k: n for k, n in threaded_launches.items() if n}, profile=th_profile,
+         step_ms=th_step_ms, step_ms_all=[(a + b) * 1e3 for a, b in th_splits],
+         fwd_ms=statistics.median(a * 1e3 for a, _ in th_splits),
+         bwd_ms=statistics.median(b * 1e3 for _, b in th_splits),
+         fwd_bwd_mrays_per_s=rays_of(th_scounters) / (th_step_ms / 1e3) / 1e6,
+         step_counters=th_scounters, step_launches={k: n for k, n in th_step_launches.items() if n},
+         step_profile=th_step_profile, grad_norms=th_norms, nvidia_smi=smi)
+    problems = [f"{k} launched {threaded_launches[k]} times in the threaded frame"
+                for k in threaded_kernels if threaded_launches[k] <= 0]
+    problems += [f"{k} launched {threaded_launches[k]} times under the threaded walk"
+                 for k in ("traverse_closest", "traverse_any") if threaded_launches[k]]
+    if th_step_launches["threaded_closest"] <= 0 or th_step_launches["hits_bwd"] <= 0:
+        problems.append(f"the threaded step launched {th_step_launches}")
+    for c in (th_counters, th_scounters):
+        if c["num_dropped"] or c["num_incomplete"]:
+            problems.append(f"loss counters not 0 under the threaded walk: {c}")
+    if not th_finite or tuple(th_img.shape) != (HEIGHT, WIDTH, 3):
+        problems.append("threaded image not finite or of the wrong shape")
+    if share_off > THREADED_PIXEL_SHARE:
+        problems.append(f"{share_off} of pixels off the wide frame by > 1e-3")
+    if not all(v is None or math.isfinite(v) for v in th_norms.values()):
+        problems.append(f"threaded gradients not finite: {th_norms}")
+    if problems:
+        return fail("threaded: " + "; ".join(problems))
+    del th_rend, th_img, th_diff
+
     # --------------------------------------------------------- 7. kernel vs plain
     inputs = rec.inputs
+    hits_calls = {"config3": rec.calls["hits"], "config4": rec4.calls["hits"]}
     report = []
     ok = True
-    launches.update({k: train_launches[k] for k in ("texture_aniso_bwd", "sky_bwd")})
+    launches.update({k: train_launches[k] for k in ("hits_bwd", "texture_aniso_bwd",
+                                                     "sky_bwd")})
+    launches.update({k: threaded_launches[k] for k in ("threaded_closest", "threaded_any")})
     launches.update({k: app_launches[k] for k in ("fxaa", "prim_closest", "prim_any")})
     launches.update(filter_launches)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1059,6 +1186,221 @@ def main() -> int:
                tolerance="ids, steps and found identical; t within 1e-6 relative; "
                          "on config3 and on config4")
         del walk
+
+    # K7, forward on every generation of config3's frame and of config4's,
+    # against mesh_hits_plain; backward against autograd of mesh_hits_plain with
+    # seeded cotangents, the ray fields and the prior record on every
+    # generation, the triangle and instance tables on generation 0
+    tables = hits.GEOMETRY + INSTANCE_TABLES
+
+    def float_ulps(a, b) -> int:
+        """Largest distance in units in the last place between two float32
+        tensors of one shape (equal infinities and NaNs count 0)."""
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        if bool(same.all()):
+            return 0
+
+        def as_ordered_int(x):
+            i = x.contiguous().view(torch.int32).to(torch.int64)
+            return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+        return int((as_ordered_int(a) - as_ordered_int(b)).abs()[~same].max())
+
+    def check_hits_fwd(args) -> dict:
+        with torch.no_grad():
+            k = hits.mesh_hits(*args)
+            p = hits.mesh_hits_plain(*args)
+        ulps = {f: float_ulps(getattr(k, f), getattr(p, f)) for f in hits.FLOAT_FIELDS}
+        exact = all(torch.equal(getattr(k, f), getattr(p, f))
+                    for f in ("hit", "material_id", "bvh_steps"))
+        err = max(float((getattr(k, f) - getattr(p, f)).nan_to_num(0.0, 0.0, 0.0).abs().max())
+                  for f in hits.FLOAT_FIELDS)
+        return {"lanes": args[1].count, "mesh_lanes": int((args[2].tri >= 0).sum()),
+                "ids_exact": exact, "max_ulps": ulps, "max_abs_err": err,
+                "passed": exact and not any(ulps.values())}
+
+    def check_hits_bwd(args, with_tables: bool) -> dict:
+        scene_, rays_, res_, prior_, obj = args
+        cots = [torch.randn(getattr(prior_, f).shape, generator=gen, device="cuda")
+                for f in hits.FLOAT_FIELDS]
+        grads = []
+        for fn in (hits.mesh_hits, hits.mesh_hits_plain):
+            r = renderer.Rays(*(x.detach().clone().requires_grad_() for x in rays_))
+            prior_leaves = prior_._replace(**{
+                f: getattr(prior_, f).detach().clone().requires_grad_()
+                for f in hits.FLOAT_FIELDS})
+            tabs = ({f: getattr(scene_, f).detach().clone().requires_grad_() for f in tables}
+                    if with_tables else {})
+            out = fn(scene_._replace(**tabs), r, res_, prior_leaves, obj)
+            leaves = [*r, *(getattr(prior_leaves, f) for f in hits.FLOAT_FIELDS), *tabs.values()]
+            grads.append(torch.autograd.grad([getattr(out, f) for f in hits.FLOAT_FIELDS],
+                                             leaves, cots))
+        names = [*renderer.Rays._fields, *(f"prior_{f}" for f in hits.FLOAT_FIELDS),
+                 *(tables if with_tables else ())]
+        rel = {n: l2rel(a, b) if float(b.norm()) > 0 else float(a.norm())
+               for n, a, b in zip(names, *grads)}
+        err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        finite = all(bool(torch.isfinite(a).all()) for a in grads[0])
+        got = {"lanes": rays_.count, "tables": with_tables, "l2_rel": rel, "max_abs_err": err}
+        held = {n: v for n, v in rel.items() if n not in tables}
+        if with_tables:
+            # A table's gradient sums every lane that hit its row (a large
+            # triangle thousands, each of config3's 3 instance rows ~2M at
+            # 1080p), and the float32 plain version's own sum (index_add_'s
+            # atomics) moves by more than 1e-5 of the result from run to run.
+            # The tables are held to 1e-5 l2-relative of the plain version's
+            # float32 per-lane gradients (each lane given its own copy of its
+            # rows) summed in float64; the float32 plain sum's distance from
+            # the same reference is reported beside.  The kernel sums in
+            # float64 and rounds once, so the order of its sum, which changes
+            # from run to run, does not move its reading.
+            valid = res_.tri >= 0
+            rows = {f: torch.clamp_min(res_.tri, 0).long() for f in hits.GEOMETRY}
+            rows.update({f: torch.clamp_min(res_.inst, 0).long() for f in INSTANCE_TABLES})
+            lane = {f: getattr(scene_, f).index_select(0, rows[f]).detach().requires_grad_()
+                    for f in tables}
+            ar = torch.arange(valid.shape[0], dtype=torch.int32, device="cuda")
+            lanes_scene = scene_._replace(
+                tr_material=scene_.tr_material.index_select(0, rows["tr_p0"]), **lane)
+            lanes_res = res_._replace(tri=torch.where(valid, ar, -1), inst=ar)
+            out = hits.mesh_hits_plain(lanes_scene, rays_, lanes_res, prior_, obj)
+            contrib = torch.autograd.grad([getattr(out, f) for f in hits.FLOAT_FIELDS],
+                                          list(lane.values()), cots)
+            got["l2_rel_to_exact_sum"], got["plain_l2_rel_to_exact_sum"] = {}, {}
+            for f, c in zip(tables, contrib):
+                k_g, p_g = (g[names.index(f)].double() for g in grads)
+                exact = torch.zeros_like(k_g).index_add_(0, rows[f], c.double())
+                held[f] = got["l2_rel_to_exact_sum"][f] = l2rel(k_g, exact)
+                got["plain_l2_rel_to_exact_sum"][f] = l2rel(p_g, exact)
+            del out, contrib, lane, lanes_scene
+        got["passed"] = finite and all(v <= 1e-5 for v in held.values())
+        return got
+
+    fwd_checks = {label: [check_hits_fwd(a) for a, _ in calls]
+                  for label, calls in hits_calls.items()}
+    bwd_checks = {label: [check_hits_bwd(a, g == 0) for g, (a, _) in enumerate(calls)]
+                  for label, calls in hits_calls.items()}
+    hits_args, _ = hits_calls["config3"][0]
+    del hits_calls
+    h_scene, h_rays, h_res, h_prior, h_obj = hits_args
+    n = h_rays.count
+    valid = h_res.tri >= 0
+    n_mesh = int(valid.sum())
+    h_tables = [getattr(h_scene, f) for f in hits.GEOMETRY]
+    # what this run's lanes need (csrc/hits.cu): the ray fields, cotangents and
+    # table rows of the lanes with a mesh hit (each distinct row once), the
+    # prior record of the others, the ids and the output of every lane
+    rows = int(torch.unique(h_res.tri[valid]).numel())
+    row_bytes = rows * sum(t.shape[1] * 4 for t in h_tables)
+    inst_bytes = nbytes(h_scene.inst_inv, h_scene.inst_world)
+    rec_lane = sum(x[:1].numel() * x.element_size() for x in h_prior)  # 109 bytes
+    ray_lane = sum(x[:1].numel() * x.element_size() for x in h_rays)  # 72 bytes
+    cot_lane = rec_lane - 9  # the 13 float fields
+    fwd_bytes = (n * 12 + n_mesh * (ray_lane + 4) + rows * 4 + row_bytes + inst_bytes
+                 + (n - n_mesh) * rec_lane + n * rec_lane)
+    bwd_bytes = n * 8 + n_mesh * (ray_lane + cot_lane) + row_bytes + inst_bytes + n * ray_lane
+
+    def k7():
+        with torch.no_grad():
+            return hits.mesh_hits(*hits_args)
+
+    def p7():
+        with torch.no_grad():
+            return hits.mesh_hits_plain(*hits_args)
+
+    record("hits", "raytracer_tpu_torch/csrc/hits.cu", "raytracer_tpu/render/renderer.py:124",
+           max(c["max_abs_err"] for v in fwd_checks.values() for c in v),
+           cuda_ms(k7, 20), cuda_ms(p7, 5), bound_ms(fwd_bytes, n_mesh * OPS_HITS_FWD), None,
+           all(c["passed"] for v in fwd_checks.values() for c in v), lanes=n,
+           mesh_lanes=n_mesh, table_rows=rows, bytes=fwd_bytes, per_generation=fwd_checks,
+           launches_per_frame=launches["hits"], launches_per_step=train_launches["hits"],
+           tolerance="every field equal on every lane (0 ulps) of every generation of "
+                     "config3's 1080p frame and config4's frame")
+
+    # K7 backward as the main path runs it (the ray fields' gradients only), on
+    # generation 0; and with the tables' gradients
+    cots = [torch.randn(getattr(h_prior, f).shape, generator=gen, device="cuda")
+            for f in hits.FLOAT_FIELDS]
+    geom_args = (h_res.tri, h_res.inst, h_rays, tuple(h_tables), h_scene.tr_material,
+                 h_scene.inst_inv, h_scene.inst_world, cots, h_obj)
+    no13 = (False,) * len(hits.FLOAT_FIELDS)
+
+    def k7b():
+        return hits.hits_backward(*geom_args, (True,) * 6, no13, (False,) * 9, (False, False))
+
+    def k7b_tables():
+        return hits.hits_backward(*geom_args, (True,) * 6, no13, (True,) * 9, (True, True))
+
+    ray_leaves = renderer.Rays(*(x.detach().clone().requires_grad_() for x in h_rays))
+    p_out = hits.mesh_hits_plain(h_scene, ray_leaves, h_res, h_prior, h_obj)
+    p_outs = [getattr(p_out, f) for f in hits.FLOAT_FIELDS]
+
+    def p7b():
+        return torch.autograd.grad(p_outs, list(ray_leaves), cots, retain_graph=True)
+
+    bwd_ms_tables = cuda_ms(k7b_tables, 10)
+    record("hits_bwd", "raytracer_tpu_torch/csrc/hits.cu", "raytracer_tpu/render/renderer.py:124",
+           max(c["max_abs_err"] for v in bwd_checks.values() for c in v),
+           cuda_ms(k7b, 20), cuda_ms(p7b, 5), bound_ms(bwd_bytes, n_mesh * OPS_HITS_BWD), None,
+           all(c["passed"] for v in bwd_checks.values() for c in v), lanes=n,
+           mesh_lanes=n_mesh, bytes=bwd_bytes, ms_with_table_gradients=bwd_ms_tables,
+           per_generation=bwd_checks, launches_per_step=train_launches["hits_bwd"],
+           tolerance="each gradient within 1e-5 l2-relative of the plain version's: "
+                     "the ray fields' and the prior record's on every generation of "
+                     "config3's and config4's frames; the nine triangle tables' and both "
+                     "instance tables' on generation 0, against the plain version's "
+                     "float32 per-lane gradients summed in float64")
+    del hits_args, h_scene, h_rays, h_res, h_prior, geom_args, p_out, p_outs, ray_leaves, cots
+    del valid
+
+    # K10 closest and any hit, on every generation of the threaded frame,
+    # against traversal.trace_plain; timed on generation 0
+    def check_threaded(any_hit, bvh, o, d, t_max, active, kcfg):
+        walk = traversal.trace_plain(bvh, o, d, t_max, active, ordered(kcfg), any_hit)
+        if any_hit:
+            kfound, kinc = traversal.trace_any(bvh, o, d, t_max, active, kcfg)
+            same = bool(torch.equal(kfound, walk.found))
+            got = {"found_differs": int((kfound != walk.found).sum())}
+        else:
+            res = traversal.trace_closest(bvh, o, d, t_max, active, kcfg)
+            kinc = res.incomplete
+            kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
+            same = bool(torch.equal(kbest, walk.best) and torch.equal(res.steps, walk.steps)
+                        and torch.equal(res.t, walk.t))
+            got = {"ids_differ": int((kbest != walk.best).sum()),
+                   "steps_differ": int((res.steps != walk.steps).sum()),
+                   "t_differ": int((res.t != walk.t).sum())}
+        got.update(passed=same and int(kinc) == 0, lanes=o.shape[0], active=int(active.sum()),
+                   incomplete=int(kinc), node_visits=int(walk.steps.sum()),
+                   pair_visits=int(walk.pairs.sum()), entries=int(walk.entries.sum()),
+                   max_abs_err=0.0 if same else float("inf"))
+        return got
+
+    for name, any_hit, replaces in (
+        ("threaded_closest", False, "raytracer_tpu/ops/traversal.py:361"),
+        ("threaded_any", True, "raytracer_tpu/ops/traversal.py:381"),
+    ):
+        calls = threaded_calls[name]
+        checked = [check_threaded(any_hit, *a) for a, _ in calls]
+        (bvh, o, d, t_max, active, kcfg), _ = calls[0]
+        fn = traversal.trace_any if any_hit else traversal.trace_closest
+        nodes, pairs = checked[0]["node_visits"], checked[0]["pair_visits"]
+        entries, rays = checked[0]["entries"], checked[0]["active"]
+        out_bytes = o.shape[0] * (1 if any_hit else 12)
+        plain_ms = cuda_ms(lambda: traversal.trace_plain(bvh, o, d, t_max, active,
+                                                         ordered(kcfg), any_hit), 1)
+        record(name, "raytracer_tpu_torch/csrc/traverse_threaded.cu", replaces,
+               max(c["max_abs_err"] for c in checked),
+               cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5), plain_ms,
+               bound_ms(nbytes(o, d, t_max, active, *bvh) + out_bytes,
+                        rays * OPS_TRAY + entries * OPS_TENTRY + nodes * OPS_TNODE
+                        + pairs * OPS_TPAIR),
+               None, all(c["passed"] for c in checked), node_visits=nodes, pair_visits=pairs,
+               entries=entries,
+               per_generation=checked,
+               tolerance="ids, t, steps and found identical on every lane of every "
+                         "generation of the threaded 1080p frame")
+    del threaded_calls
     del inputs
 
     # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame
@@ -1180,9 +1522,39 @@ def main() -> int:
              tolerance=f"loss within 1e-3; per-field l2-relative {SMALL_GRAD_TOL}")
         return passed
 
+    def small_vertex_grads(label, packed, scfg) -> bool:
+        """Gradients of a seeded weighted image sum with respect to the triangle
+        tables and the instance matrices (K7 bwd's float64 sums), the card
+        against the CPU."""
+        weight = torch.from_numpy(np.random.default_rng(6).random(
+            (scfg.height, scfg.width, 3), dtype=np.float32))
+        vgrads = []
+        for dev in ("cuda", "cpu"):
+            r = renderer.Renderer(scfg, device=dev)
+            sc = r.upload(packed)
+            leaves = {f: getattr(sc, f).detach().clone().requires_grad_() for f in tables}
+            img, _ = renderer.render_with_stats(sc._replace(**leaves), scfg)
+            g = torch.autograd.grad((img * weight.to(r.device)).sum(), list(leaves.values()),
+                                    allow_unused=True)
+            vgrads.append({f: (torch.zeros_like(x) if gx is None else gx).cpu()
+                           for (f, x), gx in zip(leaves.items(), g)})
+        field_rel = {k: l2rel(vgrads[0][k], c) if float(c.norm()) > 0
+                     else float(vgrads[0][k].norm()) for k, c in vgrads[1].items()}
+        passed = (all(bool(torch.isfinite(g).all()) for g in vgrads[0].values())
+                  and all(v <= VERTEX_GRAD_TOL.get(k, VERTEX_GRAD_TOL["*"])
+                          for k, v in field_rel.items())
+                  and float(vgrads[1]["tr_p0"].norm()) > 0)
+        emit("small_input_vertex_grads", config=label, width=scfg.width, height=scfg.height,
+             l2_rel_per_table=field_rel, passed=passed,
+             tolerance=f"per-table l2-relative {VERTEX_GRAD_TOL}")
+        return passed
+
     sdesc, scfg = scenes.config3_sponza(64, 36, target_triangles=20_000)
-    small = [("config3_sponza, 20k triangles", ScenePacker(sdesc, 64, 36).frame(), scfg,
-              True)]
+    packed3 = ScenePacker(sdesc, 64, 36).frame()
+    small = [("config3_sponza, 20k triangles", packed3, scfg, True),
+             ("config3_sponza, 20k triangles, threaded", packed3,
+              scfg.replace(traversal_kernel="threaded"), False)]
+    ok = small_vertex_grads("config3_sponza, 20k triangles", packed3, scfg) and ok
     sdesc, scfg = scenes.config4_dynamic(96, 64)
     spacker = ScenePacker(sdesc, 96, 64)
     small.append(("config4, frame 0", spacker.frame(), scfg, True))

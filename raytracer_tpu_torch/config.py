@@ -68,10 +68,11 @@ class RenderConfig:
     therefore accepts and IGNORES the knobs that size the JAX package's static
     straggler ladders, queues and chunks: ``traversal_chunk``, ``chunk_strided``,
     ``traversal_rounds``, ``ladder_sort_octant``, ``traversal_unroll``,
-    ``traversal_kernel`` (always the wide kernel), ``wide_rounds*``,
-    ``queue_factor``, ``scan_bounces``, ``chunk_checkpoint`` and
-    ``scene_shard_axis``.  ``wide_stack_size`` is honoured (stack overflow is
-    what ``RenderStats.num_incomplete`` counts).
+    ``wide_rounds*``, ``queue_factor``, ``scan_bounces``, ``chunk_checkpoint`` and
+    ``scene_shard_axis``.  ``traversal_kernel`` is honoured as in the JAX
+    package (``"wide"`` walks the 8-wide BVH, any other value the threaded
+    binary BVH, which runs until done), and so is ``wide_stack_size`` (the wide
+    walk's stack overflow is what ``RenderStats.num_incomplete`` counts).
     """
 
     # Render settings (Config.h:8-12)
@@ -129,10 +130,10 @@ class RenderConfig:
     # ns/ray, unroll=4 regresses — the sweet spot is 2)
     traversal_unroll: int = 2
 
-    # Traversal kernel: "wide" = 8-wide BVH, one 8-child-AABB gather per node visit
-    # + one 8-triangle record per leaf (ops/traversal_wide.py — the fast path on
-    # gather-bound TPUs, PERF.md); "threaded" = stackless threaded binary BVH
-    # (ops/traversal.py — kept for ablation and as the reference-shaped baseline).
+    # Traversal kernel: "wide" = 8-wide BVH, 8 child boxes per node visit + one
+    # 8-triangle record per leaf (ops/traversal_wide.py, K1/K2); any other value
+    # ("threaded") = stackless threaded binary BVH, one node or one triangle pair
+    # per iteration (ops/traversal.py, K10).
     traversal_kernel: str = "wide"
     # Short per-ray stack of deferred wide children (packed int32 entries).  Wide
     # tree depth is ~log7(T); demand beyond the bound is counted as `incomplete`

@@ -4,8 +4,9 @@
 Pixel gradients flow to materials, lights, textures, sky and camera.  Traversal
 is discrete (the renderer detaches its inputs); hit attributes are re-derived
 differentiably from the hit ids (``render/renderer.py:_mesh_hits_into``).  On the
-card the texture and sky gradients are the hand-written kernels K4 and K5 bwd
-(``ops/texture_sample.TextureSample``, ``ops/sky_sample.SkySample``); everything
+card the hit reconstruction's, the texture's and the sky's gradients are the
+hand-written kernels K7 bwd, K4 and K5 bwd (``ops/hits.MeshHits``,
+``ops/texture_sample.TextureSample``, ``ops/sky_sample.SkySample``); everything
 else is torch autograd.
 
 Parameters are a ``torch.nn.ParameterDict`` of leaf tensors that require grad;
@@ -20,7 +21,6 @@ from typing import Callable
 import torch
 
 from ..config import RenderConfig
-from ..ops import traversal_wide
 from ..render import renderer
 
 # DeviceScene fields that are meaningfully differentiable scene parameters.
@@ -94,7 +94,8 @@ def make_accum_grad_fn(cfg: RenderConfig, chunk: int | None = None):
         target_flat = target.reshape(-1, 3)
         names = list(params.keys())
         leaves = [params[k] for k in names]
-        bvh = traversal_wide.build_scene_bvh(scene) if scene.n_instances > 0 else None
+        bvh = (renderer._traversal_module(cfg).build_scene_bvh(scene)
+               if scene.n_instances > 0 else None)
         loss, grads, stats = None, None, None
         for c in range(n_chunks):
             pixel_idx = idx_chunks[c].contiguous()

@@ -23,7 +23,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("traverse", "texture", "texture_bwd", "sky", "compact", "fxaa", "primitives")
+SOURCES = ("traverse", "traverse_threaded", "hits", "texture", "texture_bwd", "sky", "compact",
+           "fxaa", "primitives")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -50,7 +50,11 @@ class WideSceneBVH(NamedTuple):
 def build_scene_bvh(scene) -> WideSceneBVH:
     """Assemble the frame's unified wide traversal table (traversal_wide.py:71-103
     of the JAX package): static BLAS records, the per-frame TLAS after them, then
-    the component-major 8-triangle leaf records (col c*8 + j)."""
+    the component-major 8-triangle leaf records (col c*8 + j).  The walk is
+    discrete, so the table carries no gradient, whatever ``scene``'s fields do."""
+    scene = scene._replace(**{k: getattr(scene, k).detach()
+                              for k in ("wd_rec", "wt_rec", "inst_inv", "tr_p0", "tr_e1",
+                                        "tr_e2")})
     n_tri = scene.tr_p0.shape[0]
     n_inst = scene.inst_inv.shape[0]
     # id encodings: best = tri << 8 | inst1 (scene/device.py), inst1 in 8 bits

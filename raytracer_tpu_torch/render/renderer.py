@@ -14,15 +14,18 @@ holds exactly the active candidates, so ``num_dropped`` is 0 by construction and
 ladders, static queue capacities, scanned bounces, chunking and checkpointing,
 one-hot matmul gathers) are not rebuilt.
 
-Kernels on this path: K1/K2 traversal (``ops/traversal_wide``), K3 texture in
-every sampling mode (NEAREST, BILINEAR, and MIPMAP with the TRILINEAR,
-ANISOTROPIC or EWA filter; ``ops/texture_sample``), K5 sky (``ops/sky_sample``),
-K6 compaction (``ops/compaction``), K9 spheres and planes (``ops/intersect``);
-``present`` runs K8 FXAA (``ops/fxaa``).  Everything else is elementwise torch.
+Kernels on this path: the mesh walk, K1/K2 (``ops/traversal_wide``) or, under
+``traversal_kernel="threaded"``, K10 (``ops/traversal``); K7 hit reconstruction
+(``ops/hits``); K3 texture in every sampling mode (NEAREST, BILINEAR, and MIPMAP
+with the TRILINEAR, ANISOTROPIC or EWA filter; ``ops/texture_sample``), K5 sky
+(``ops/sky_sample``), K6 compaction (``ops/compaction``), K9 spheres and planes
+(``ops/intersect``); ``present`` runs K8 FXAA (``ops/fxaa``).  Everything else
+is elementwise torch.
 
-The render is differentiable (``diff/train.py``): the texture and sky carry
-their own backward kernels (K4, K5 bwd), the rest is torch autograd, and the
-traversal is discrete, so its inputs are detached as JAX stops gradients there.
+The render is differentiable (``diff/train.py``): the hit reconstruction, the
+texture and the sky carry their own backward kernels (K7 bwd, K4, K5 bwd), the
+rest is torch autograd, and the traversal is discrete, so its inputs are
+detached as JAX stops gradients there.
 """
 
 from __future__ import annotations
@@ -34,7 +37,10 @@ import torch
 from .. import devices
 from ..config import AIR_IOR, RenderConfig, TextureSampleMode
 from ..core import vecmath as vm
-from ..ops import compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide
+from ..ops import (
+    compaction, fxaa, intersect, sky_sample, texture_sample, traversal, traversal_wide,
+)
+from ..ops import hits as mesh_hits
 from ..ops.intersect import Hits, Rays
 from ..scene.tensors import scene_from_numpy
 from . import shading
@@ -109,123 +115,19 @@ def generate_primary_rays(scene, cfg: RenderConfig) -> Rays:
 # ---------------------------------------------------------------------------
 
 
-def _xp(m, p):
-    """Rows of a batch of 3x4 matrices applied to points, as component sums."""
-    return torch.stack(
-        [m[:, r, 0] * p[:, 0] + m[:, r, 1] * p[:, 1] + m[:, r, 2] * p[:, 2] + m[:, r, 3]
-         for r in range(3)], dim=-1,
-    )
-
-
-def _xd(m, d):
-    """Rows of a batch of 3x4 matrices applied to directions, as component sums."""
-    return torch.stack(
-        [m[:, r, 0] * d[:, 0] + m[:, r, 1] * d[:, 1] + m[:, r, 2] * d[:, 2]
-         for r in range(3)], dim=-1,
-    )
+def _traversal_module(cfg: RenderConfig):
+    """The mesh walk ``cfg.traversal_kernel`` selects: ``"wide"`` the 8-wide BVH
+    (K1/K2), any other value the threaded binary BVH (K10), as in the JAX package."""
+    return traversal_wide if cfg.traversal_kernel == "wide" else traversal
 
 
 def _mesh_hits_into(scene, rays: Rays, res: traversal_wide.TraceResult, hits: Hits,
                     object_space_diffs: bool = False) -> Hits:
-    """Reconstruct the hit attributes from the discrete traversal ids (K7, torch).
-
-    Re-derives (t, u, v) with Moller-Trumbore from the identified triangle, then the
-    hit attribute + Ray Tracing Gems ch.20 differential formulas
-    (BottomLevelBVH.cpp:260-305)."""
-    valid = res.tri >= 0
-    ti = torch.clamp_min(res.tri, 0)
-    ii = torch.clamp_min(res.inst, 0)
-
-    def g(arr, idx):
-        return arr.index_select(0, idx)
-
-    inv = g(scene.inst_inv, ii)  # [N,3,4]
-    world = g(scene.inst_world, ii)
-
-    o_obj = _xp(inv, rays.origin)
-    d_obj = _xd(inv, rays.direction)
-
-    p0 = g(scene.tr_p0, ti)
-    e1 = g(scene.tr_e1, ti)
-    e2 = g(scene.tr_e2, ti)
-
-    hmt = vm.cross(d_obj, e2)
-    a = vm.dot(e1, hmt)
-    f = 1.0 / intersect._nonzero(a)
-    s = o_obj - p0
-    u = f * vm.dot(s, hmt)
-    q = vm.cross(s, e1)
-    v = f * vm.dot(d_obj, q)
-    t = f * vm.dot(e2, q)
-
-    point = rays.origin + t[:, None] * rays.direction
-
-    n0 = g(scene.tr_n0, ti)
-    ne1 = g(scene.tr_ne1, ti)
-    ne2 = g(scene.tr_ne2, ti)
-    n_raw = n0 + u[:, None] * ne1 + v[:, None] * ne2
-    normal = _xd(world, vm.normalize(n_raw, eps=1e-20))
-
-    t0 = g(scene.tr_t0, ti)
-    te1 = g(scene.tr_te1, ti)
-    te2 = g(scene.tr_te2, ti)
-    uv = t0 + u[:, None] * te1 + v[:, None] * te2
-
-    material = g(scene.tr_material, ti)
-
-    dO_dx_o = _xd(inv, rays.dO_dx)
-    dO_dy_o = _xd(inv, rays.dO_dy)
-    dD_dx_o = _xd(inv, rays.dD_dx)
-    dD_dy_o = _xd(inv, rays.dD_dy)
-    one_over_k = 1.0 / intersect._nonzero(vm.dot(vm.cross(e1, e2), d_obj))
-    qx = dO_dx_o + t[:, None] * dD_dx_o
-    qy = dO_dy_o + t[:, None] * dD_dy_o
-    c_u = vm.cross(e2, d_obj)
-    c_v = vm.cross(d_obj, e1)
-    du_dx = one_over_k * vm.dot(c_u, qx)
-    du_dy = one_over_k * vm.dot(c_u, qy)
-    dv_dx = one_over_k * vm.dot(c_v, qx)
-    dv_dy = one_over_k * vm.dot(c_v, qy)
-
-    # cfg.differentials_object_space: identity keeps the reference's object-space
-    # differentials; the default rotates them to world space
-    rot = (lambda m, x: x) if object_space_diffs else _xd
-    dP_dx = rot(world, du_dx[:, None] * e1 + dv_dx[:, None] * e2)
-    dP_dy = rot(world, du_dy[:, None] * e1 + dv_dy[:, None] * e2)
-
-    dn_dx = du_dx[:, None] * ne1 + dv_dx[:, None] * ne2
-    dn_dy = du_dy[:, None] * ne1 + dv_dy[:, None] * ne2
-    n_dot_n = vm.dot(n_raw, n_raw) + 1e-20
-    n_denom = (torch.rsqrt(n_dot_n) / n_dot_n)[:, None]
-    dN_dx = rot(world, (n_dot_n[:, None] * dn_dx - vm.dot(n_raw, dn_dx)[:, None] * n_raw)
-                * n_denom)
-    dN_dy = rot(world, (n_dot_n[:, None] * dn_dy - vm.dot(n_raw, dn_dy)[:, None] * n_raw)
-                * n_denom)
-
-    ds_dx = du_dx * te1[:, 0] + dv_dx * te2[:, 0]
-    ds_dy = du_dy * te1[:, 0] + dv_dy * te2[:, 0]
-    dt_dx = du_dx * te1[:, 1] + dv_dx * te2[:, 1]
-    dt_dy = du_dy * te1[:, 1] + dv_dy * te2[:, 1]
-
-    m3 = valid[:, None]
-    return hits._replace(
-        hit=hits.hit | valid,
-        t=torch.where(valid, t, hits.t),
-        point=torch.where(m3, point, hits.point),
-        normal=torch.where(m3, normal, hits.normal),
-        material_id=torch.where(valid, material, hits.material_id),
-        u=torch.where(valid, uv[:, 0], hits.u),
-        v=torch.where(valid, uv[:, 1], hits.v),
-        ds_dx=torch.where(valid, ds_dx, hits.ds_dx),
-        ds_dy=torch.where(valid, ds_dy, hits.ds_dy),
-        dt_dx=torch.where(valid, dt_dx, hits.dt_dx),
-        dt_dy=torch.where(valid, dt_dy, hits.dt_dy),
-        dO_dx=torch.where(m3, dP_dx, hits.dO_dx),
-        dO_dy=torch.where(m3, dP_dy, hits.dO_dy),
-        dN_dx=torch.where(m3, dN_dx, hits.dN_dx),
-        dN_dy=torch.where(m3, dN_dy, hits.dN_dy),
-        bvh_steps=hits.bvh_steps + res.steps,
-    )
+    """Reconstruct the hit attributes from the discrete traversal ids (K7,
+    ``ops/hits``): Moller-Trumbore re-derives (t, u, v) from the identified
+    triangle, then the hit attribute + Ray Tracing Gems ch.20 differential
+    formulas (BottomLevelBVH.cpp:260-305), merged into ``hits``."""
+    return mesh_hits.mesh_hits(scene, rays, res, hits, object_space_diffs)
 
 
 def trace_scene(scene, bvh, rays: Rays, active, cfg: RenderConfig):
@@ -246,7 +148,7 @@ def trace_scene(scene, bvh, rays: Rays, active, cfg: RenderConfig):
     if bvh is not None:
         # traversal is discrete: no gradient flows through the walk (JAX wraps it
         # in stop_gradient); the hit is re-derived differentiably from its ids
-        res = traversal_wide.trace_closest(bvh, o, d, t_max, active, cfg)
+        res = _traversal_module(cfg).trace_closest(bvh, o, d, t_max, active, cfg)
         hits = _mesh_hits_into(scene, rays, res, hits,
                                object_space_diffs=cfg.differentials_object_space)
         incomplete = res.incomplete
@@ -265,7 +167,7 @@ def intersect_scene(scene, bvh, origin, direction, max_distance, active, cfg):
     else:
         blocked = torch.zeros_like(active)
     if bvh is not None:
-        found, incomplete = traversal_wide.trace_any(
+        found, incomplete = _traversal_module(cfg).trace_any(
             bvh, origin, direction, max_distance, active & ~blocked, cfg
         )
         blocked = blocked | found
@@ -531,7 +433,7 @@ def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=No
         num_refraction=zero, num_dropped=zero, num_incomplete=zero,
     )
     if bvh is None and scene.n_instances > 0:
-        bvh = traversal_wide.build_scene_bvh(scene)
+        bvh = _traversal_module(cfg).build_scene_bvh(scene)
     if (tex4 is None and scene.tex_data.shape[0] > 1
             and cfg.texture_sample_mode != TextureSampleMode.NEAREST):
         tex4 = texture_sample.expand_quads(_tex_tuple(scene))

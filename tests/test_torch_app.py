@@ -58,7 +58,13 @@ def test_app_config4_fxaa(tmp_path, monkeypatch, capsys, batch):
     assert [r["frame"] for r in lines] == [0, 1]
     for r in lines:
         assert set(r) == (FRAME_KEYS if batch == 1 else BATCH_KEYS), r
-        assert r["dropped_rays"] == 0 and r["total_mrays_s"] > 0
+        assert r["dropped_rays"] == 0
+        # a 48x32 frame traces exactly 1,536 primary rays: the printed rate is
+        # that count over the line's own ms, to one unit of its last digit
+        # (both are rounded to 2 decimals, so a slow frame may print 0.0)
+        expected = round(1536 / (r["ms"] / 1e3) / 1e6, 2)
+        assert abs(r["primary_mrays_s"] - expected) <= 0.01 + 1e-9, (r, expected)
+        assert r["total_mrays_s"] >= r["primary_mrays_s"], r
         assert r.get("lossless_retry", False) is False
     # the animation moved the scene between the two frames
     assert np.abs(saved[0][1] - saved[1][1]).max() > 0.01

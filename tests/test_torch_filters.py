@@ -17,8 +17,8 @@ from raytracer_tpu.config import MipmapFilter, TextureSampleMode
 from raytracer_tpu.render import renderer as jax_renderer
 from raytracer_tpu_torch.ops import texture_sample
 from raytracer_tpu_torch.render import renderer
-from torch_parity import (grad_mismatches, jax_scene, jit, masked_grads, torch_config,
-                          torch_scene)
+from torch_parity import (grad_mismatches, jax_scene, jit, masked_grads, stat_dict,
+                          torch_config, torch_scene)
 
 MODES = {
     "nearest": dict(texture_sample_mode=TextureSampleMode.NEAREST),
@@ -42,32 +42,41 @@ def _scene(mode):
 WITHIN_1E3 = {"nearest": 0.99}
 
 
+@pytest.fixture(scope="module")
+def trilinear():
+    """masked_grads under TRILINEAR: its gradients, and the two forward renders
+    that the TRILINEAR render test shares (one JAX program for both tests)."""
+    return masked_grads(*_scene("trilinear"), seed=21)
+
+
 @pytest.mark.parametrize("mode", list(MODES))
-def test_filter_render_matches_jax(mode):
+def test_filter_render_matches_jax(mode, request):
     """Counters equal; mean abs <= 5e-4 and the share of pixels within 1e-3
-    stated above."""
-    scene, cfg = _scene(mode)
-    ref_img, ref_stats = jit(lambda s: jax_renderer.render_with_stats(s, cfg))(scene)
-    with torch.no_grad():
-        img, stats = renderer.render_with_stats(torch_scene(scene), torch_config(cfg))
-    ref_stats = {k: int(v) for k, v in ref_stats._asdict().items()}
-    stats = {k: int(v) for k, v in stats._asdict().items()}
+    stated above.  TRILINEAR's JAX image is the forward of its gradient program."""
+    if mode == "trilinear":
+        ref_img, ref_stats, img, stats = request.getfixturevalue("trilinear")["forward"]
+    else:
+        scene, cfg = _scene(mode)
+        ref_img, ref_stats = jit(lambda s: jax_renderer.render_with_stats(s, cfg))(scene)
+        with torch.no_grad():
+            img, stats = renderer.render_with_stats(torch_scene(scene), torch_config(cfg))
+        ref_stats, stats = stat_dict(ref_stats), stat_dict(stats)
+        img, ref_img = img.numpy(), np.asarray(ref_img)
     assert stats == ref_stats, (stats, ref_stats)
     assert stats["num_dropped"] == 0 and stats["num_incomplete"] == 0
-    img, ref_img = img.numpy(), np.asarray(ref_img)
     assert img.shape == ref_img.shape and np.isfinite(img).all()
     diff = np.abs(img - ref_img)
     assert diff.mean() <= 5e-4, diff.mean()
     assert (diff.max(axis=-1) <= 1e-3).mean() >= WITHIN_1E3.get(mode, 0.995)
 
 
-def test_trilinear_render_grads_match_jax():
+def test_trilinear_render_grads_match_jax(trilinear):
     """The 17 gradients of the masked loss under TRILINEAR, the only filter whose
     gradient also runs through the derivatives to the camera: every field,
     tex_data and the camera's among them, within 1e-4 l2-relative (measured:
     tex_data 1.5e-6, the camera fields 2.4e-5 to 4.5e-5, the rest <= 6.4e-6;
     1 pixel masked by the forward's C1 tie), and the camera fields reached."""
-    grads = masked_grads(*_scene("trilinear"), seed=21)
+    grads = trilinear
     assert grads["n_masked"] <= 4, grads["n_masked"]
     bad = grad_mismatches(grads, {"*": 1e-4})
     assert not bad, bad

@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu_torch.config import MipmapFilter, RenderConfig, TextureSampleMode
-from raytracer_tpu_torch.ops import (
-    compaction, fxaa, intersect, sky_sample, texture_sample, traversal_wide,
+from raytracer_tpu_torch.config import (
+    MipmapFilter, RenderConfig, TextureSampleMode, TraversalStrategy,
 )
+from raytracer_tpu_torch.ops import (
+    compaction, fxaa, hits, intersect, sky_sample, texture_sample, traversal, traversal_wide,
+)
+from raytracer_tpu_torch.ops.intersect import Hits, Rays
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import scenes, textures
 from raytracer_tpu_torch.scene.device import ScenePacker
@@ -341,3 +344,154 @@ def test_primitive_kernels_match_plain(cuda):
     assert bool(kb.any()) and not bool(kb.all())
     with pytest.raises(ValueError, match="discrete"):
         intersect.pick_closest(prims, o, d.clone().requires_grad_())
+
+
+def _hit_inputs(cuda, seed=3):
+    """K7 inputs on the card: config4 (48x32, frame 2) primaries with seeded dO,
+    K9's record as the prior, the wide walk's ids; then 8 lanes appended whose
+    triangles (appended rows) clamp both denominators (|e1 . (d x e2)| = 1e-21)
+    with finite (t, u, v), on an appended identity instance.  Returns (scene,
+    rays, res, prior)."""
+    desc, cfg = scenes.config4_dynamic(48, 32)
+    packer = ScenePacker(desc, 48, 32)
+    desc.update(1.0 / 60.0)
+    desc.update(1.0 / 60.0)
+    rend = renderer.Renderer(cfg, device=cuda)
+    scene = rend.upload(packer.frame())
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        rays = renderer.generate_primary_rays(scene, rend.cfg)
+        n = rays.count
+        rays = rays._replace(**{k: torch.from_numpy((rng.normal(size=(n, 3)) * 1e-2).astype(
+            np.float32)).to(cuda) for k in ("dO_dx", "dO_dy")})
+        winner, t_max = intersect.pick_closest(scene, rays.origin, rays.direction)
+        prior = intersect.primitive_hits(scene, rays, winner)
+        res = traversal_wide.trace_closest(traversal_wide.build_scene_bvh(scene), rays.origin,
+                                           rays.direction, t_max,
+                                           torch.ones(n, dtype=torch.bool, device=cuda),
+                                           rend.cfg)
+    k, m = 8, scene.tr_p0.shape[0]
+    kk = torch.arange(k, dtype=torch.float32, device=cuda)
+    o = torch.stack([0.1 * kk, 0.5 + 0 * kk, -1.0 - 0.25 * kk], dim=1)
+    s = torch.stack([0 * kk, 0.5 + 0.1 * kk, -2.0 + 0 * kk], dim=1)
+
+    def rows(*v):
+        return torch.tensor(v, dtype=torch.float32, device=cuda).expand(k, len(v))
+
+    ident = torch.eye(3, 4, device=cuda)[None]
+    n_inst = scene.inst_inv.shape[0]
+    extra = dict(inst_inv=ident, inst_world=ident,
+                 tr_p0=o - s, tr_e1=rows(1e-21, 0.0, 0.0), tr_e2=rows(0.0, 1.0, 0.0),
+                 tr_n0=rows(0.0, 0.0, -1.0), tr_ne1=rows(0.0, 0.0, 0.0),
+                 tr_ne2=rows(0.0, 0.0, 0.0), tr_t0=rows(0.25, 0.75), tr_te1=rows(0.0, 0.0),
+                 tr_te2=rows(0.0, 0.0))
+    scene = scene._replace(**{f: torch.cat([getattr(scene, f), v]).contiguous()
+                              for f, v in extra.items()},
+                           tr_material=torch.cat([scene.tr_material, torch.ones(
+                               k, dtype=torch.int32, device=cuda)]))
+    small = torch.from_numpy((rng.normal(size=(4, k, 3)) * 1e-3).astype(np.float32)).to(cuda)
+    rays = Rays(*(torch.cat([a, b]).contiguous() for a, b in zip(
+        rays, (o, rows(0.0, 0.0, 1.0), *small))))
+    res = res._replace(tri=torch.cat([res.tri, m + torch.arange(k, dtype=torch.int32,
+                                                                 device=cuda)]),
+                       inst=torch.cat([res.inst, torch.full((k,), n_inst, dtype=torch.int32,
+                                                            device=cuda)]),
+                       steps=torch.cat([res.steps, torch.ones(k, dtype=torch.int32,
+                                                              device=cuda)]))
+    miss = intersect.make_miss_hits(k, cuda)
+    prior = Hits(*(torch.cat([a, b]).contiguous() for a, b in zip(prior, miss)))
+    return scene, rays, res, prior
+
+
+@pytest.mark.parametrize("object_space", [False, True])
+def test_hits_kernel_matches_plain(cuda, object_space):
+    """K7 forward against mesh_hits_plain on the card: the merged record equal on
+    every lane (ids, material, steps, t and every float field), the prior kept
+    where no triangle was hit, and the clamped lanes finite."""
+    scene, rays, res, prior = _hit_inputs(cuda)
+    before = hits.launches
+    with torch.no_grad():
+        k = hits.mesh_hits(scene, rays, res, prior, object_space)
+        p = hits.mesh_hits_plain(scene, rays, res, prior, object_space)
+    assert hits.launches == before + 1
+    for name, a, b in zip(Hits._fields, k, p):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, float((a.float() - b.float()).abs().nan_to_num().max()))
+    assert torch.isfinite(k.t[-8:]).all() and torch.isfinite(k.normal[-8:]).all()
+
+
+@pytest.mark.parametrize("object_space", [False, True])
+def test_hits_backward_kernel_matches_plain(cuda, object_space):
+    """K7 backward against autograd of mesh_hits_plain on the card, a seeded
+    cotangent on all 13 float outputs: the ray fields, the prior record's fields,
+    the nine triangle tables and both instance tables (the clamped lanes'
+    triangles among the rows) within 1e-5 l2-relative."""
+    scene, rays, res, prior = _hit_inputs(cuda)
+    rng = np.random.default_rng(5)
+    cots = {f: torch.from_numpy(rng.normal(size=tuple(getattr(prior, f).shape)).astype(
+        np.float32)).to(cuda) for f in hits.FLOAT_FIELDS}
+    tables = hits.GEOMETRY + ("inst_inv", "inst_world")
+    grads = []
+    for fn in (hits.mesh_hits, hits.mesh_hits_plain):
+        leaves = {f: getattr(scene, f).detach().clone().requires_grad_() for f in tables}
+        r = Rays(*(x.detach().clone().requires_grad_() for x in rays))
+        prior_leaves = prior._replace(**{f: getattr(prior, f).detach().clone().requires_grad_()
+                                         for f in hits.FLOAT_FIELDS})
+        out = fn(scene._replace(**leaves), r, res, prior_leaves, object_space)
+        inputs = [*r, *(getattr(prior_leaves, f) for f in hits.FLOAT_FIELDS), *leaves.values()]
+        grads.append(torch.autograd.grad([getattr(out, f) for f in hits.FLOAT_FIELDS], inputs,
+                                         [cots[f] for f in hits.FLOAT_FIELDS]))
+    names = [*Rays._fields, *(f"prior_{f}" for f in hits.FLOAT_FIELDS), *tables]
+    for name, k, p in zip(names, *grads):
+        assert torch.isfinite(k).all(), name
+        if float(p.norm()) == 0:
+            assert float(k.norm()) == 0, name
+        else:
+            assert float((k - p).norm() / p.norm()) <= 1e-5, name
+
+
+@pytest.mark.parametrize("strategy", ["ORDERED", "NAIVE"])
+def test_threaded_traversal_kernels_match_plain(cuda, strategy):
+    """K10 closest and any hit against traversal.trace_plain on the card: ids,
+    t, steps and found equal on every lane."""
+    rend, packed = _config1(cuda, 64, 64)
+    cfg = rend.cfg.replace(traversal_kernel="threaded",
+                           traversal_strategy=TraversalStrategy[strategy])
+    scene = rend.upload(packed)
+    bvh = traversal.build_scene_bvh(scene)
+    rays = renderer.generate_primary_rays(scene, cfg)
+    n = rays.count
+    t_max = torch.full((n,), float("inf"), device=cuda)
+    active = torch.ones((n,), dtype=torch.bool, device=cuda)
+    ordered = strategy == "ORDERED"
+    before = (traversal.closest_launches, traversal.any_launches)
+    k = traversal.trace_closest(bvh, rays.origin, rays.direction, t_max, active, cfg)
+    w = traversal.trace_plain(bvh, rays.origin, rays.direction, t_max, active, ordered, False)
+    best = torch.where(k.tri >= 0, (k.tri << 8) | (k.inst + 1), -1)
+    assert torch.equal(best, w.best) and torch.equal(k.steps, w.steps)
+    assert torch.equal(k.t, w.t) and int(k.incomplete) == 0
+
+    hit = k.tri >= 0
+    point = rays.origin + torch.where(hit, k.t, 0.0)[:, None] * rays.direction
+    to_light = torch.nn.functional.normalize(scene.sl_pos[0] - point, dim=1).contiguous()
+    dist = torch.linalg.norm(scene.sl_pos[0] - point, dim=1)
+    found, inc = traversal.trace_any(bvh, point, to_light, dist, hit, cfg)
+    wa = traversal.trace_plain(bvh, point, to_light, dist, hit, ordered, True)
+    assert torch.equal(found, wa.found) and int(inc) == 0
+    assert (traversal.closest_launches, traversal.any_launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+
+
+def test_threaded_render_on_card_matches_cpu(cuda):
+    """config1 under traversal_kernel="threaded": K10 and K7 on the card against
+    the plain versions on the CPU."""
+    rend, packed = _config1(cuda)
+    cfg = rend.cfg.replace(traversal_kernel="threaded")
+    rend = renderer.Renderer(cfg, device=cuda)
+    img, stats = rend(rend.upload(packed))
+    cpu = renderer.Renderer(cfg, device="cpu")
+    cimg, cstats = cpu(cpu.upload(packed))
+    assert [int(x) for x in stats] == [int(x) for x in cstats]
+    d = (img.cpu() - cimg).abs()
+    assert float(d.mean()) <= 1e-4
+    assert float((d.amax(dim=-1) <= 1e-3).float().mean()) >= 0.995

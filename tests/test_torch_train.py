@@ -20,7 +20,7 @@ from raytracer_tpu_torch.scene.description import PointLight, SceneDescription
 from raytracer_tpu_torch.scene.device import ScenePacker, pack_scene
 from raytracer_tpu_torch.utils import checkpoint
 from torch_parity import (
-    grad_mismatches, jax_scene, masked_grads, private_bvh_cache, seeded_target,
+    grad_mismatches, jax_scene, jit, masked_grads, private_bvh_cache, seeded_target,
     torch_config, torch_scene,
 )
 
@@ -124,7 +124,8 @@ def test_adam_steps_match_jax():
     def jscene(diffuse):
         return jax_pack_scene(_sphere_desc(JaxDescription, JaxPointLight, diffuse), 24, 24)
 
-    target, _ = jax_renderer.render_with_stats(jscene([0.7, 0.2, 0.5]), cfg)
+    # the target is an input to both sides: one compiled program, not op by op
+    target, _ = jit(lambda s: jax_renderer.render_with_stats(s, cfg))(jscene([0.7, 0.2, 0.5]))
     scene = jscene([0.3, 0.6, 0.3])
     init, step = jax_train.make_train_step(cfg, fields=("mat_diffuse",))
     params, opt_state = init(scene)

@@ -7,6 +7,7 @@ its lossless profile with one chunk, which is the port's semantics.
 """
 
 import contextlib
+import functools
 import os
 
 import jax
@@ -51,8 +52,10 @@ def private_bvh_cache():
         os.chdir(old)
 
 
+@functools.lru_cache(maxsize=None)
 def jax_scene(name: str):
-    """(JAX DeviceScene, lossless JAX RenderConfig) of a test-size scene."""
+    """(JAX DeviceScene, lossless JAX RenderConfig) of a test-size scene; packed
+    once per process (the arrays are immutable), as several files use each."""
     with private_bvh_cache():
         return _jax_scene(name)
 
@@ -76,10 +79,11 @@ def _jax_scene(name: str):
     return JaxPacker(desc, w, h).frame(), _lossless(cfg, w, h)
 
 
+@functools.lru_cache(maxsize=None)
 def jax_frames(name: str, width: int, height: int, updates=(0,), **changes):
-    """([JAX DeviceScene of the frame after k animation steps of 1/60 s, for k in
-    ``updates``], lossless JAX RenderConfig) of ``make_scene(name)`` at
-    width x height, with ``changes`` to its config."""
+    """((JAX DeviceScene of the frame after k animation steps of 1/60 s, for k in
+    ``updates``), lossless JAX RenderConfig) of ``make_scene(name)`` at
+    width x height, with ``changes`` to its config; packed once per process."""
     with private_bvh_cache():
         desc, cfg = jax_scenes.make_scene(name)
         packer = JaxPacker(desc, width, height)
@@ -89,7 +93,7 @@ def jax_frames(name: str, width: int, height: int, updates=(0,), **changes):
                 desc.update(1.0 / 60.0)
                 done += 1
             frames.append(packer.frame())
-    return frames, _lossless(cfg, width, height, **changes)
+    return tuple(frames), _lossless(cfg, width, height, **changes)
 
 
 def seeded_target(cfg, seed):
@@ -97,27 +101,33 @@ def seeded_target(cfg, seed):
     return rng.uniform(0.0, 1.0, (cfg.height, cfg.width, 3)).astype(np.float32)
 
 
+def stat_dict(stats) -> dict:
+    return {k: int(v) for k, v in stats._asdict().items()}
+
+
 def masked_grads(scene, cfg, seed=21) -> dict:
     """JAX and port (loss, {field: grad}) of the mean squared error against a
     seeded target, over the 17 differentiable fields of a JAX DeviceScene, with
     the loss masked to the pixels whose forward images agree within 1e-3
-    (ROADMAP C1); ``n_masked`` counts the pixels left out."""
+    (ROADMAP C1); ``n_masked`` counts the pixels left out.  ``forward`` holds
+    both forward renders, (JAX image, JAX counters, port image, port counters):
+    a forward test of the same config can share them."""
     target = seeded_target(cfg, seed)
     params = jax_train.extract_params(scene)
 
     def masked_loss(p, mask):
-        img, _ = jax_renderer.render_with_stats(jax_train.apply_params(scene, p), cfg)
+        img, stats = jax_renderer.render_with_stats(jax_train.apply_params(scene, p), cfg)
         se = jnp.where(mask[..., None], (img - target) ** 2, 0.0)
-        return jnp.sum(se) / (jnp.sum(mask) * 3), img
+        return jnp.sum(se) / (jnp.sum(mask) * 3), (img, stats)
 
     # one program; the first run (nothing masked) gives the forward image
     vg = jax.jit(jax.value_and_grad(masked_loss, has_aux=True))
     all_px = np.ones((cfg.height, cfg.width), bool)
-    (_, jimg), _ = vg(params, all_px)
+    (_, (jimg, jstats)), _ = vg(params, all_px)
 
     tscene, tcfg = torch_scene(scene), torch_config(cfg)
     with torch.no_grad():
-        timg, _ = renderer.render_with_stats(tscene, tcfg)
+        timg, tstats = renderer.render_with_stats(tscene, tcfg)
     mask = np.abs(np.asarray(jimg) - timg.numpy()).max(axis=-1) <= 1e-3
     (jloss, _), jgrads = vg(params, mask)
 
@@ -129,6 +139,7 @@ def masked_grads(scene, cfg, seed=21) -> dict:
     loss.backward()
     return dict(
         n_masked=int((~mask).sum()),
+        forward=(np.asarray(jimg), stat_dict(jstats), timg.numpy(), stat_dict(tstats)),
         jax=(float(jloss), {k: np.asarray(v) for k, v in jgrads.items()}),
         port=(float(loss.detach()),
               {k: (torch.zeros_like(p) if p.grad is None else p.grad).detach().numpy()
