@@ -61,6 +61,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    one PyTorch call that computes the same function where there is one, and
    the least time the card could take (bytes over 3.35 TB/s or float32
    operations over 67 TFLOP/s, whichever is larger);
+7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
+   through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
+   ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
+   counts at 0 (its measurements and the launches of K11-K13); then a row for
+   each harness kernel (K11 direct and staged, K11 from the 2.40 MB table, K12
+   at the harnesses' two loop shapes, K13 single and chained) against its
+   plain version, exact, with its device time (the calls queued behind a wait
+   kernel, so none waits on the host); then K12 on config3's wide table (10
+   dependent 288-byte rows for each of the 2,073,600 lanes) beside K1's time
+   in this run, and its latency (one warp an SM, 1,000 steps a lane);
 8. small-input checks, the card against the same render on the CPU through the
    plain versions: config3 at 64x36 (20k triangles; also under the threaded
    walk), config4 at 96x64 on animation frames 0 and 2, config2 at 64x64 and 8
@@ -140,6 +150,14 @@ OPS_HITS_FWD, OPS_HITS_BWD = 410, 410 + 960
 # reciprocals; per node visit one slab test (25); per pair visit two
 # Moller-Trumbore tests (2 x 54)
 OPS_TRAY, OPS_TENTRY, OPS_TNODE, OPS_TPAIR = 3, 36, 25, 108
+# csrc/gather.cu, a chain's step (K12, K13) beside the R - 1 adds of its row's
+# sum: the accumulation, the product, its truncation, the two integer adds and
+# the modulus (the range test and the sign fix-up not counted)
+OPS_CHAIN_STEP = 6
+# K12 on config3's wide table: steps a lane, K1's node visits a primary ray
+# (10.0 on config3's 1080p frame, the K1 row's node_visits over its lanes)
+WIDE_CHAIN_ITERS = 10
+LATENCY_STEPS = 1000  # K12's latency run on that table: steps a lane
 # the share of pixels of the threaded walk's 1080p frame that may differ from
 # the wide walk's by more than 1e-3: the walks may take different triangles at
 # an exactly equal t (a shared edge), nothing else
@@ -296,6 +314,182 @@ def profile_frame(render) -> dict:
     }
 
 
+def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
+                 smi: str) -> list:
+    """Phase 7b: the four row-gather harnesses of scratch/ through the port's
+    entry points, at the harnesses' shapes, each run with the counts at 0; then
+    K11-K13 against their plain versions on the same inputs, one row a harness
+    kernel (``record``, which also holds each row to its check); then K12 on
+    config3's wide table beside K1's row.  Returns the problems found."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch import microbench
+    from raytracer_tpu_torch.microbench import chained as mb_chained
+    from raytracer_tpu_torch.microbench import gather as mb_gather
+    from raytracer_tpu_torch.microbench import table_gather as mb_table_gather
+    from raytracer_tpu_torch.microbench import table_rowsum as mb_table_rowsum
+    from raytracer_tpu_torch.ops import gather, traversal_wide
+
+    dev = scene.tr_p0.device
+    t_gather = time.perf_counter()
+    problems, runs = [], {}
+    for label, bench in (("gather", mb_gather), ("chained", mb_chained),
+                         ("table_gather", mb_table_gather), ("table_rowsum", mb_table_rowsum)):
+        for key in gather.launches:
+            gather.launches[key] = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            lines = bench.main([])
+        runs[label] = dict(gather.launches)
+        checks = {f"{line['name']}.{k}": v for line in lines for k, v in line.items()
+                  if k in ("match", "exact", "j_equal", "per_call_equal")}
+        emit("gather_bench", bench=label, module=f"raytracer_tpu_torch.microbench.{label}",
+             launches=runs[label], measurements=lines, nvidia_smi=smi)
+        if not all(checks.values()):
+            return [f"microbench {label}: a check failed: {checks}"]
+
+    def gather_err(got, want) -> tuple:
+        """(every output equals its plain version bit for bit, NaNs included;
+        the largest |difference| of the float outputs, inf if an int output
+        differs)."""
+        pairs = list(zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)))
+        exact = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                    for a, b in pairs)
+        errs = [float((a - b).nan_to_num(nan=float("inf")).abs().max())
+                if a.is_floating_point() else (0.0 if bool(torch.equal(a, b)) else float("inf"))
+                for a, b in pairs]
+        return exact, 0.0 if exact else max(errs)
+
+    def chain_rows(table, idx0, iters) -> int:
+        """The distinct rows a K12 chain reads (its data picks them)."""
+        t, j = table.shape[0], idx0
+        seen = torch.zeros(t, dtype=torch.bool, device=table.device)
+        for i in range(iters):
+            seen[j.long()] = True
+            j = gather.next_index(j, table[j.long(), 0] * t, i, t)
+        return int(seen.sum())
+
+    def gather_row(name, replaces, run, key, kernel, plain, bnd, library=None, reps=50,
+                   **extra):
+        launches[name] = runs[run][key]
+        if launches[name] <= 0:
+            problems.append(f"{name} launched {launches[name]} times in microbench.{run}")
+        exact, err = gather_err(kernel(), plain())
+        record(name, "raytracer_tpu_torch/csrc/gather.cu", replaces, err,
+               cuda_ms(kernel, reps), cuda_ms(plain, 5), bnd,
+               None if library is None else cuda_ms(library, reps), exact,
+               device_ms=microbench.device_ms(kernel, dev),
+               microbench=f"raytracer_tpu_torch.microbench.{run}", **extra)
+
+    _, padded, idx = mb_gather.inputs(dev)
+    k11_bytes = (torch.unique(idx).numel() * padded.shape[1] * 4 + nbytes(idx)
+                 + idx.shape[0] * padded.shape[1] * 4)
+    for schedule, replaces in (("direct", "scratch/bench_pallas_gather.py:63 row_kernel"),
+                               ("staged", "scratch/bench_pallas_gather.py:92 block_kernel")):
+        gather_row(f"row_gather_{schedule}", replaces, "gather", schedule,
+                   lambda schedule=schedule: gather.row_gather(padded, idx, schedule),
+                   lambda: gather.row_gather_plain(padded, idx), bound_ms(k11_bytes, 0),
+                   lambda: torch.index_select(padded, 0, idx), schedule=schedule,
+                   shape={"table": list(padded.shape), "lanes": idx.shape[0]},
+                   tolerance="exact (a copy of bits)")
+    del padded, idx
+
+    table, idx = mb_table_gather.inputs(dev)
+    gather_row("row_gather_table", "scratch/bench_vmem_gather.py:33 kernel_take, "
+               ":37 kernel_tala", "table_gather", "direct",
+               lambda: gather.row_gather(table, idx, "direct"),
+               lambda: gather.row_gather_plain(table, idx),
+               bound_ms(torch.unique(idx).numel() * table.shape[1] * 4 + nbytes(idx)
+                        + idx.shape[0] * table.shape[1] * 4, 0),
+               lambda: torch.index_select(table, 0, idx), schedule="direct",
+               shape={"table": list(table.shape), "lanes": idx.shape[0]},
+               tolerance="exact (a copy of bits)")
+    n, iters, width = idx.shape[0], mb_table_gather.ITERS, table.shape[1]
+    rows = chain_rows(table, idx, iters)
+    gather_row("chained_gather_table", "scratch/bench_vmem_gather.py:61-75 bench_loop",
+               "table_gather", "chained", lambda: gather.chained_gather(table, idx, iters),
+               lambda: gather.chained_gather_plain(table, idx, iters),
+               bound_ms(rows * width * 4 + nbytes(idx) + n * 8,
+                        n * iters * (width - 1 + OPS_CHAIN_STEP)),
+               shape={"table": list(table.shape), "lanes": n, "iters": iters},
+               rows_read=rows, tolerance="acc and j equal on every lane")
+    del table, idx
+
+    table, idx, idx_all = mb_chained.inputs(dev)
+    n, iters, width = idx.shape[0], mb_chained.ITERS, table.shape[1]
+    rows = chain_rows(table, idx, iters)
+    issued = n * iters * width * 4
+    indep_exact, indep_err = gather_err(gather.indep_gather(table, idx_all),
+                                        gather.indep_gather_plain(table, idx_all))
+    gather_row("chained_gather", "scratch/bench_pallas_chained.py:25 pallas_gather "
+               "(in make_fn :67-84)", "chained", "chained",
+               lambda: gather.chained_gather(table, idx, iters),
+               lambda: gather.chained_gather_plain(table, idx, iters),
+               bound_ms(rows * width * 4 + nbytes(idx) + n * 8,
+                        n * iters * (width - 1 + OPS_CHAIN_STEP)),
+               shape={"table": list(table.shape), "lanes": n, "iters": iters}, rows_read=rows,
+               bytes_as_issued=issued, bound_as_issued_ms=issued / PEAK_BYTES_PER_S * 1e3,
+               indep={"launches": runs["chained"]["indep"], "max_abs_err": indep_err,
+                      "ms": cuda_ms(lambda: gather.indep_gather(table, idx_all), 50)},
+               tolerance="acc and j equal on every lane; indep's acc equal")
+    if not indep_exact:
+        problems.append(f"K12 indep differs from its plain version by {indep_err}")
+    del table, idx, idx_all
+
+    tab, idx = mb_table_rowsum.inputs(dev)
+    n, iters, comps = idx.shape[0], mb_table_rowsum.ITERS, tab.shape[0]
+    gather_row("table_rowsum", "scratch/bench_vmem_invreg.py:63 gather_kernel", "table_rowsum",
+               "rowsum", lambda: gather.table_rowsum(tab, idx),
+               lambda: gather.table_rowsum_plain(tab, idx),
+               bound_ms(nbytes(tab, idx) + n * 4, n * (comps - 1)),
+               shape={"table": list(tab.shape), "lanes": n},
+               tolerance="equal on every lane (both sum left to right)")
+    gather_row("table_rowsum_chain", "scratch/bench_vmem_invreg.py:39 in_kernel",
+               "table_rowsum", "rowsum_chain", lambda: gather.table_rowsum_chain(tab, idx, iters),
+               lambda: gather.table_rowsum_chain_plain(tab, idx, iters),
+               bound_ms(nbytes(tab, idx) + n * 8, n * iters * (comps - 1 + OPS_CHAIN_STEP)),
+               shape={"table": list(tab.shape), "lanes": n, "iters": iters},
+               tolerance="acc and j equal on every lane (j follows the float sum)")
+    del tab, idx
+
+    # K12 on config3's own wide table: one dependent 288-byte row a step, 10
+    # steps a lane (K1's node visits a primary ray) over the 1080p primaries
+    wide = traversal_wide.build_scene_bvh(scene).table
+    n, iters = WIDTH * HEIGHT, WIDE_CHAIN_ITERS
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, wide.shape[0], n).astype(np.int32)).to(dev)
+    same, _ = gather_err(gather.chained_gather(wide, idx, iters),
+                         gather.chained_gather_plain(wide, idx, iters))
+    w_ms = cuda_ms(lambda: gather.chained_gather(wide, idx, iters), 50)
+    w_dev = microbench.device_ms(lambda: gather.chained_gather(wide, idx, iters), dev)
+    rows = chain_rows(wide, idx, iters)
+    issued = n * iters * wide.shape[1] * 4
+    # the latency of one dependent row: one warp an SM, so no row waits for bandwidth
+    lat_n = torch.cuda.get_device_properties(dev).multi_processor_count * 32 \
+        if dev.type == "cuda" else 32
+    lat_ms = cuda_ms(lambda: gather.chained_gather(wide, idx[:lat_n], LATENCY_STEPS), 5)
+    k1 = next(r for r in report if r["name"] == "traverse_closest")
+    k1_walk = walk_visits["traverse_closest"]
+    emit("gather_wide_table", table=list(wide.shape), lanes=n, iters=iters, exact=same,
+         ms=w_ms, device_ms=w_dev, ns_per_lane_iter=w_ms * 1e6 / (n * iters),
+         rows_read=rows,
+         bound_ms=bound_ms(rows * wide.shape[1] * 4 + nbytes(idx) + n * 8,
+                           n * iters * (wide.shape[1] - 1 + OPS_CHAIN_STEP))[0],
+         bytes_as_issued=issued, issued_per_s=issued / (w_ms / 1e3),
+         latency={"lanes": lat_n, "steps": LATENCY_STEPS, "ms": lat_ms,
+                  "ns_per_step": lat_ms * 1e6 / LATENCY_STEPS},
+         k1_ms=k1["ms"], k1_bound_ms=k1["bound_ms"], k1_walk=k1_walk,
+         k1_visits_per_active_lane=(k1_walk["node_visits"] + k1_walk["leaf_visits"])
+         / max(k1_walk["active"], 1),
+         k1_over_chain=k1["ms"] / w_ms, nvidia_smi=smi)
+    if not same:
+        problems.append("K12 on config3's wide table differs from its plain version")
+    del wide, idx
+    emit("gather", seconds=time.perf_counter() - t_gather)
+    return problems
+
+
 def main() -> int:
     try:
         import torch
@@ -312,7 +506,7 @@ def main() -> int:
     from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode, TraversalStrategy
     from raytracer_tpu_torch.diff import train
     from raytracer_tpu_torch.ops import (
-        compaction, fxaa, hits, intersect, sky_sample, texture_sample, traversal,
+        compaction, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
         traversal_wide,
     )
     from raytracer_tpu_torch.render import renderer
@@ -1163,6 +1357,7 @@ def main() -> int:
            config4_900x600=on4["compact"], tolerance="exact, on config3 and on config4")
 
     # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow rays
+    walk_visits = {}  # the walks' visits, beside which the gather phase puts K12's
     for name, any_hit, replaces in (
         ("traverse_closest", False, "raytracer_tpu/ops/traversal_wide.py:503"),
         ("traverse_any", True, "raytracer_tpu/ops/traversal_wide.py:523"),
@@ -1172,6 +1367,8 @@ def main() -> int:
         got, walk = check_traverse(any_hit, bvh, o, d, t_max, active, kcfg)
         nodes = float(walk.steps.sum())
         leaves_ = float(walk.leaves.sum())
+        walk_visits[name] = {"lanes": o.shape[0], "active": int(active.sum()),
+                             "node_visits": nodes, "leaf_visits": leaves_}
         out_bytes = o.shape[0] * (1 if any_hit else 12)
         plain_ms = cuda_ms(lambda: traversal_wide.trace_plain(
             bvh, o, d, t_max, active, kcfg.wide_stack_size, ordered(kcfg), any_hit), 1)
@@ -1465,6 +1662,11 @@ def main() -> int:
            tolerance="blocked identical on every lane of every generation of config4, "
                      "config0 and config2")
     del rec4, prims, k9
+
+    # ------------------------------------------------ 7b. the gather microbenchmarks
+    problems = gather_phase(scene, record, launches, report, walk_visits, smi)
+    if problems:
+        return fail("gather: " + "; ".join(problems))
 
     # ----------------------------------------------------- 8. small-input checks
     def small_forward(label, packed, scfg) -> bool:

@@ -17,7 +17,8 @@ from raytracer_tpu_torch.config import (
     MipmapFilter, RenderConfig, TextureSampleMode, TraversalStrategy,
 )
 from raytracer_tpu_torch.ops import (
-    compaction, fxaa, hits, intersect, sky_sample, texture_sample, traversal, traversal_wide,
+    compaction, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
+    traversal_wide,
 )
 from raytracer_tpu_torch.ops.intersect import Hits, Rays
 from raytracer_tpu_torch.render import renderer
@@ -495,3 +496,80 @@ def test_threaded_render_on_card_matches_cpu(cuda):
     d = (img.cpu() - cimg).abs()
     assert float(d.mean()) <= 1e-4
     assert float((d.amax(dim=-1) <= 1e-3).float().mean()) >= 0.995
+
+
+def _gather_table(cuda, rows, width, seed, wild=False):
+    """A table of values in [0, 1), or with wild=True, of any size and sign with
+    a NaN and infinities among them (a chain's next index stays in the table)."""
+    rng = np.random.default_rng(seed)
+    if not wild:
+        return torch.from_numpy(rng.random((rows, width), dtype=np.float32)).to(cuda)
+    tab = (rng.standard_normal((rows, width)) * 10.0 ** rng.uniform(-2, 10, (rows, 1)))
+    tab.flat[rng.integers(0, tab.size, 64)] = [np.nan, np.inf, -np.inf, 0.0] * 16
+    return torch.from_numpy(tab.astype(np.float32)).to(cuda)
+
+
+def _gather_idx(cuda, rows, shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, rows, shape).astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("n", [1, 1025, 65536])
+@pytest.mark.parametrize("width", [72, 128])
+@pytest.mark.parametrize("schedule", ["direct", "staged"])
+def test_row_gather_kernel_matches_plain(cuda, schedule, width, n):
+    """K11 in both schedules against ``table[idx]``: the same bits (NaNs among them)."""
+    table = _gather_table(cuda, 400_000, width, 1, wild=True)
+    idx = _gather_idx(cuda, 400_000, n, 2)
+    before = gather.launches[schedule]
+    got = gather.row_gather(table, idx, schedule)
+    assert gather.launches[schedule] == before + 1
+    want = gather.row_gather_plain(table, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("width", [72, 128, 20])
+def test_chained_gather_kernel_matches_plain(cuda, width, wild):
+    """K12 chained and indep against the plain loops: acc and j equal on every
+    lane (both sum a row left to right); width 20 takes the kernel's generic row
+    loop."""
+    table = _gather_table(cuda, 5000, width, 3, wild)
+    idx = _gather_idx(cuda, 5000, 65536, 4)
+    idx_all = _gather_idx(cuda, 5000, (8, 65536), 5)
+    before = (gather.launches["chained"], gather.launches["indep"])
+    acc, j = gather.chained_gather(table, idx, 32)
+    pacc, pj = gather.chained_gather_plain(table, idx, 32)
+    assert torch.equal(j, pj)
+    assert torch.equal(acc, pacc) or (wild and torch.equal(acc.isnan(), pacc.isnan())
+                                      and torch.equal(acc.nan_to_num(), pacc.nan_to_num()))
+    got = gather.indep_gather(table, idx_all)
+    want = gather.indep_gather_plain(table, idx_all)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert (gather.launches["chained"], gather.launches["indep"]) == (before[0] + 1,
+                                                                    before[1] + 1)
+
+
+@pytest.mark.parametrize("c", [72, 71])
+def test_table_rowsum_kernel_matches_plain(cuda, c):
+    """K13 single and chained against the plain versions: equal on every lane
+    (the chain's next index depends on the float sum)."""
+    tab = _gather_table(cuda, c, 128, 6)
+    idx = _gather_idx(cuda, 128, 131072, 7)
+    before = (gather.launches["rowsum"], gather.launches["rowsum_chain"])
+    assert torch.equal(gather.table_rowsum(tab, idx), gather.table_rowsum_plain(tab, idx))
+    acc, j = gather.table_rowsum_chain(tab, idx, 32)
+    pacc, pj = gather.table_rowsum_chain_plain(tab, idx, 32)
+    assert torch.equal(acc, pacc) and torch.equal(j, pj)
+    assert (gather.launches["rowsum"], gather.launches["rowsum_chain"]) == (before[0] + 1,
+                                                                            before[1] + 1)
+
+
+def test_gather_kernels_refuse_misaligned_rows(cuda):
+    """cp.async and the 16-byte loads need 16-byte rows from a 16-byte aligned base."""
+    base = torch.zeros(1000 * 72 + 1, device=cuda)
+    idx = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        gather.row_gather(base[1:].view(1000, 72), idx, "staged")
+    with pytest.raises(ValueError, match="16-byte"):
+        gather.chained_gather(base[:1000 * 70].view(1000, 70), idx, 2)
