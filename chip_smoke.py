@@ -56,11 +56,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    tolerance (a backward kernel against autograd of the plain forward, with a
    seeded cotangent; K7 forward and backward on every generation of config3's
    and config4's frames, the triangle and instance tables' gradients on
-   generation 0; K10 on every generation of the threaded frame); then each
-   kernel's time, its plain version's time, the
+   generation 0; K10 on every generation of the threaded frame; K5 bwd also
+   on the training step's own generation-0 inputs and on the made-up texel
+   patterns of ``microbench/scatter.py``, and K6 at three densities and on a
+   view one byte off alignment, both against their plain versions in float64
+   where a float32 sum's order matters; the framebuffer scatter on generation
+   1's contributions); then each kernel's time, its plain version's time, the
    one PyTorch call that computes the same function where there is one, and
    the least time the card could take (bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger);
+   operations over 67 TFLOP/s, whichever is larger); K5 bwd, K6 and the
+   framebuffer scatter also with their calls queued behind a wait kernel
+   (``device_ms``) and their time inside the training step;
 7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
    through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
    ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
@@ -107,7 +113,9 @@ WIDTH, HEIGHT, TRIANGLES = 1920, 1080, 260_000
 # 8 Moller-Trumbore tests of 54.
 OPS_ITER, OPS_NODE, OPS_LEAF = 33, 3 + 8 * 25, 8 * 54
 OPS_SKY = 25  # per lane (csrc/sky.cu)
-OPS_SKYBWD = 6  # per lane: 3 products and 3 atomic adds (csrc/sky.cu)
+# per lane of K5 bwd and the framebuffer scatter (csrc/scatter.cuh): 3 zero
+# tests, 3 products, 3 x 5 segmented-scan adds
+OPS_SCATTER3 = 21
 # K3 / K4, every mode (csrc/texture.cuh, texture.cu, texture_bwd.cu).  A
 # bilinear tap: 30 forward; 99 backward (the forward set-up 20, the weight and
 # position cotangents 49, 12 products and 12 atomic adds into the row, 6 to move
@@ -502,11 +510,12 @@ def main() -> int:
         return fail(f"{REPO} holds no raytracer_tpu_torch package: run from a checkout")
     sys.path.insert(0, REPO)
 
-    from raytracer_tpu_torch import app, kernels
+    from raytracer_tpu_torch import app, kernels, microbench
     from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode, TraversalStrategy
     from raytracer_tpu_torch.diff import train
+    from raytracer_tpu_torch.microbench import scatter
     from raytracer_tpu_torch.ops import (
-        compaction, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
+        compaction, framebuffer, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
         traversal_wide,
     )
     from raytracer_tpu_torch.render import renderer
@@ -551,6 +560,7 @@ def main() -> int:
         "texture_aniso": (texture_sample.launches, "aniso"),
         "sky": (sky_sample, "launches"),
         "compact": (compaction, "launches"),
+        "fb_scatter": (framebuffer, "launches"),
     }
     counts = {**fwd_counts,
               "hits_bwd": (hits, "bwd_launches"),
@@ -569,13 +579,14 @@ def main() -> int:
     app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any")
     # the threaded walk: K10 in place of K1/K2
     threaded_kernels = ("threaded_closest", "threaded_any", "hits", "texture_aniso", "sky",
-                        "compact")
+                        "compact", "fb_scatter")
     targets = [(traversal_wide, "trace_closest", "traverse_closest"),
                (traversal_wide, "trace_any", "traverse_any"),
                (hits, "mesh_hits", "hits"),
                (texture_sample, "sample", "texture_aniso"),
                (sky_sample, "sample_sky", "sky"),
-               (compaction, "compact", "compact")]
+               (compaction, "compact", "compact"),
+               (framebuffer, "accumulate", "fb_scatter")]
     bwd_targets = [(hits, "hits_backward", "hits_bwd"),
                    (texture_sample, "sample_backward", "texture_aniso_bwd"),
                    (sky_sample, "sample_backward", "sky_bwd")]
@@ -658,10 +669,13 @@ def main() -> int:
             split.append((t1 - t0, time.perf_counter() - t1))
         return loss.detach(), st
 
-    # one step with the counts at 0: the training path's run (and the warm-up)
+    # one step with the counts at 0: the training path's run (and the warm-up);
+    # K5 bwd's inputs of every generation are kept for its row
     reset_counts()
-    loss, tstats = fwd_bwd(params, cfg)
-    torch.cuda.synchronize()
+    with Recorder([bwd_targets[-1]], every_call=("sky_bwd",)) as step_rec:
+        step_rec.capture = True
+        loss, tstats = fwd_bwd(params, cfg)
+        torch.cuda.synchronize()
     train_launches = read_counts()
     tcounters = {k: int(v) for k, v in tstats._asdict().items()}
     grad_norms = {k: None if p.grad is None else float(p.grad.norm())
@@ -1031,6 +1045,7 @@ def main() -> int:
     launches.update({k: app_launches[k] for k in ("fxaa", "prim_closest", "prim_any")})
     launches.update(filter_launches)
     gen = torch.Generator(device="cuda").manual_seed(7)
+    dev = torch.device("cuda")
 
     def l2rel(a, b) -> float:
         return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -1187,16 +1202,38 @@ def main() -> int:
 
     p_grad = p5b()
     rel = l2rel(k_grad, p_grad)
-    scaled, index_long = cot * (1.0 / math.pi), index.long()
+    # the step's own generation-0 inputs (the backward call with one lane a
+    # pixel), and the made-up patterns of microbench/scatter.py
+    (index_c, cot_c, rows_c), _ = [c for c in step_rec.calls["sky_bwd"]
+                                   if c[0][0].shape[0] == WIDTH * HEIGHT][-1]
+    step_inputs = scatter.sky_bwd_measure(index_c, cot_c, rows_c, dev, 20)
+    patterns = {}
+    for pattern in scatter.SKY_PATTERNS:
+        pidx, pcot = (torch.from_numpy(a).to(dev) for a in scatter.sky_inputs(pattern))
+        patterns[pattern] = scatter.sky_bwd_measure(pidx, pcot, scatter.ROWS, dev, 20)
+    del pidx, pcot
+    checks = [step_inputs, *patterns.values()]
     record("sky_bwd", "raytracer_tpu_torch/csrc/sky.cu", "raytracer_tpu/ops/sky_sample.py:16",
            float((k_grad - p_grad).abs().max()),
            cuda_ms(lambda: sky_sample.sample_backward(index, cot, rows), 20), cuda_ms(p5b, 20),
-           bound_ms(nbytes(index, cot) + rows * 12, n * OPS_SKYBWD),
-           cuda_ms(lambda: torch.zeros_like(sky_data).index_add_(0, index_long, scaled), 20),
-           rel <= 1e-5, lanes=n, lanes_left_out=int((diff != 0).sum()), l2_rel=rel,
+           bound_ms(nbytes(index, cot) + rows * 12, n * OPS_SCATTER3),
+           cuda_ms(lambda: torch.zeros_like(sky_data).index_add_(0, index, cot,
+                                                                 alpha=1.0 / math.pi), 20),
+           rel <= 1e-5 and all(c["l2_rel"] <= 1e-5 for c in checks),
+           device_ms=microbench.device_ms(
+               lambda: sky_sample.sample_backward(index, cot, rows), dev),
+           library_device_ms=microbench.device_ms(
+               lambda: torch.zeros_like(sky_data).index_add_(0, index, cot,
+                                                             alpha=1.0 / math.pi), dev),
+           lanes=n, lanes_left_out=int((diff != 0).sum()), l2_rel=rel,
            run_to_run_max_abs=spread, run_to_run_l2_rel=spread_rel,
-           atomic_rmw_bytes_in_l2=n * 3 * 8, library="torch.zeros + index_add_ of cot / pi",
-           tolerance="sky_data gradient within 1e-5 l2-relative")
+           step_generation0=step_inputs, patterns=patterns,
+           kernel_ms_in_step=step_kernel_ms["sky_bwd"],
+           launches_in_step=train_launches["sky_bwd"],
+           library="torch.zeros_like(sky).index_add_(0, index, cot, alpha=1/pi), one call "
+                   "on the kernel's int32 index",
+           tolerance="sky_data gradient within 1e-5 l2-relative, on the seeded cotangent, "
+                     "the step's generation 0 and every pattern")
     del p_graph, leaf
 
     # K3 and K4 in one mode, on the inputs that mode's 1080p frame gave K3
@@ -1347,14 +1384,60 @@ def main() -> int:
     (flags,), _ = inputs["compact"]
     got = check_compact(flags)
     n = flags.shape[0]
+    flag_inputs = scatter.compact_measure(flags, dev, 20)
+    rng = np.random.default_rng(1)
+    uniform = torch.from_numpy(rng.random(n + 1)).to(dev)
+    densities = {}
+    for density in scatter.DENSITIES:
+        dflags = uniform < density
+        densities[f"{density:.3g}"] = scatter.compact_measure(dflags[:-1], dev, 20)
+        densities[f"{density:.3g} flags[1:]"] = scatter.compact_measure(dflags[1:], dev, 20)
+    del uniform, dflags
     record("compact", "raytracer_tpu_torch/csrc/compact.cu",
            "raytracer_tpu/ops/compaction.py:26",
            max(got.pop("max_abs_err"), on4["compact"]["max_abs_err"]),
            cuda_ms(lambda: compaction.compact(flags), 20),
            cuda_ms(lambda: compaction.compact_plain(flags), 20),
            bound_ms(n + 4 * got["active"] + 4, n), cuda_ms(lambda: torch.nonzero(flags), 20),
-           got.pop("passed") and on4["compact"]["passed"], **got,
-           config4_900x600=on4["compact"], tolerance="exact, on config3 and on config4")
+           got.pop("passed") and on4["compact"]["passed"] and flag_inputs["exact"]
+           and all(d["exact"] for d in densities.values()), **got,
+           device_ms=flag_inputs["device_ms"], launch_ms=flag_inputs["launch_ms"],
+           densities=densities, kernel_ms_in_step=step_kernel_ms["compact"],
+           launches_in_step=train_launches["compact"],
+           config4_900x600=on4["compact"], library="torch.nonzero(flags)",
+           tolerance="exact, on config3 and on config4, and on every density")
+
+    # K6's framebuffer scatter, on generation 1's contributions (the first
+    # scatter: generation 0 adds densely), against index_add_ in float64
+    (fb1, pixel1, contrib1), _ = inputs["fb_scatter"]
+    n = pixel1.shape[0]
+    want = fb1.double().index_add_(0, pixel1, contrib1.double())
+    got = framebuffer.accumulate(fb1.clone(), pixel1, contrib1)
+    again = framebuffer.accumulate(fb1.clone(), pixel1, contrib1)
+    fb_rel = float((got.double() - want).norm() / want.norm().clamp_min(1e-30))
+    plain_rel = float((framebuffer.accumulate_plain(fb1.clone(), pixel1, contrib1).double()
+                       - want).norm() / want.norm().clamp_min(1e-30))
+    fbw = fb1.clone()
+    rows_named = int(torch.unique(pixel1).shape[0])
+    record("fb_scatter", "raytracer_tpu_torch/csrc/framebuffer.cu",
+           "raytracer_tpu/render/renderer.py:439",
+           float((got.double() - want).abs().max()),
+           cuda_ms(lambda: framebuffer.accumulate(fbw, pixel1, contrib1), 20),
+           cuda_ms(lambda: framebuffer.accumulate_plain(fbw, pixel1, contrib1), 20),
+           bound_ms(nbytes(pixel1, contrib1) + 2 * 12 * rows_named, n * OPS_SCATTER3),
+           cuda_ms(lambda: fbw.index_add_(0, pixel1, contrib1), 20), fb_rel <= 1e-5,
+           device_ms=microbench.device_ms(
+               lambda: framebuffer.accumulate(fbw, pixel1, contrib1), dev),
+           library_device_ms=microbench.device_ms(
+               lambda: fbw.index_add_(0, pixel1, contrib1), dev),
+           lanes=n, rows=fb1.shape[0], rows_named=rows_named, l2_rel=fb_rel,
+           plain_f32_l2_rel=plain_rel,
+           run_to_run_l2_rel=float((again - got).norm() / got.norm().clamp_min(1e-30)),
+           kernel_ms_in_step=step_kernel_ms["fb_scatter"],
+           launches_in_step=train_launches["fb_scatter"],
+           library="fb.index_add_(0, pixel, contribution), the plain version itself",
+           tolerance="within 1e-5 l2-relative of index_add_ in float64")
+    del fb1, fbw, got, again, want
 
     # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow rays
     walk_visits = {}  # the walks' visits, beside which the gather phase puts K12's

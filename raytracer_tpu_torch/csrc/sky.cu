@@ -12,14 +12,15 @@
 // is read as three scalar loads and the texel gather goes through L1/L2.
 // Vectorised 16-byte loads and a fused shading pass are for later PRs.
 //
-// Backward (sky_bwd_kernel): the forward gathers texel `index` and scales it by
-// 1/pi, so the gradient of sky_data is the cotangent / pi scattered to `index`
-// (three atomicAdds per lane), and the direction gets none (floor to a texel).
-// When a gradient is needed the forward also writes `index` [N] int32.  Bound:
-// bytes (16 B in and 3 atomic read-modify-writes of 8 B per lane, and the
-// zero fill of the [S*S,3] gradient).  fp32 atomics make the order of the sums
-// change from run to run.
+// Backward (rt_sky_sample_bwd): the forward gathers texel `index` and scales it by
+// 1/pi, so the gradient of sky_data is the cotangent / pi scattered to `index`,
+// and the direction gets none (floor to a texel).  When a gradient is needed the
+// forward also writes `index` [N] int32.  Bound: bytes (12 B of cotangent a
+// lane, the index of the lanes that scatter, and the [S*S,3] gradient).
+//
+// The scatter is rt::scatter3_kernel (scatter.cuh), with a scale of 1/pi.
 #include "common.cuh"
+#include "scatter.cuh"
 
 namespace {
 
@@ -53,17 +54,6 @@ __global__ void sky_kernel(const float* __restrict__ dir, int n,
   if (index_out != nullptr) index_out[i] = index;
 }
 
-__global__ void sky_bwd_kernel(const int* __restrict__ index, const float* __restrict__ cot,
-                               int n, float* __restrict__ grad_sky) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float one_over_pi = (float)(1.0 / kPi);
-  float* g = grad_sky + 3ll * index[i];
-  atomicAdd(g + 0, cot[3 * i + 0] * one_over_pi);
-  atomicAdd(g + 1, cot[3 * i + 1] * one_over_pi);
-  atomicAdd(g + 2, cot[3 * i + 2] * one_over_pi);
-}
-
 }  // namespace
 
 // index may be null: it is written only when a gradient is needed.
@@ -78,8 +68,8 @@ extern "C" int rt_sky_sample(const void* dir, int n, const void* sky, int size, 
 // grad_sky [S*S,3] must be zeroed by the caller.
 extern "C" int rt_sky_sample_bwd(const void* index, const void* cot, int n, void* grad_sky,
                                  void* stream) {
-  constexpr int kBlock = 256;
-  sky_bwd_kernel<<<rt::grid_for(n, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int*)index, (const float*)cot, n, (float*)grad_sky);
+  rt::scatter3_kernel<<<rt::grid_for(n, rt::kScatterBlock), rt::kScatterBlock, 0,
+                        (cudaStream_t)stream>>>((const int*)index, (const float*)cot, n,
+                                                (float)(1.0 / kPi), (float*)grad_sky);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("traverse", "traverse_threaded", "hits", "texture", "texture_bwd", "sky", "compact",
-           "fxaa", "primitives", "gather")
+           "framebuffer", "fxaa", "primitives", "gather")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict = {}
+_entries: dict = {}
 
 
 def _nvcc() -> str:
@@ -118,10 +119,14 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def entry(name: str, fn: str, argtypes: list):
-    """The C entry point ``fn`` of ``csrc/<name>.cu`` with its argument types set."""
-    f = getattr(library(name), fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    """The C entry point ``fn`` of ``csrc/<name>.cu`` with its argument types set
+    (kept after the first call: a wrapper's host time is part of every launch)."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = getattr(library(name), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _entries[(name, fn)] = f
     return f
 
 
@@ -131,8 +136,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """PyTorch's current stream on ``device``, as a pointer."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:  # without building a Stream object
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 

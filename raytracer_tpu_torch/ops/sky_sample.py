@@ -6,7 +6,8 @@ Reference (clayne/CPU-Raytracer): Sky.cpp:28-67 — direction -> (u,v) via
 ``sample_sky`` launches ``csrc/sky.cu`` for CUDA tensors and runs
 ``sample_sky_plain`` for CPU tensors.  Its gradient on the card is the
 ``rt_sky_sample_bwd`` kernel (``SkySample``); on the CPU, autograd of
-``sample_sky_plain``.
+``sample_sky_plain`` (``sample_backward_plain`` computes the same sums from
+the texel indices).
 """
 
 from __future__ import annotations
@@ -81,15 +82,26 @@ def sample_forward(sky_data: torch.Tensor, direction: torch.Tensor, want_index: 
     return out, index
 
 
+def sample_backward_plain(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.Tensor:
+    """The [rows,3] gradient of sky_data: cot / pi summed onto ``index``, as
+    autograd of ``sample_sky_plain`` computes it (each lane's product, then the
+    sums), in the cotangent's dtype."""
+    grad = torch.zeros((rows, 3), dtype=cot.dtype, device=cot.device)
+    return grad.index_add_(0, index.long(), cot * vm.ONE_OVER_PI)
+
+
 def sample_backward(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.Tensor:
-    """K5 backward, one ``rt_sky_sample_bwd`` launch: the [rows,3] gradient of
-    sky_data, cot / pi scattered to ``index`` (counted in ``bwd_launches``)."""
+    """K5 backward: the [rows,3] gradient of sky_data, cot / pi scattered to
+    ``index``.  CPU tensors take ``sample_backward_plain``; CUDA tensors launch
+    ``rt_sky_sample_bwd`` once (counted in ``bwd_launches``)."""
     global bwd_launches
     n = index.shape[0]
     if (cot.shape != (n, 3) or cot.dtype != torch.float32 or index.dtype != torch.int32
             or index.device != cot.device):
         raise ValueError("sample_sky backward: cot [N,3] float32 and index [N] int32 "
                          "on one device expected")
+    if cot.device.type == "cpu":
+        return sample_backward_plain(index, cot, rows)
     kernels.require_contiguous("sample_sky backward", index, cot)
     grad = torch.zeros((rows, 3), dtype=torch.float32, device=cot.device)
     if n == 0:

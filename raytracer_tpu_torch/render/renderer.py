@@ -18,7 +18,8 @@ Kernels on this path: the mesh walk, K1/K2 (``ops/traversal_wide``) or, under
 ``traversal_kernel="threaded"``, K10 (``ops/traversal``); K7 hit reconstruction
 (``ops/hits``); K3 texture in every sampling mode (NEAREST, BILINEAR, and MIPMAP
 with the TRILINEAR, ANISOTROPIC or EWA filter; ``ops/texture_sample``), K5 sky
-(``ops/sky_sample``), K6 compaction (``ops/compaction``), K9 spheres and planes
+(``ops/sky_sample``), K6 compaction (``ops/compaction``) and the framebuffer
+scatter of each later generation (``ops/framebuffer``), K9 spheres and planes
 (``ops/intersect``); ``present`` runs K8 FXAA (``ops/fxaa``).  Everything else
 is elementwise torch.
 
@@ -38,7 +39,8 @@ from .. import devices
 from ..config import AIR_IOR, RenderConfig, TextureSampleMode
 from ..core import vecmath as vm
 from ..ops import (
-    compaction, fxaa, intersect, sky_sample, texture_sample, traversal, traversal_wide,
+    compaction, framebuffer, fxaa, intersect, sky_sample, texture_sample, traversal,
+    traversal_wide,
 )
 from ..ops import hits as mesh_hits
 from ..ops.intersect import Hits, Rays
@@ -220,7 +222,7 @@ def _shade_generation(scene, bvh, gen: _Generation, fb, spawn: bool, cfg, stats,
     def fb_add(fb, contribution):
         if identity_pixels:
             return fb + contribution
-        return fb.index_add_(0, gen.pixel, contribution)
+        return framebuffer.accumulate(fb, gen.pixel, contribution)
 
     if cfg.visualize_heatmap:
         # Raytracer.cpp:97-102: steps scaled by (1/32, 1/256, 1/512)

@@ -13,7 +13,7 @@ from raytracer_tpu.ops.sky_sample import sample_sky as jax_sample_sky
 from raytracer_tpu.scene import sky as jax_sky
 from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode
 from raytracer_tpu_torch.diff import train
-from raytracer_tpu_torch.ops import sky_sample, texture_sample, traversal_wide
+from raytracer_tpu_torch.ops import framebuffer, sky_sample, texture_sample, traversal_wide
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import scenes
 from raytracer_tpu_torch.scene.device import ScenePacker
@@ -164,6 +164,53 @@ def test_sky_vjp_matches_jax():
     assert g_dir is None or not g_dir.any()
 
 
+def _camera_directions(w, h, fov_deg, forward):
+    """[h*w, 3] unit directions of a pinhole camera's pixel centres, row-major."""
+    forward = np.asarray(forward, np.float64) / np.linalg.norm(forward)
+    right = np.cross(forward, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    up = np.cross(right, forward)
+    half = np.tan(np.radians(fov_deg) / 2)
+    sx = (2 * (np.arange(w) + 0.5) / w - 1) * half
+    sy = (1 - 2 * (np.arange(h) + 0.5) / h) * half * h / w
+    d = (forward + sx[None, :, None] * right + sy[:, None, None] * up).reshape(-1, 3)
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_sky_vjp_matches_jax_on_main_path_pattern():
+    """The pattern the main path gives K5's backward: neighbouring lanes are
+    neighbouring pixels (config3's 0.057 deg a pixel, so ~25 of a row share a
+    1.4 deg texel of the 256² probe), and the cotangent is zero on the ~90% of
+    lanes whose ray hit a surface.  Autograd of the plain version and
+    ``sample_backward`` on the CPU against ``jax.vjp``."""
+    data, size = jax_sky.procedural_probe(256)
+    data = data.astype(np.float32)
+    w, h = 160, 90
+    d = _camera_directions(w, h, 0.057 * w, (0.9, 0.1, 0.4))
+    rng = np.random.default_rng(6)
+    cot = rng.normal(size=d.shape).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    miss = ((xx - 0.6 * w) ** 2 + (yy - 0.4 * h) ** 2 < (0.12 * w) ** 2).reshape(-1)
+    cot[~miss] = 0.0
+    ref_out, vjp = jax.vjp(lambda s, x: jax_sample_sky(s, jnp.int32(size), x),
+                           jnp.asarray(data), jnp.asarray(d))
+    sky = torch.from_numpy(data).requires_grad_()
+    direction = torch.from_numpy(d)
+    out = sky_sample.sample_sky(sky, direction)
+    same = np.all(out.detach().numpy() == np.asarray(ref_out), axis=1)
+    assert same.mean() >= 1 - 1e-3, same.mean()
+    cot = cot * same[:, None]
+    index = sky_sample.texel_index(size, direction).to(torch.int32).numpy()
+    runs = np.count_nonzero(np.diff(index[miss])) + 1
+    assert 0.85 <= 1 - miss.mean() <= 0.95 and miss.sum() / runs >= 10, (miss.mean(), runs)
+    ref_sky = np.asarray(vjp(jnp.asarray(cot))[0])
+    (g_sky,) = torch.autograd.grad(out, [sky], torch.from_numpy(cot))
+    assert l2rel(g_sky.numpy(), ref_sky) <= 1e-6, l2rel(g_sky.numpy(), ref_sky)
+    g_bwd = sky_sample.sample_backward(torch.from_numpy(index), torch.from_numpy(cot),
+                                       data.shape[0])
+    assert l2rel(g_bwd.numpy(), ref_sky) <= 1e-6, l2rel(g_bwd.numpy(), ref_sky)
+
+
 def _plain_texture_forward(cfg, tex, lanes, filt, data4):
     assert filt == texture_sample.filter_of(cfg)
     return texture_sample.sample_plain(tex, *lanes, cfg, data4)
@@ -240,6 +287,27 @@ def test_sky_function_plumbing(monkeypatch):
     with torch.no_grad():
         sky_sample.SkySample.apply(leaf, d, False)
     assert seen["want_index"] is False
+
+
+def test_framebuffer_function_plumbing(monkeypatch):
+    """FramebufferAdd with its launch replaced by index_add_: it adds in place,
+    and its backward passes the frame's gradient through and gathers it at
+    each lane's pixel, as autograd of index_add_ does."""
+    rng = np.random.default_rng(9)
+    pixel = torch.from_numpy(rng.integers(0, 50, 400).astype(np.int32))
+    c0 = torch.from_numpy(rng.normal(size=(400, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(50, 3)).astype(np.float32))
+    monkeypatch.setattr(framebuffer, "scatter_add", framebuffer.accumulate_plain)
+    grads = []
+    for add in (framebuffer.FramebufferAdd.apply, framebuffer.accumulate_plain):
+        base = c0[:50].clone().requires_grad_()
+        c = c0.clone().requires_grad_()
+        fb = base * 2.0
+        out = add(fb, pixel, c)
+        assert out is fb
+        grads.append(torch.autograd.grad((out * w).sum(), [base, c]))
+    for g, r in zip(*grads):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
 
 
 def test_traversal_gets_no_gradient(monkeypatch):

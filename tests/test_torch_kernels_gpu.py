@@ -17,7 +17,7 @@ from raytracer_tpu_torch.config import (
     MipmapFilter, RenderConfig, TextureSampleMode, TraversalStrategy,
 )
 from raytracer_tpu_torch.ops import (
-    compaction, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
+    compaction, framebuffer, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
     traversal_wide,
 )
 from raytracer_tpu_torch.ops.intersect import Hits, Rays
@@ -51,14 +51,30 @@ def test_sky_kernel_matches_plain(cuda):
     assert float((k != p).any(dim=1).float().mean()) <= 1e-3
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1024, 1025, 300_000])
-def test_compact_kernel_matches_plain(cuda, n):
+TILE = compaction.TILE
+
+
+@pytest.mark.parametrize("view", ["aligned", "flags[1:]"])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 32, 33, 1000, 1024, 1025, TILE - 1, TILE,
+                               TILE + 1, 300_000, 4_147_200])
+def test_compact_kernel_matches_plain(cuda, n, density, view):
+    """K6 exact against compact_plain around its 16-byte loads and its tiles, on
+    an aligned array and on a view one byte in; compact_launch leaves the same
+    count on the device that compact reads back."""
     rng = np.random.default_rng(n)
-    flags = torch.from_numpy(rng.random(n) < 0.3).to(cuda)
+    base = torch.from_numpy(rng.random(n + 1) < density).to(cuda)
+    flags = base[:n] if view == "aligned" else base[1:]
+    assert flags.data_ptr() % 16 == (0 if view == "aligned" else 1)
+    before = compaction.launches
     k_idx, k_n = compaction.compact(flags)
+    out, count = compaction.compact_launch(flags)
+    assert compaction.launches == before + 2
     p_idx, p_n = compaction.compact_plain(flags)
-    assert k_n == p_n
+    assert k_n == p_n == int(count.item())
     assert torch.equal(k_idx, p_idx)
+    assert out.shape == (n,) and count.device == flags.device
+    assert torch.equal(out[:p_n], p_idx)
 
 
 def _random_texture_inputs(cuda, seed=1, n=50_000):
@@ -198,6 +214,112 @@ def test_sky_backward_kernel_matches_plain(cuda):
     assert sky_sample.bwd_launches == before + 1
     k, p = grads
     assert float((k - p).norm() / p.norm()) <= 1e-5
+
+
+def _texel_directions(texels, size):
+    """Unit directions that read the probe texels ``texels`` (row py * size + px):
+    the angular map inverted at each texel's centre, which lies inside the
+    disc the map covers."""
+    px, py = texels % size, texels // size
+    a, b = px / size - 0.5, py / size - 0.5
+    rho = np.hypot(a, b)
+    theta = 2 * np.pi * rho
+    s = np.where(rho > 0, np.sin(theta) / np.maximum(rho, 1e-30), 2 * np.pi)
+    d = np.stack([a * s, b * s, np.cos(theta)], axis=1)
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _disc_texels(size):
+    """The probe's texels well inside its disc (the angular map's image)."""
+    p = np.arange(size * size)
+    a, b = (p % size) / size - 0.5, (p // size) / size - 0.5
+    return p[np.hypot(a, b) < 0.45]
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 2_073_600])
+@pytest.mark.parametrize("pattern", ["one_texel", "runs25", "random", "zero90", "nan"])
+def test_sky_backward_kernel_patterns(cuda, pattern, n):
+    """K5 bwd against autograd of sample_sky_plain within 1e-5 l2-relative
+    where the scatter's aggregation matters: every lane on one texel, runs of
+    25 lanes a texel (config3's primary rays), random texels, 90% of the lanes
+    with an all-zero cotangent, and one NaN cotangent, which must reach its
+    texel and no other.  The plain version runs on a float64 copy of the probe
+    and cotangent, so that its sums are exact to well below the tolerance: a
+    float32 sum of 2 M lanes on one texel is ~3e-5 off in any order."""
+    size = 256
+    rng = np.random.default_rng(n)
+    disc = _disc_texels(size)
+    lane = np.arange(n)
+    if pattern == "one_texel":
+        texels = np.full(n, disc[len(disc) // 3])
+    elif pattern == "random":
+        texels = rng.choice(disc, n)
+    else:
+        texels = disc[(lane // 25 * 7919) % len(disc)]
+    sky = torch.from_numpy(rng.random((size * size, 3), dtype=np.float32)).to(cuda)
+    d = torch.from_numpy(_texel_directions(texels, size)).to(cuda)
+    cot = rng.normal(size=(n, 3)).astype(np.float32)
+    if pattern == "zero90":
+        cot[rng.random(n) < 0.9] = 0.0
+        cot[: n // 2][cot[: n // 2, 0] == 0.0] = -0.0  # -0 is a zero lane too
+    nan_lane = n // 2
+    if pattern == "nan":
+        cot[nan_lane, 1] = np.nan
+    cot = torch.from_numpy(cot).to(cuda)
+    index = sky_sample.texel_index(size, d)
+    assert torch.equal(index.cpu(), torch.from_numpy(texels))
+    same = (sky_sample.sample_sky(sky, d) == sky_sample.sample_sky_plain(sky, d)).all(dim=1)
+    assert bool(same.all())
+    before = sky_sample.bwd_launches
+    leaf = sky.clone().requires_grad_()
+    (k,) = torch.autograd.grad(sky_sample.sample_sky(leaf, d), [leaf], cot)
+    assert sky_sample.bwd_launches == before + 1
+    leaf = sky.double().requires_grad_()
+    (p,) = torch.autograd.grad(sky_sample.sample_sky_plain(leaf, d), [leaf], cot.double())
+    k = k.double()
+    if pattern == "nan":
+        t = int(texels[nan_lane])
+        assert bool(torch.isnan(k[t, 1])) and bool(torch.isnan(p[t, 1]))
+        k[t, 1] = p[t, 1] = 0.0
+        assert bool(torch.isfinite(k).all())
+    assert float((k - p).norm() / p.norm().clamp_min(1e-30)) <= 1e-5
+    # lanes with an all-zero cotangent leave their texels at +0
+    untouched = torch.ones(size * size, dtype=torch.bool, device=cuda)
+    untouched[index[(cot != 0).any(dim=1) | cot.isnan().any(dim=1)]] = False
+    assert not bool(k[untouched].any()) and not bool(torch.signbit(k[untouched]).any())
+
+
+@pytest.mark.parametrize("n", [1, 33, 1_000_000])
+@pytest.mark.parametrize("pattern", ["queue", "runs25", "one_pixel", "zero90"])
+def test_framebuffer_scatter_kernel_matches_plain(cuda, pattern, n):
+    """The framebuffer scatter (rt_scatter_add3) adds in place what index_add_
+    adds, within 1e-5 l2-relative of index_add_ in float64: a later
+    generation's queue (reflection then refraction children of ascending
+    pixels), runs of 25 lanes a pixel, every lane on one pixel, and 90% of the
+    lanes adding zero (their pixels keep their bits)."""
+    rng = np.random.default_rng(n)
+    pixels = 1920 * 1080
+    if pattern == "queue":
+        half = np.sort(rng.choice(pixels, (n + 1) // 2, replace=False))
+        pixel = np.concatenate([half, half])[:n]
+    elif pattern == "one_pixel":
+        pixel = np.full(n, 777)
+    else:
+        pixel = (np.arange(n) // 25 * 7919) % pixels
+    c = rng.normal(size=(n, 3)).astype(np.float32)
+    if pattern == "zero90":
+        c[rng.random(n) < 0.9] = 0.0
+    fb = torch.from_numpy(rng.normal(size=(pixels, 3)).astype(np.float32)).to(cuda)
+    pixel = torch.from_numpy(pixel.astype(np.int32)).to(cuda)
+    c = torch.from_numpy(c).to(cuda)
+    want = fb.double().index_add_(0, pixel, c.double())
+    before = framebuffer.launches
+    got = framebuffer.accumulate(fb.clone(), pixel, c)
+    assert framebuffer.launches == before + 1
+    assert float((got.double() - want).norm() / want.norm()) <= 1e-5
+    untouched = torch.ones(pixels, dtype=torch.bool, device=cuda)
+    untouched[pixel[(c != 0).any(dim=1)]] = False
+    assert torch.equal(got[untouched], fb[untouched])
 
 
 def _config1(device, w=32, h=32):
