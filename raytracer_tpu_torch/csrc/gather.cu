@@ -4,8 +4,8 @@
 // each of which times the gather of 72-float (288-byte) rows, the wide walk's
 // node record; the plain PyTorch versions are raytracer_tpu_torch/ops/gather.py.
 //
-// K11 row_gather_kernel<kStaged>: out[n, :] = table[idx[n], :], a copy of bits.
-//   - direct (kStaged = false) replaces scratch/bench_pallas_gather.py:63
+// K11: out[n, :] = table[idx[n], :], a copy of bits, in two schedules.
+//   - direct (row_gather_kernel) replaces scratch/bench_pallas_gather.py:63
 //     row_kernel (one row a grid step, its index by scalar prefetch; Mosaic
 //     rejects that form) and scratch/bench_vmem_gather.py:33 kernel_take and :37
 //     kernel_tala (the table whole in VMEM).  Each thread copies one 16-byte
@@ -13,13 +13,29 @@
 //     independent, so each SM holds many rows in flight.  A table held whole on
 //     chip has no shared-memory form here: B4's 2.40 MB is 10x the 227 KB a
 //     block may have, and lives in the 50 MB L2 instead.
-//   - staged (kStaged = true) replaces scratch/bench_pallas_gather.py:92
+//   - staged (staged_gather_kernel) replaces scratch/bench_pallas_gather.py:92
 //     block_kernel (and its copy inside scratch/bench_pallas_chained.py:25
-//     pallas_gather): a block takes G consecutive indices and streams their rows
-//     through a ring of kStages x kStageRows rows in shared memory, filled by
-//     16-byte cp.async copies (one commit group a stage, the card's counterpart
-//     of make_async_copy and its DMA semaphores), and writes each stage out
-//     coalesced.
+//     pallas_gather): rows pass through a ring in shared memory filled by
+//     async copies, the card's counterpart of make_async_copy and its DMA
+//     semaphores.  A stage is kRingRows consecutive indices; each row is one
+//     1-D bulk async copy (cp.async.bulk, the TMA unit: a 16-byte multiple
+//     from a 16-byte aligned address), issued by the lane of warp 0 that
+//     reads its index, and completing on the stage's mbarrier, armed with the
+//     stage's bytes.  TMA's tensor-map row gather exists only on sm_100, so
+//     on this card each row is its own copy.  The ring holds kRingStages
+//     stages (8 x 16 rows: 64 KB at 512-byte rows, in dynamic shared memory),
+//     so a block keeps up to 7 stages in flight; the grid is persistent,
+//     blocks as many as fit the SMs, each striding over the stages.  The
+//     earlier form (a 4 x 8-row ring of 16-byte cp.async, N/512 blocks of 128
+//     threads) held at most 12 KB an SM in flight and took 0.059 ms for
+//     65,536 rows of 512 B where index_select took 0.043 (NVIDIA H100 80GB
+//     HBM3, 700 W): starved of bytes in flight, not of shared memory.
+//     One warp a block: lane 0 waits on a stage's barrier and writes the
+//     stage out with one bulk copy from shared memory (a bulk group, waited
+//     on for its reads before the slot is refilled).  Every thread of a
+//     128-thread block storing 16-byte pieces, coalesced, took 0.0260 and
+//     0.0262 ms of device time against the bulk copy's 0.0256 and 0.0257
+//     (chip_smoke.py, two runs, NVIDIA H100 80GB HBM3, 700 W).
 //   Bound: bytes.  It reads the rows it names (each distinct row once) and the
 //   indices, and writes N x R floats.
 //
@@ -52,25 +68,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStagedThreads = 128;
-constexpr int kStages = 4;     // the ring's depth, in stages
-constexpr int kStageRows = 8;  // rows a stage
+constexpr int kRingStages = 8;       // the staged ring's depth, in stages
+constexpr int kRingRows = 16;        // rows a stage
 // |x| below which a chain's step trunc(x) counts (ops/gather.py next_index)
 constexpr float kStepLimit = 536870912.0f;  // 2^29
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // The next row of a chain: (j + trunc(x) + i) mod t, the modulus taking the
 // divisor's sign; a step |x| >= 2^29, NaN or infinity counts as 0.
@@ -80,46 +81,117 @@ __device__ __forceinline__ int next_index(int j, float x, int i, int t) {
   return r < 0 ? r + t : r;
 }
 
-template <bool kStaged>
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// The barrier expects `bytes` more of this phase's copies, and one arrival.
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One row, global -> shared, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One stage, shared -> global, in its own bulk group.
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               "cp.async.bulk.commit_group;\n" ::"l"(gmem),
+               "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+}
+
+// Until at most kPending of this thread's bulk stores still read shared memory.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 __global__ void row_gather_kernel(const float4* __restrict__ table, int r4,
-                                  const int* __restrict__ idx, int n, int rows_per_block,
-                                  float4* __restrict__ out) {
-  if constexpr (!kStaged) {
-    long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (e >= (long long)n * r4) return;
-    int row = (int)(e / r4), q = (int)(e - (long long)row * r4);
-    out[e] = __ldg(table + (size_t)idx[row] * r4 + q);
-  } else {
-    extern __shared__ float4 ring[];  // kStages x kStageRows x r4
-    const int first = blockIdx.x * rows_per_block;
-    const int rows = min(rows_per_block, n - first);
-    const int stages = (rows + kStageRows - 1) / kStageRows;
-    const int stage_pieces = kStageRows * r4;
-    auto pieces = [&](int c) { return min(kStageRows, rows - c * kStageRows) * r4; };
-    // every thread commits one group a stage, empty past the end, so that
-    // wait_group<kStages - 1> always means "stage c has landed"
-    auto issue = [&](int c) {
-      if (c < stages) {
-        float4* slot = ring + (c % kStages) * stage_pieces;
-        const int* rid = idx + first + c * kStageRows;
-        for (int e = threadIdx.x; e < pieces(c); e += kStagedThreads) {
-          int r = e / r4;
-          cp_async16(slot + e, table + (size_t)rid[r] * r4 + (e - r * r4));
-        }
-      }
-      cp_async_commit();
-    };
-    for (int c = 0; c < kStages - 1; ++c) issue(c);
-    for (int c = 0; c < stages; ++c) {
-      issue(c + kStages - 1);  // into the slot read in iteration c - 1
-      cp_async_wait<kStages - 1>();
-      __syncthreads();  // every thread's pieces of stage c have landed
-      const float4* slot = ring + (c % kStages) * stage_pieces;
-      float4* dst = out + (size_t)(first + c * kStageRows) * r4;
-      for (int e = threadIdx.x; e < pieces(c); e += kStagedThreads) dst[e] = slot[e];
-      __syncthreads();  // the slot is read before iteration c + 1 refills it
+                                     const int* __restrict__ idx, int n,
+                                     float4* __restrict__ out) {
+  long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (long long)n * r4) return;
+  int row = (int)(e / r4), q = (int)(e - (long long)row * r4);
+  out[e] = __ldg(table + (size_t)idx[row] * r4 + q);
+}
+
+__global__ void __launch_bounds__(32)
+staged_gather_kernel(const float4* __restrict__ table, int r4, const int* __restrict__ idx,
+                     int n, float4* __restrict__ out) {
+  extern __shared__ __align__(128) float4 ring[];  // kRingStages x kRingRows x r4
+  __shared__ __align__(8) unsigned long long full[kRingStages];
+  const unsigned row_bytes = 16u * (unsigned)r4;
+  const int stage_pieces = kRingRows * r4;
+  const int stages = (n + kRingRows - 1) / kRingRows;
+  // this block's stages: blockIdx.x + k gridDim.x, k = 0 .. mine - 1
+  const int mine = (int)blockIdx.x < stages ? (stages - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                                            : 0;
+  const int lane = threadIdx.x;  // one warp a block
+  if (lane == 0) {
+    for (int k = 0; k < kRingStages; ++k) mbar_init(&full[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto first_row = [&](int k) { return ((int)blockIdx.x + k * (int)gridDim.x) * kRingRows; };
+  // local stage k into slot k % kRingStages: lane r copies the stage's row r
+  auto issue = [&](int k) {
+    const int first = first_row(k);
+    const int rows = min(kRingRows, n - first);
+    unsigned long long* bar = &full[k % kRingStages];
+    float4* slot = ring + (k % kRingStages) * stage_pieces;
+    if (lane == 0) mbar_arrive_expect_tx(bar, (unsigned)rows * row_bytes);
+    if (lane < rows)
+      bulk_load(slot + lane * r4, table + (size_t)idx[first + lane] * r4, row_bytes, bar);
+  };
+  for (int k = 0; k < min(mine, kRingStages); ++k) issue(k);
+  for (int k = 0; k < mine; ++k) {
+    const int first = first_row(k);
+    const int rows = min(kRingRows, n - first);
+    // lane 0 waits for stage k and writes it out with one bulk copy
+    if (lane == 0) {
+      mbar_wait(&full[k % kRingStages], (unsigned)(k / kRingStages) & 1u);
+      bulk_store(out + (size_t)first * r4, ring + (k % kRingStages) * stage_pieces,
+                 (unsigned)rows * row_bytes);
+    }
+    // refill the slot of stage k - 1 once its store has read it
+    if (k >= 1 && k - 1 + kRingStages < mine) {
+      if (lane == 0) bulk_wait_read<1>();
+      __syncwarp();
+      issue(k - 1 + kRingStages);
     }
   }
+  if (lane == 0) bulk_wait_all();
 }
 
 // One row's float32 sum, c = 0 first; *first receives row[0].  kR4 > 0: the
@@ -224,23 +296,47 @@ void launch_chain(bool indep, const float4* table, int t, int r4, const int* idx
 
 }  // namespace
 
-// table: [T, 4 * r4] f32, 16-byte aligned; idx: [n] int32 in [0, T); out: [n, 4 * r4].
-// staged: each block takes rows_per_block consecutive indices.
+namespace {
+
+int launch_staged(const float4* tab, int r4, const int* idx, int n, float4* out,
+                  cudaStream_t s) {
+  // the ring's size and the blocks that fit the card, kept for the last r4
+  static int last_r4 = -1, last_device = -1, grid_cap = 0;
+  const size_t smem = (size_t)kRingStages * kRingRows * r4 * sizeof(float4);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (r4 != last_r4 || device != last_device) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(staged_gather_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, staged_gather_kernel, 32,
+                                                          smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    last_r4 = r4, last_device = device, grid_cap = sms * per_sm;
+  }
+  const int stages = (n + kRingRows - 1) / kRingRows;
+  staged_gather_kernel<<<(unsigned)min(stages, grid_cap), 32, smem, s>>>(tab, r4, idx, n, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// table: [T, 4 * r4] f32, 16-byte aligned; idx: [n] int32 in [0, T); out: [n, 4 * r4],
+// 16-byte aligned; staged: rows of at most the ring's share of the block's
+// shared memory.
 extern "C" int rt_row_gather(int staged, const void* table, int r4, const void* idx, int n,
-                             int rows_per_block, void* out, void* stream) {
+                             void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float4* tab = (const float4*)table;
-  if (staged) {
-    unsigned grid = rt::grid_for(n, rows_per_block);
-    size_t smem = (size_t)kStages * kStageRows * r4 * sizeof(float4);
-    row_gather_kernel<true><<<grid, kStagedThreads, smem, s>>>(
-        tab, r4, (const int*)idx, n, rows_per_block, (float4*)out);
-  } else {
-    long long pieces = (long long)n * r4;
-    unsigned grid = (unsigned)((pieces + kThreads - 1) / kThreads);
-    row_gather_kernel<false><<<grid, kThreads, 0, s>>>(tab, r4, (const int*)idx, n,
-                                                       rows_per_block, (float4*)out);
-  }
+  if (staged) return launch_staged(tab, r4, (const int*)idx, n, (float4*)out, s);
+  long long pieces = (long long)n * r4;
+  unsigned grid = (unsigned)((pieces + kThreads - 1) / kThreads);
+  row_gather_kernel<<<grid, kThreads, 0, s>>>(tab, r4, (const int*)idx, n, (float4*)out);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,7 @@
 //    rarely give.  A row's atomics come one a run from each warp that names
 //    it, and fp32 atomics still change the order of those sums from run to
 //    run.
+// The warp's part is warp_scatter3, which K4 calls for its texel rows too.
 #pragma once
 
 #include "common.cuh"
@@ -40,15 +41,63 @@ namespace rt {
 namespace {
 
 constexpr int kScatterBlock = 256;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// A warp's list of runs for warp_scatter3: one key and three sums a run.
+struct Scatter3List {
+  int key[32];
+  float sum[3 * 32];
+};
+
+// The scatter of one warp: out[3 key + c] += v_c for c = 0..2, summed over the
+// runs of neighbouring lanes that carry one key (key -1: the lane adds
+// nothing).  Called by all 32 lanes of a warp, converged; `list` is the warp's
+// own.  K5 bwd and the framebuffer scatter (scatter3_kernel) and K4's texel
+// rows (texture_bwd.cu) call it.
+__device__ __forceinline__ void warp_scatter3(float* __restrict__ out, int key, float g0,
+                                              float g1, float g2, Scatter3List& list) {
+  const int lane = threadIdx.x & 31;
+  if (__ballot_sync(kFullWarp, key >= 0) == 0) return;  // warp-uniform
+  // the run of `lane`: the nearest lane at or below it where the key changes
+  const int prev = __shfl_up_sync(kFullWarp, key, 1);
+  const unsigned heads = __ballot_sync(kFullWarp, lane == 0 || prev != key);
+  const int start = 31 - __clz(heads & (kFullWarp >> (31 - lane)));
+  // segmented inclusive scan: after offset d a lane holds the sum of its run's
+  // lanes in (lane - 2d, lane]; the warp's longest run bounds the steps
+  const int longest = __reduce_max_sync(kFullWarp, key >= 0 ? lane - start + 1 : 0);
+  for (int d = 1; d < longest; d <<= 1) {
+    const float y0 = __shfl_up_sync(kFullWarp, g0, d);
+    const float y1 = __shfl_up_sync(kFullWarp, g1, d);
+    const float y2 = __shfl_up_sync(kFullWarp, g2, d);
+    if (lane - d >= start) {
+      g0 = y0 + g0;
+      g1 = y1 + g1;
+      g2 = y2 + g2;
+    }
+  }
+  // a run's last lane holds its sum: the k-th such run of the warp takes the
+  // slots 3k .. 3k+2 of the warp's list, one a float
+  const int next = __shfl_down_sync(kFullWarp, key, 1);
+  const bool tail = key >= 0 && (lane == 31 || next != key);
+  const unsigned tails = __ballot_sync(kFullWarp, tail);
+  if (tail) {
+    const int k = __popc(tails & ((1u << lane) - 1u));
+    list.key[k] = key;
+    list.sum[3 * k + 0] = g0;
+    list.sum[3 * k + 1] = g1;
+    list.sum[3 * k + 2] = g2;
+  }
+  __syncwarp();
+  for (int slot = lane; slot < 3 * __popc(tails); slot += 32)
+    atomicAdd(out + 3ll * list.key[slot / 3] + slot % 3, list.sum[slot]);
+  __syncwarp();  // the list is read before the warp's next call refills it
+}
 
 __global__ void __launch_bounds__(kScatterBlock)
 scatter3_kernel(const int* __restrict__ index, const float* __restrict__ values, int n,
                 float scale, float* __restrict__ out) {
-  constexpr unsigned kFull = 0xffffffffu;
-  __shared__ int s_key[kScatterBlock / 32][32];
-  __shared__ float s_sum[kScatterBlock / 32][3 * 32];
+  __shared__ Scatter3List lists[kScatterBlock / 32];
   const int i = blockIdx.x * kScatterBlock + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
   if (i < n) {
     c0 = values[3 * i + 0];
@@ -58,38 +107,7 @@ scatter3_kernel(const int* __restrict__ index, const float* __restrict__ values,
   // key -1: a lane past the end or whose values are all zero; it adds nothing
   const bool live = c0 != 0.0f || c1 != 0.0f || c2 != 0.0f;  // NaN != 0
   const int key = live ? index[i] : -1;
-  float g0 = c0 * scale, g1 = c1 * scale, g2 = c2 * scale;
-  // the run of `lane`: the nearest lane at or below it where the key changes
-  const int prev = __shfl_up_sync(kFull, key, 1);
-  const unsigned heads = __ballot_sync(kFull, lane == 0 || prev != key);
-  const int start = 31 - __clz(heads & (kFull >> (31 - lane)));
-  // segmented inclusive scan: after offset d a lane holds the sum of its run's
-  // lanes in (lane - 2d, lane]
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y0 = __shfl_up_sync(kFull, g0, d);
-    const float y1 = __shfl_up_sync(kFull, g1, d);
-    const float y2 = __shfl_up_sync(kFull, g2, d);
-    if (lane - d >= start) {
-      g0 = y0 + g0;
-      g1 = y1 + g1;
-      g2 = y2 + g2;
-    }
-  }
-  // a run's last lane holds its sum: the k-th such run of the warp takes the
-  // slots 3k .. 3k+2 of the warp's list, one a float
-  const int next = __shfl_down_sync(kFull, key, 1);
-  const bool tail = key >= 0 && (lane == 31 || next != key);
-  const unsigned tails = __ballot_sync(kFull, tail);
-  if (tail) {
-    const int k = __popc(tails & ((1u << lane) - 1u));
-    s_key[warp][k] = key;
-    s_sum[warp][3 * k + 0] = g0;
-    s_sum[warp][3 * k + 1] = g1;
-    s_sum[warp][3 * k + 2] = g2;
-  }
-  __syncwarp();
-  for (int slot = lane; slot < 3 * __popc(tails); slot += 32)
-    atomicAdd(out + 3ll * s_key[warp][slot / 3] + slot % 3, s_sum[warp][slot]);
+  warp_scatter3(out, key, c0 * scale, c1 * scale, c2 * scale, lists[threadIdx.x >> 5]);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
 """K5 bwd (the sky-gradient scatter) and K6 (stable compaction) on made-up
 inputs at the main path's sizes, each beside the one PyTorch call that
-computes the same function.
+computes the same function; K4's scatter patterns and run statistics
+(``k4_patterns``, ``k4_runs``, ``k4_measure``, which ``chip_smoke.py`` runs
+on the training step's texture lanes).
 
 K5 bwd scatters ``cot / pi`` of 2,073,600 lanes (one 1080p generation) onto a
 256² probe's ``[65536, 3]`` gradient, under five texel patterns:
@@ -102,6 +104,132 @@ def sky_bwd_measure(index, cot, rows: int, device, reps: int) -> dict:
         "run_to_run_l2_rel": float((again - got).norm()) / scale,
         "run_to_run_max_abs": float((again - got).abs().max()),
     }
+
+
+K4_PATTERNS = ("one_row", "permutation", "zero90")
+
+
+def warp_runs(rows) -> dict:
+    """Runs of equal rows within the warps of one slot's keys (``rows`` [N],
+    -1 where a lane adds nothing; lane i in warp i // 32): the lanes and runs
+    that add, lanes a run (mean, p50, p90) and the distinct rows a warp names
+    (mean over the warps that name any)."""
+    import torch
+
+    pad = (-rows.shape[0]) % 32
+    r = torch.cat([rows, rows.new_full((pad,), -1)]).view(-1, 32)
+    change = torch.ones_like(r, dtype=torch.bool)
+    change[:, 1:] = r[:, 1:] != r[:, :-1]
+    lengths = torch.bincount(change.flatten().cumsum(0) - 1)
+    live = r.flatten()[change.flatten()] >= 0
+    runs = lengths[live].float()
+    srt = r.sort(dim=1).values
+    distinct = (srt[:, 0] >= 0).int() + ((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum(1)
+    named = distinct > 0
+    out = {"lanes": int(runs.sum()), "runs": int(runs.numel())}
+    if runs.numel():
+        out.update(lanes_a_run_mean=float(runs.mean()),
+                   lanes_a_run_p50=float(runs.quantile(0.5)),
+                   lanes_a_run_p90=float(runs.quantile(0.9)),
+                   distinct_rows_a_warp=float(distinct[named].float().mean()))
+    return out
+
+
+def k4_runs(tex, lanes, cfg, cot) -> dict:
+    """K4's run structure on one generation's lanes and cotangent
+    (``texture_sample.tap_slots_plain``): the share of lanes whose cotangent is
+    all zero, ``warp_runs`` of each quad slot and of the top-texel slot (EWA's
+    window slots merged into one entry), and the atomics each form issues:
+    the per-lane form's (12 one-float atomics a tap of every lane, zero lanes too, 3 a
+    texel) and the warp form's (3 a run: 16-byte vectors for a quad row, one
+    float each for a texel row)."""
+    import torch
+
+    from ..ops import texture_sample
+
+    slots = [(x.kind, x.rows) for x in texture_sample.tap_slots_plain(tex, lanes, cfg, cot)]
+    lane_atomics = sum((12 if x.kind == "quad" else 3) * int((x.rows >= 0).sum())
+                       for x in texture_sample.tap_slots_plain(tex, lanes, cfg,
+                                                               torch.ones_like(cot)))
+    out = {"lanes": int(cot.shape[0]),
+           "zero_cotangent_share": float((~(cot != 0).any(dim=1)).float().mean()),
+           "slots": [], "atomics_lane_form": lane_atomics}
+    quads = [rows for kind, rows in slots if kind == "quad"]
+    texels = [rows for kind, rows in slots if kind == "texel"]
+    entries = [(f"quad {k}", [rows]) for k, rows in enumerate(quads)]
+    if texels:
+        mode = texture_sample.filter_of(cfg).mode
+        entries.append(("texel" if mode == "nearest" else "top texel", texels[:1]))
+    if len(texels) > 1:
+        entries.append(("window (merged)", texels[1:]))
+    requests = 0
+    for name, group in entries:
+        stats = _merge_runs(group)
+        out["slots"].append({"slot": name, **stats})
+        requests += 3 * stats["runs"]
+    out["atomics_warp_form"] = requests
+    return out
+
+
+def _merge_runs(group) -> dict:
+    """``warp_runs`` over several slots taken as one list of warps."""
+    import torch
+
+    return warp_runs(torch.cat([torch.cat([r, r.new_full(((-r.shape[0]) % 32,), -1)])
+                                for r in group]))
+
+
+def k4_patterns(lanes, cot, tex, cfg, seed: int = 0) -> dict:
+    """K4's made-up patterns from one generation's lanes and cotangent:
+    ``one_row`` (every lane a copy of the first lane with one tap, so every
+    lane adds into one quad row), ``permutation`` (the lanes in a random
+    order: neighbouring lanes of a warp seldom share a row) and ``zero90``
+    (90% of the cotangents all zero)."""
+    import torch
+
+    from ..ops import texture_sample
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    n = cot.shape[0]
+    quad, _ = texture_sample.tap_rows_plain(tex, lanes, cfg, torch.ones_like(cot))
+    single = ((quad >= 0).sum(dim=0) == 1).nonzero()
+    one = int(single[0]) if single.numel() else 0
+    perm = torch.randperm(n, generator=gen).to(cot.device)
+    keep = (torch.rand(n, generator=gen) >= 0.9).to(cot.device)
+    return {
+        "one_row": (tuple(x[one].expand(n).contiguous() for x in lanes), cot),
+        "permutation": (tuple(x[perm].contiguous() for x in lanes), cot[perm].contiguous()),
+        "zero90": (lanes, cot * keep[:, None]),
+    }
+
+
+def k4_measure(tex, lanes, cfg, data4, cot, device, reps: int) -> dict:
+    """K4 on (lanes, cot) in each scatter form (the per-lane "lane" and the warp
+    form "scan"): ms, device ms, the atlas gradients against the plain
+    version's per-lane values summed in float64 (l2-relative, data and data4),
+    and the spread between two runs."""
+    from ..ops import texture_sample
+
+    filt = texture_sample.filter_of(cfg)
+    want = texture_sample.scatter_sums_plain(
+        texture_sample.tap_slots_plain(tex, lanes, cfg, cot), tex[0].shape[0])
+    out = {"lanes": int(cot.shape[0]),
+           "zero_cotangent_share": float((~(cot != 0).any(dim=1)).float().mean())}
+    for form in texture_sample.BWD_FORMS:
+        def kernel(form=form):
+            return texture_sample.sample_backward(tex, lanes, filt, data4, cot, True,
+                                                  data4 is not None, False, form)
+
+        got, again = kernel()[:2], kernel()[:2]
+        row = {"ms": ms(kernel, reps, device), "device_ms": device_ms(kernel, device, reps)}
+        for name, g, a, w in zip(("data", "data4"), got, again, want):
+            if g is None or w is None or not bool(w.any()):
+                continue
+            scale = float(w.norm())
+            row[f"l2_rel_{name}"] = float((g.double() - w).norm()) / scale
+            row[f"run_to_run_l2_rel_{name}"] = float((a - g).double().norm()) / scale
+        out[form] = row
+    return out
 
 
 def compact_measure(flags, device, reps: int) -> dict:

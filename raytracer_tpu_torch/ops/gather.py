@@ -7,10 +7,10 @@ the wide walk's row (72 float32, 288 B, one K1 node visit): independent, and
 chained so that the next index depends on the row just read.
 
 - K11 ``row_gather``: ``out[n] = table[idx[n]]``, a copy of bits.  Two
-  schedules of one kernel: ``"direct"`` (each thread one 16-byte piece of a
-  row) and ``"staged"`` (a block takes ``ROWS_PER_BLOCK`` consecutive indices
-  and streams their rows through a ring in shared memory filled by
-  ``cp.async``).
+  schedules: ``"direct"`` (each thread one 16-byte piece of a row) and
+  ``"staged"`` (stages of 16 consecutive indices stream their rows through a
+  ring of 8 stages in shared memory, one bulk async copy a row, each stage
+  completing on its own mbarrier; persistent blocks, as many as fit the card).
 - K12 ``chained_gather``: per lane, ``iters`` dependent row reads, each row
   summed left to right into ``acc`` and its first column choosing the next row;
   ``indep_gather`` is the same loop over precomputed indices.
@@ -34,10 +34,12 @@ from .. import kernels
 launches = dict.fromkeys(("direct", "staged", "chained", "indep", "rowsum", "rowsum_chain"), 0)
 
 SCHEDULES = ("direct", "staged")
-ROWS_PER_BLOCK = 512  # K11 staged: the harness's G (bench_pallas_gather.py:90)
 K13_SCALE = 7.0  # K13's next index: trunc(s * 7) (bench_vmem_invreg.py:54)
-_RING_BYTES = 4 * 8 * 16  # K11 staged's ring per 16-byte piece of a row (kStages x kStageRows)
-_SMEM_LIMIT = 48 * 1024  # static shared memory a block may use without opting in
+_RING_ROWS = 8 * 16  # K11 staged's ring: kRingStages x kRingRows rows (csrc/gather.cu)
+# shared memory a block may opt in to on the H100 (232,448 B), less 1 KB for the
+# ring's barriers: rows of at most 1,808 B (452 floats) fit the ring
+_RING_SMEM_LIMIT = 232_448 - 1024
+_SMEM_LIMIT = 48 * 1024  # K13: shared memory a block may use without opting in
 _STEP_LIMIT = 1 << 29  # a chain's step trunc(x) counts only for |x| below it (next_index)
 _ROWS_LIMIT = 1 << 30  # rows of a chained table, so that j + step + i fits int32
 
@@ -139,8 +141,8 @@ def _iters(what: str, iters: int, rows: int) -> int:
 def row_gather(table: torch.Tensor, idx: torch.Tensor, schedule: str = "direct") -> torch.Tensor:
     """K11: ``table[idx]``, [T, R] f32 and [N] int32 -> [N, R].  CPU tensors take
     ``row_gather_plain``; CUDA tensors launch ``rt_row_gather`` under
-    ``schedule`` (``"direct"`` or ``"staged"``, counted in ``launches``), the
-    staged one taking ``ROWS_PER_BLOCK`` indices a block."""
+    ``schedule`` (``"direct"`` or ``"staged"``, counted in ``launches``); the
+    staged ring holds rows of at most 452 floats."""
     _check("row_gather", table, idx, 1)
     if schedule not in SCHEDULES:
         raise ValueError(f"row_gather: schedule must be one of {SCHEDULES}")
@@ -150,16 +152,16 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, schedule: str = "direct")
     n = idx.shape[0]
     if n * r4 >= 2**31:
         raise ValueError("row_gather: N * R / 4 < 2^31 expected")
-    if schedule == "staged" and r4 * _RING_BYTES > _SMEM_LIMIT:
-        raise ValueError("row_gather: the staged ring holds rows of at most 384 floats")
+    if schedule == "staged" and 16 * r4 * _RING_ROWS > _RING_SMEM_LIMIT:
+        raise ValueError("row_gather: the staged ring holds rows of at most 452 floats")
     out = torch.empty((n, table.shape[1]), dtype=torch.float32, device=table.device)
     if n == 0:
         return out
     fn = kernels.entry("gather", "rt_row_gather",
-                       [kernels.I, kernels.P, kernels.I, kernels.P, kernels.I, kernels.I,
-                        kernels.P, kernels.P])
+                       [kernels.I, kernels.P, kernels.I, kernels.P, kernels.I, kernels.P,
+                        kernels.P])
     err = fn(int(schedule == "staged"), table.data_ptr(), r4, idx.data_ptr(), n,
-             ROWS_PER_BLOCK, out.data_ptr(), kernels.stream_ptr(table.device))
+             out.data_ptr(), kernels.stream_ptr(table.device))
     launches[schedule] += 1
     kernels.check(err, f"rt_row_gather ({schedule})")
     return out

@@ -37,6 +37,11 @@ MODES = ("nearest", "bilinear", "trilinear", "aniso", "ewa")
 # chip_smoke.py)
 launches = dict.fromkeys(MODES, 0)
 bwd_launches = dict.fromkeys(MODES, 0)
+# K4's ways of adding into the atlas gradients, in the order of texture_bwd.cu's
+# ``enum Form``: "lane" is the earlier design (one-float atomics from every lane, zero
+# cotangents too; kept as the yardstick of chip_smoke.py's K4 rows), "scan"
+# the warp form (zero lanes skip, a warp's runs of one row summed first)
+BWD_FORMS = ("lane", "scan")
 
 _FILTERS = {MipmapFilter.TRILINEAR: "trilinear", MipmapFilter.ANISOTROPIC: "aniso",
             MipmapFilter.EWA: "ewa"}
@@ -77,26 +82,37 @@ def _max(x, c: float):
     return torch.maximum(x, x.new_full((), c))
 
 
-def _fetch_texel(tex, tex_id, x, y, level):
-    """Wrap-around texel fetch (Texture.cpp:131-147). x, y, level: [N] int32."""
-    data, width, height, _, offsets, _ = tex
+def _texel_row(tex, tex_id, x, y, level):
+    """The row of ``data`` holding texel (x, y) of ``level``, wrapped
+    (Texture.cpp:131-147). x, y, level: [N] int32."""
+    _, width, height, _, offsets, _ = tex
     w = torch.clamp_min(width[tex_id] >> level, 1)
     h = torch.clamp_min(height[tex_id] >> level, 1)
     x = torch.remainder(x, w)  # positive mod, as jnp.mod (Math.h:44-52)
     y = torch.remainder(y, h)
-    return data[(offsets[tex_id, level] + x + y * w).long()]
+    return (offsets[tex_id, level] + x + y * w).long()
 
 
-def _sample_nearest(tex, tex_id, s, t):
+def _fetch_texel(tex, tex_id, x, y, level):
+    """Wrap-around texel fetch (Texture.cpp:131-147). x, y, level: [N] int32."""
+    return tex[0][_texel_row(tex, tex_id, x, y, level)]
+
+
+def _nearest_row(tex, tex_id, s, t):
     """Texture.cpp:149-155; torch.round rounds half to even, as jnp.round."""
     _, width, height, _, _, _ = tex
     x = torch.round(s * width[tex_id].to(torch.float32)).to(torch.int32)
     y = torch.round(t * height[tex_id].to(torch.float32)).to(torch.int32)
-    return _fetch_texel(tex, tex_id, x, y, torch.zeros_like(x))
+    return _texel_row(tex, tex_id, x, y, torch.zeros_like(x))
 
 
-def _sample_bilinear(tex, tex_id, s, t, level, data4):
-    """Texture.cpp:157-186 through the quad atlas. level: [N] int32."""
+def _sample_nearest(tex, tex_id, s, t):
+    return tex[0][_nearest_row(tex, tex_id, s, t)]
+
+
+def _bilinear_tap(tex, tex_id, s, t, level):
+    """One bilinear tap (Texture.cpp:157-186): the quad-atlas row it reads and
+    its four weights. level: [N] int32."""
     _, width, height, _, offsets, _ = tex
     lwi = torch.clamp_min(width[tex_id] >> level, 1)
     lhi = torch.clamp_min(height[tex_id] >> level, 1)
@@ -114,7 +130,13 @@ def _sample_bilinear(tex, tex_id, s, t, level, data4):
     y0 = torch.floor(tt).to(torch.int32)
     x = torch.remainder(x0, lwi)
     y = torch.remainder(y0, lhi)
-    q = data4[(offsets[tex_id, level] + x + y * lwi).long()]
+    return (offsets[tex_id, level] + x + y * lwi).long(), (w0, w1, w2, w3)
+
+
+def _sample_bilinear(tex, tex_id, s, t, level, data4):
+    """Texture.cpp:157-186 through the quad atlas. level: [N] int32."""
+    row, (w0, w1, w2, w3) = _bilinear_tap(tex, tex_id, s, t, level)
+    q = data4[row]
     return (
         w0[:, None] * q[:, 0:3]
         + w1[:, None] * q[:, 3:6]
@@ -123,10 +145,14 @@ def _sample_bilinear(tex, tex_id, s, t, level, data4):
     )
 
 
+def _top_row(tex, tex_id):
+    """The row of ``data`` of fetch_texel(0, 0, last_mip): the 1x1 coarsest level."""
+    _, _, _, levels, offsets, _ = tex
+    return offsets[tex_id, levels[tex_id] - 1].long()
+
+
 def _top_texel(tex, tex_id):
-    """fetch_texel(0, 0, last_mip): the 1x1 coarsest level."""
-    data, _, _, levels, offsets, _ = tex
-    return data[offsets[tex_id, levels[tex_id] - 1].long()]
+    return tex[0][_top_row(tex, tex_id)]
 
 
 def _clip_level(level, lv):
@@ -399,6 +425,133 @@ def lane_work(tex, lanes, cfg: RenderConfig) -> dict:
             "weighted": float(weighted[filtered].sum())}
 
 
+class TapSlot(NamedTuple):
+    """One slot of K4's scatter: ``rows`` [N] int64 (rows of ``data4`` where
+    ``kind`` is "quad", of ``data`` where "texel"; -1 where the lane adds
+    nothing in this slot) and ``values`` (what each lane adds there: [N,12]
+    w_k h for a quad row, [N,3] for a texel)."""
+
+    kind: str
+    rows: torch.Tensor
+    values: torch.Tensor
+
+
+@torch.no_grad()
+def tap_slots_plain(tex, lanes, cfg: RenderConfig, cot: torch.Tensor):
+    """K4's scatter slot by slot, as the warp form of ``csrc/texture_bwd.cu``
+    take it: yields a ``TapSlot`` for each tap slot of the mode (NEAREST's
+    texel; BILINEAR's tap; TRILINEAR's lo and hi taps; ANISOTROPIC's
+    ``max_anisotropy`` taps; a bilinear-branch lane's level-0 tap in the first
+    quad slot), then the top texel, then each texel of EWA's window.  A lane
+    whose cotangent is all +-0 names no row.  The values are the plain
+    version's per-lane terms in its own float32 arithmetic, so their sums
+    (``scatter_sums_plain``) are autograd's atlas gradients up to the order of
+    the sums.  lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy); cot [N,3]."""
+    filt = filter_of(cfg)
+    tex_id, s, t, *derivs = lanes
+    tex_id = tex_id.long()
+    live = (cot != 0).any(dim=1)  # NaN != 0: a NaN lane reaches its rows
+    none = torch.full_like(tex_id, -1)
+    zero = torch.zeros_like(tex_id, dtype=torch.int32)
+
+    def quad(use, row, w, h):
+        vals = torch.cat([wk[:, None] * h for wk in w], dim=1)
+        return TapSlot("quad", torch.where(use & live, row, none), vals)
+
+    def texel(use, row, h):
+        return TapSlot("texel", torch.where(use & live, row, none), h)
+
+    if filt.mode == "nearest":
+        yield texel(torch.ones_like(live), _nearest_row(tex, tex_id, s, t), cot)
+        return
+    base_row, base_w = _bilinear_tap(tex, tex_id, s, t, zero)
+    if filt.mode == "bilinear":
+        yield quad(torch.ones_like(live), base_row, base_w, cot)
+        return
+    lv = tex[3][tex_id]
+    mip = lv > 1
+    if filt.mode == "trilinear":
+        lam, level = _trilinear_level(lv, *derivs)
+        top, bil = level >= lv - 1, level < 0
+    elif filt.mode == "aniso":
+        f = _aniso_setup(lv, *derivs, filt.max_anisotropy)
+        top, bil = f.level >= lv - 1, f.level < 0
+    else:
+        e = _ewa_setup(tex, tex_id, s, t, *derivs, filt.max_anisotropy)
+        top, bil = e.use_top, e.degenerate
+    top = mip & top
+    filtered = mip & ~top & ~bil
+    bil = ~top & ~filtered
+    if filt.mode == "trilinear":
+        lo = _clip_level(level, lv)
+        hi = _clip_level(level + 1, lv)
+        frac = (lam - torch.floor(lam))[:, None]
+        lo_row, lo_w = _bilinear_tap(tex, tex_id, s, t, lo)
+        hi_row, hi_w = _bilinear_tap(tex, tex_id, s, t, hi)
+        first = quad(filtered, lo_row, lo_w, cot * (1.0 - frac))
+        from_base = quad(bil, base_row, base_w, cot)
+        yield TapSlot("quad", torch.where(bil, from_base.rows, first.rows),
+                      torch.where(bil[:, None], from_base.values, first.values))
+        yield quad(filtered, hi_row, hi_w, cot * frac)
+    elif filt.mode == "aniso":
+        level_c = _clip_level(f.level, lv)
+        inv_np1 = 1.0 / (f.n + 1.0)
+        h = cot / f.n[:, None]
+        for i in range(1, int(filt.max_anisotropy) + 1):
+            fi = float(i)
+            use = filtered & (fi <= f.n + 0.001)
+            x = s + f.step_s * (fi * inv_np1 - 0.5)
+            y = t + f.step_t * (fi * inv_np1 - 0.5)
+            row, w = _bilinear_tap(tex, tex_id, x, y, level_c)
+            slot = quad(use, row, w, h)
+            if i == 1:
+                from_base = quad(bil, base_row, base_w, cot)
+                slot = TapSlot("quad", torch.where(bil, from_base.rows, slot.rows),
+                               torch.where(bil[:, None], from_base.values, slot.values))
+            yield slot
+    else:
+        yield quad(bil, base_row, base_w, cot)
+    yield texel(top, _top_row(tex, tex_id), cot)
+    if filt.mode == "ewa":
+        window = list(_ewa_window(e, filt.ewa_span))
+        wsum = torch.zeros_like(s)
+        for _si, _tj, in_box, r2 in window:
+            wsum = wsum + torch.where(in_box & (r2 < 1.0), _ewa_weight(r2), 0.0)
+        h = cot / _max(wsum, 1e-20)[:, None]
+        for si, tj, in_box, r2 in window:
+            inside = filtered & in_box & (r2 < 1.0)
+            wgt = torch.where(inside, _ewa_weight(r2), 0.0)
+            yield texel(inside, _texel_row(tex, tex_id, si, tj, e.level_c), h * wgt[:, None])
+
+
+def tap_rows_plain(tex, lanes, cfg: RenderConfig, cot: torch.Tensor) -> tuple:
+    """The rows K4 adds into, for each lane and slot of ``tap_slots_plain``:
+    (quad rows [Sq, N] of ``data4``, texel rows [St, N] of ``data``), int64,
+    -1 where a lane has no tap in the slot or its cotangent is zero."""
+    n = lanes[1].shape[0]
+    slots = list(tap_slots_plain(tex, lanes, cfg, cot))
+    quad = [x.rows for x in slots if x.kind == "quad"]
+    texel = [x.rows for x in slots if x.kind == "texel"]
+    empty = torch.empty((0, n), dtype=torch.int64, device=lanes[1].device)
+    return (torch.stack(quad) if quad else empty, torch.stack(texel) if texel else empty)
+
+
+@torch.no_grad()
+def scatter_sums_plain(slots, x_rows: int, dtype=torch.float64) -> tuple:
+    """The atlas gradients (grad data [X,3], grad data4 [X,12]) as the sums of
+    ``tap_slots_plain``'s per-lane values, taken in ``dtype``."""
+    gd = gd4 = None
+    for slot in slots:
+        if gd is None:
+            dev = slot.values.device
+            gd = torch.zeros((x_rows, 3), dtype=dtype, device=dev)
+            gd4 = torch.zeros((x_rows, 12), dtype=dtype, device=dev)
+        keep = slot.rows >= 0
+        out = gd4 if slot.kind == "quad" else gd
+        out.index_add_(0, slot.rows[keep], slot.values[keep].to(dtype))
+    return gd, gd4
+
+
 def _check_inputs(tex, lanes, data4, filt: Filter) -> None:
     data, width, height, levels, offsets, _quad = tex
     tex_id, s = lanes[0], lanes[1]
@@ -455,9 +608,10 @@ def sample_forward(tex, lanes, filt: Filter, data4) -> torch.Tensor:
 
 
 def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
-                    need_data4: bool, need_lanes: bool):
+                    need_data4: bool, need_lanes: bool, form: str = "scan"):
     """K4, one ``rt_texture_bwd`` launch in ``filt.mode`` (counted in
-    ``bwd_launches``).
+    ``bwd_launches``), adding into the atlas gradients in ``form`` (one of
+    ``BWD_FORMS``).
 
     Returns (grad data [X,3] or None, grad data4 [X,12] or None, lane gradients
     [6,N] (s, t, ds_dx, ds_dy, dt_dx, dt_dy) or None), each computed only when
@@ -471,7 +625,11 @@ def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
         raise ValueError("texture sample backward: cot [N,3] float32 on the lanes' device "
                          "expected")
     kernels.require_contiguous("texture sample backward", cot)
+    if form not in BWD_FORMS:
+        raise ValueError(f"texture sample backward: form must be one of {BWD_FORMS}")
     x = tex[0].shape[0]
+    if x >= 2**31:
+        raise ValueError("texture sample backward: fewer than 2^31 atlas rows expected")
     grad_data = torch.zeros((x, 3), dtype=torch.float32, device=dev) if need_data else None
     grad_data4 = (torch.zeros((x, 12), dtype=torch.float32, device=dev)
                   if need_data4 and data4 is not None else None)
@@ -479,10 +637,14 @@ def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
                   if need_lanes else None)
     if n == 0:
         return grad_data, grad_data4, grad_lanes
+    if grad_data4 is not None and grad_data4.data_ptr() % 16:
+        # its 48-byte rows take 16-byte vector atomics
+        raise ValueError("texture sample backward: grad data4 must be 16-byte aligned")
 
     P, I, F = kernels.P, kernels.I, kernels.F
-    fn = kernels.entry("texture_bwd", "rt_texture_bwd", [I] + [P] * 14 + [I, F, I, P, P, P, P])
-    err = fn(MODES.index(filt.mode), *_atlas_ptrs(tex, data4),
+    fn = kernels.entry("texture_bwd", "rt_texture_bwd",
+                       [I, I] + [P] * 14 + [I, F, I, P, P, P, P])
+    err = fn(MODES.index(filt.mode), BWD_FORMS.index(form), *_atlas_ptrs(tex, data4),
              *(x.data_ptr() for x in lanes), cot.data_ptr(), n, filt.max_anisotropy,
              filt.ewa_span, _ptr(grad_data), _ptr(grad_data4), _ptr(grad_lanes),
              kernels.stream_ptr(dev))

@@ -137,6 +137,63 @@ def test_texture_vjp_mode_matches_jax(atlas, mode):
         assert split.sum() > 100, split.sum()
 
 
+def _scatter_pattern(lanes, cot, pattern):
+    """K4's scatter patterns at test size: every lane a copy of one filtered
+    lane (all on one set of quad rows), 90% of the cotangents all zero (half of
+    them -0), or one NaN cotangent."""
+    n = cot.shape[0]
+    if pattern == "one_row":
+        lanes = tuple(np.full(n, a[7], dtype=a.dtype) for a in lanes)
+    elif pattern == "zero90":
+        rng = np.random.default_rng(17)
+        cot = cot.copy()
+        cot[rng.random(n) < 0.9] = 0.0
+        cot[: n // 2][cot[: n // 2, 0] == 0.0] = -0.0
+    else:
+        cot = cot.copy()
+        cot[n // 3, 2] = np.nan
+    return lanes, cot
+
+
+@pytest.mark.parametrize("mode", ["aniso", "trilinear"])
+@pytest.mark.parametrize("pattern", ["one_row", "zero90", "nan"])
+def test_texture_vjp_scatter_patterns_match_jax(atlas, pattern, mode):
+    """Autograd of sample_plain (what K4 is held to on the card) against jax.vjp
+    of jax_texture.sample where the scatter's aggregation matters: every lane on
+    one quad row a slot, 90% zero cotangents, and a NaN cotangent, which reaches
+    the rows and lane gradients of its own lane in both, and nothing else (at
+    that lane JAX's max also sends 0 x NaN to the smaller operand; the port
+    sends it nothing, as torch.maximum does).
+    tex_data and the six lane gradients within 1e-6 l2-relative, as the other
+    texture VJP checks; zero lanes leave tex_data free of -0."""
+    tex, cfg = atlas
+    if mode == "trilinear":
+        cfg = cfg.replace(mipmap_filter=MipmapFilter.TRILINEAR)
+    n = 2048
+    lanes = texture_lanes(tex, n=n, seed=19)
+    cot = np.random.default_rng(23).normal(size=(n, 3)).astype(np.float32)
+    lanes, cot = _scatter_pattern(lanes, cot, pattern)
+    ref = _jax_texture_grads(tex, lanes, cot, cfg)
+    got = _torch_texture_grads(tex, lanes, cot, cfg)
+    for name, g, r in zip(("tex_data",) + LANE_NAMES, got, ref):
+        assert g.shape == r.shape, name
+        if pattern == "nan" and name != "tex_data":
+            # the NaN lane alone: JAX's max multiplies the cotangent by 0 for the
+            # smaller operand (NaN), torch's and K4's send it nothing
+            assert set(np.flatnonzero(np.isnan(g))) <= set(np.flatnonzero(np.isnan(r))) \
+                <= {n // 3}, name
+            g, r = np.delete(g, n // 3), np.delete(r, n // 3)
+        assert np.array_equal(np.isnan(g), np.isnan(r)), name
+        g, r = np.nan_to_num(g), np.nan_to_num(r)
+        assert l2rel(g, r) <= 1e-6, (name, l2rel(g, r))
+    if pattern == "nan":
+        assert np.isnan(got[0]).any() and np.isnan(got[0]).sum() <= 16 * 3
+    else:
+        assert np.isfinite(got[0]).all()
+        assert not (np.signbit(got[0]) & (got[0] == 0)).any()
+    assert (np.abs(np.nan_to_num(ref[0])).sum(axis=1) > 0).sum() > 0
+
+
 def test_sky_vjp_matches_jax():
     data, size = jax_sky.procedural_probe(256)
     data = data.astype(np.float32)

@@ -199,6 +199,92 @@ def test_texture_mode_backward_kernel_matches_plain(cuda, mode):
     _check_texture_backward(tex, lanes, cot, cfg)
 
 
+ALL_MODES = {"aniso": {}, **NEW_MODES}
+
+
+def _pattern_inputs(cuda, mode, pattern, n):
+    """K4's scatter patterns: every lane a copy of one lane (one row a slot),
+    a permutation of the 64 x 64 texture's texels at level 0 (no two lanes of a
+    warp on one row), 90% of the cotangents all +-0 (half of them -0), and one
+    NaN cotangent."""
+    tex, lanes, cot = _random_texture_inputs(cuda, seed=n + 1, n=n)
+    cfg = RenderConfig(**ALL_MODES[mode])
+    rng = np.random.default_rng(n)
+    if pattern == "one_row":
+        lanes = tuple(x[:1].expand(n).contiguous() for x in lanes)
+    elif pattern == "permutation":
+        texel = np.resize(rng.permutation(64 * 64), n)
+        st = (np.stack([texel % 64, texel // 64]) + 0.75) / 64  # a quarter into the texel
+        tiny = torch.full((n,), 1e-6, device=cuda)  # level < 0: the level-0 tap
+        lanes = (torch.ones(n, dtype=torch.int32, device=cuda),
+                 *(torch.from_numpy(x.astype(np.float32)).to(cuda) for x in st),
+                 tiny, tiny.clone(), tiny.clone(), tiny.clone())
+    elif pattern == "zero90":
+        zero = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+        cot = torch.where(zero[:, None], 0.0, cot)
+        half = torch.arange(n, device=cuda) < n // 2
+        cot = torch.where((zero & half)[:, None], -0.0, cot)
+    else:
+        cot[n // 2, 1] = float("nan")
+    return tex, lanes, cot, cfg
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 20_000])
+@pytest.mark.parametrize("pattern", ["one_row", "permutation", "zero90", "nan"])
+@pytest.mark.parametrize("mode", list(ALL_MODES))
+def test_texture_backward_kernel_patterns(cuda, mode, pattern, n):
+    """K4 in every mode where its warp aggregation matters: the data and data4
+    gradients within 1e-5 l2-relative of the plain version's per-lane values
+    summed in float64 (a float32 sum of 20,000 lanes on one row is itself
+    ~1e-5 off); the lane gradients equal the per-lane form's, and on 20,000
+    independent lanes each is within 1e-5 of its max against autograd of
+    sample_plain on >= 99.9% of lanes (a single lane may be 2e-5 off its own
+    max: the chain rule by hand and autograd round apart); a NaN cotangent
+    reaches its rows (NaN in both); zero lanes leave the gradients free of -0."""
+    tex, lanes, cot, cfg = _pattern_inputs(cuda, mode, pattern, n)
+    filt = texture_sample.filter_of(cfg)
+    data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
+    same = (texture_sample.sample(tex, *lanes, cfg, data4=data4)
+            - texture_sample.sample_plain(tex, *lanes, cfg, data4)).abs().amax(dim=1) <= 1e-5
+    assert float(same.float().mean()) >= 0.999 or n < 1000
+    cot = torch.where(same[:, None] | cot.isnan(), cot, 0.0)
+    before = texture_sample.bwd_launches[mode]
+    kd, kd4, kl = texture_sample.sample_backward(tex, lanes, filt, data4, cot, True,
+                                                 data4 is not None, True)
+    assert texture_sample.bwd_launches[mode] == before + 1
+    wd, wd4 = texture_sample.scatter_sums_plain(
+        texture_sample.tap_slots_plain(tex, lanes, cfg, cot), tex[0].shape[0])
+    for name, k, w in (("data", kd, wd), ("data4", kd4, wd4)):
+        if k is None:
+            continue
+        k = k.double()
+        assert torch.equal(k.isnan(), w.isnan()), name
+        k, w = k.nan_to_num(), w.nan_to_num()
+        nw = float(w.norm())
+        assert float((k - w).norm()) <= 1e-5 * nw if nw else not k.any(), name
+        if pattern == "zero90":
+            assert not bool((torch.signbit(k) & (k == 0)).any()), name
+    if pattern == "nan":  # the NaN lane reached its rows
+        assert bool(kd.isnan().any()) or (kd4 is not None and bool(kd4.isnan().any()))
+    # the lane gradients are the per-lane form's, value for value (only the atlas sums'
+    # order changed), and, on 20,000 independent lanes, within 1e-5 of their
+    # max against autograd of sample_plain on >= 99.9% of lanes, as before
+    _, _, ll = texture_sample.sample_backward(tex, lanes, filt, data4, cot, False, False, True,
+                                              "lane")
+    assert bool(((kl == ll) | (kl.isnan() & ll.isnan())).all())
+    if n < 20_000 or pattern == "one_row":
+        return
+    _, pg = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
+    keep = ~cot.isnan().any(dim=1)
+    for a, b in zip(kl, pg[2:]):
+        a, b = a[keep], b[keep]
+        if not b.any():
+            assert not a.any()
+            continue
+        err = (a - b).abs() / b.abs().max()
+        assert float((err <= 1e-5).float().mean()) >= 0.999
+
+
 def test_sky_backward_kernel_matches_plain(cuda):
     rng = np.random.default_rng(2)
     sky = torch.from_numpy(rng.random((64 * 64, 3), dtype=np.float32)).to(cuda)
@@ -634,6 +720,31 @@ def _gather_table(cuda, rows, width, seed, wild=False):
 def _gather_idx(cuda, rows, shape, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, rows, shape).astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("n", [1, 7, 513, 65541])
+@pytest.mark.parametrize("width", [20, 72, 128, 384, 452])
+def test_row_gather_staged_ring(cuda, width, n):
+    """K11 staged's ring (8 stages of 16 rows, one bulk copy a row, persistent
+    blocks) against ``table[idx]``: the same bits at every width it holds, a
+    ragged last stage and fewer stages than blocks among them."""
+    table = _gather_table(cuda, 70_000, width, 8, wild=True)
+    idx = _gather_idx(cuda, 70_000, n, 9)
+    before = gather.launches["staged"]
+    got = gather.row_gather(table, idx, "staged")
+    assert gather.launches["staged"] == before + 1
+    want = gather.row_gather_plain(table, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_row_gather_staged_refuses_rows_its_ring_cannot_hold(cuda):
+    """Rows above 452 floats (1,808 B) would take the ring past the shared memory
+    a block may have."""
+    table = torch.zeros((100, 456), device=cuda)
+    idx = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 452 floats"):
+        gather.row_gather(table, idx, "staged")
+    assert torch.equal(gather.row_gather(table, idx, "direct"), table[:4])
 
 
 @pytest.mark.parametrize("n", [1, 1025, 65536])

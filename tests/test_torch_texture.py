@@ -75,3 +75,98 @@ def test_texture_mode_matches_jax(atlas, mode):
         assert work["filter"] == int(mip.sum())
     if mode == "ewa":
         assert 0 < work["weighted"] < work["taps"], work
+
+
+TAP_MODES = {"aniso": {}, **MODES}
+
+
+@pytest.mark.parametrize("mode", list(TAP_MODES))
+def test_tap_rows_name_the_rows_the_gradient_reaches(atlas, mode):
+    """tap_rows_plain (K4's scatter, slot by slot, as the kernel's warp form
+    take it) names exactly the quad rows whose data4 gradient autograd of
+    sample_plain makes nonzero, and the texel rows whose data gradient it makes
+    nonzero (EWA: its window's texels of weight 0, at the gaussian table's last
+    entry, are named and add 0); a lane with a zero cotangent names nothing; and
+    the per-lane values summed in float64 are autograd's atlas gradients within
+    1e-6 l2-relative."""
+    tex, cfg = atlas
+    cfg = torch_config(cfg.replace(**TAP_MODES[mode]))
+    lanes = tuple(torch.from_numpy(a) for a in texture_lanes(tex, n=4096, seed=5))
+    ttex = tuple(torch.from_numpy(a) for a in tex)
+    rng = np.random.default_rng(9)
+    cot = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32))
+    cot[rng.random(4096) < 0.3] = 0.0
+    data = ttex[0].clone().requires_grad_()
+    data4 = texture_sample.expand_quads(ttex).detach().requires_grad_()
+    out = texture_sample.sample_plain((data, *ttex[1:]), *lanes, cfg, data4)
+    g_data, g_data4 = torch.autograd.grad(out, [data, data4], cot, allow_unused=True)
+    g_data = torch.zeros_like(data) if g_data is None else g_data
+    g_data4 = torch.zeros_like(data4) if g_data4 is None else g_data4
+    quad, texel = texture_sample.tap_rows_plain(ttex, lanes, cfg, cot)
+    assert quad.shape[1] == texel.shape[1] == 4096
+    zero = ~(cot != 0).any(dim=1)
+    assert bool((quad[:, zero] == -1).all()) and bool((texel[:, zero] == -1).all())
+    named4 = torch.zeros(data4.shape[0], dtype=torch.bool)
+    named4[quad[quad >= 0]] = True
+    assert torch.equal(named4, (g_data4 != 0).any(dim=1))
+    named = torch.zeros(data.shape[0], dtype=torch.bool)
+    named[texel[texel >= 0]] = True
+    nonzero = (g_data != 0).any(dim=1)
+    if mode == "ewa":
+        assert bool(nonzero[~named].logical_not().all()) and int(nonzero.sum()) > 100
+    else:
+        assert torch.equal(named, nonzero)
+    expect = {"nearest": (0, 1), "bilinear": (1, 0), "trilinear": (2, 1), "aniso": (8, 1),
+              "ewa": (1, 1 + 16 * 16)}[mode]
+    assert (quad.shape[0], texel.shape[0]) == expect
+    sums = texture_sample.scatter_sums_plain(
+        texture_sample.tap_slots_plain(ttex, lanes, cfg, cot), data.shape[0])
+    for got, want in zip(sums, (g_data, g_data4)):
+        scale = float(want.double().norm())
+        assert float((got - want.double()).norm()) <= 1e-6 * scale if scale else not got.any()
+
+
+def test_warp_runs_counts_runs_within_warps():
+    """K4's run statistics on hand-made keys: a run never crosses a warp's end,
+    -1 lanes add nothing, and the distinct rows a warp names."""
+    from raytracer_tpu_torch.microbench import scatter
+
+    rows = torch.tensor([5] * 3 + [-1] * 2 + [7] * 27 + [7] * 4 + [5, 7, 5] + [-1] * 25,
+                        dtype=torch.int64)
+    got = scatter.warp_runs(rows)
+    # warp 0: runs of 3 (row 5) and 27 (row 7); warp 1: 4, 1, 1, 1
+    assert (got["lanes"], got["runs"]) == (37, 6)
+    assert got["lanes_a_run_mean"] == pytest.approx(37 / 6)
+    assert got["lanes_a_run_p50"] == pytest.approx(2.0)
+    assert got["distinct_rows_a_warp"] == pytest.approx(2.0)
+    assert scatter.warp_runs(torch.full((40,), -1, dtype=torch.int64))["runs"] == 0
+
+
+def test_k4_patterns_and_run_counts(atlas):
+    """microbench.scatter's K4 patterns and counts on seeded lanes: one_row puts
+    every lane of a warp on one row a slot, the permutation keeps the lanes'
+    rows, zero90 zeroes ~90% of the cotangents; the per-lane form's atomics are 12 a quad
+    tap and 3 a texel of every lane (lane_work's count, zero lanes too), the
+    warp form's 3 a run."""
+    from raytracer_tpu_torch.microbench import scatter
+
+    tex, cfg = atlas
+    tcfg = torch_config(cfg)
+    ttex = tuple(torch.from_numpy(a) for a in tex)
+    lanes = tuple(torch.from_numpy(a) for a in texture_lanes(tex, n=2048, seed=8))
+    cot = torch.from_numpy(np.random.default_rng(4).normal(size=(2048, 3)).astype(np.float32))
+    runs = scatter.k4_runs(ttex, lanes, tcfg, cot)
+    work = texture_sample.lane_work(ttex, lanes, tcfg)
+    assert runs["atomics_lane_form"] == 12 * (work["bilinear"] + work["taps"]) + 3 * work["top"]
+    assert runs["atomics_warp_form"] == 3 * sum(x["runs"] for x in runs["slots"])
+    assert [x["slot"] for x in runs["slots"]] == [f"quad {k}" for k in range(8)] + ["top texel"]
+    pats = scatter.k4_patterns(lanes, cot, ttex, tcfg)
+    assert list(pats) == list(scatter.K4_PATTERNS)
+    one = scatter.k4_runs(ttex, pats["one_row"][0], tcfg, pats["one_row"][1])
+    assert [x["runs"] for x in one["slots"] if x["runs"]] == [2048 // 32]
+    perm = scatter.k4_runs(ttex, pats["permutation"][0], tcfg, pats["permutation"][1])
+    assert perm["atomics_lane_form"] == runs["atomics_lane_form"]
+    assert [x["lanes"] for x in perm["slots"]] == [x["lanes"] for x in runs["slots"]]
+    zero = scatter.k4_runs(ttex, pats["zero90"][0], tcfg, pats["zero90"][1])
+    assert 0.85 <= zero["zero_cotangent_share"] <= 0.95
+    assert zero["atomics_warp_form"] < 0.2 * runs["atomics_warp_form"]
