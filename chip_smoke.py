@@ -73,7 +73,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the atomics each form issues; under ANISOTROPIC also on the training
    step's own generations 0 and 1 and on the patterns of
    ``microbench/scatter.py`` (every lane on one row, a permutation, 90% zero
-   cotangents); K11 with the device time of ``index_select`` beside it;
+   cotangents); K11 with the device time of ``index_select`` beside it; K1
+   and K2 in the renderer's quantised form and in the exact-record form (the
+   yardstick), both held to the plain walk, each with its device time and
+   bytes as issued, and the quantised walk's counters (undecided children,
+   lanes with a 0 direction component, live triangles a leaf visit) held to
+   the plain walk's; K3 with its device time;
 7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
    through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
    ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
@@ -83,7 +88,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain version, exact, with its device time (the calls queued behind a wait
    kernel, so none waits on the host); then K12 on config3's wide table (10
    dependent 288-byte rows for each of the 2,073,600 lanes) beside K1's time
-   in this run, and its latency (one warp an SM, 1,000 steps a lane);
+   in this run, and its latency (one warp an SM, 1,000 steps a lane), and K12
+   over the same rows cut to the quantised record's 128 bytes;
 8. small-input checks, the card against the same render on the CPU through the
    plain versions: config3 at 64x36 (20k triangles; also under the threaded
    walk), config4 at 96x64 on animation frames 0 and 2, config2 at 64x64 and 8
@@ -92,12 +98,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    instance matrices;
 9. the kernels line, the ``nvidia-smi`` line, and last the device line.
 
+``--log PATH`` also writes every JSON line, in full, to PATH.
+
 It imports nothing of JAX.  Without a CUDA card, or run outside the repository,
 it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -173,6 +182,7 @@ OPS_CHAIN_STEP = 6
 # (10.0 on config3's 1080p frame, the K1 row's node_visits over its lanes)
 WIDE_CHAIN_ITERS = 10
 LATENCY_STEPS = 1000  # K12's latency run on that table: steps a lane
+QUANT_ROW_FLOATS = 32  # a quantised wide-node record (accel/wide.py): 128 bytes
 # the share of pixels of the threaded walk's 1080p frame that may differ from
 # the wide walk's by more than 1e-3: the walks may take different triangles at
 # an exactly equal t (a shared edge), nothing else
@@ -200,8 +210,15 @@ TRAIN_FIELDS = ("mat_diffuse", "mat_reflection", "mat_transmittance", "tex_data"
                 "sky_data", "pl_colour", "sl_colour", "dl_colour", "ambient")
 
 
+LOG = None  # --log PATH: every JSON line also goes there, in full
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    if LOG:
+        with open(LOG, "a") as f:
+            f.write(line + "\n")
 
 
 def fail(msg: str) -> int:
@@ -236,6 +253,30 @@ def cuda_ms(fn, reps: int) -> float:
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     b, o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_PER_S * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+# bytes a walk's loads ask for (csrc/traverse.cu).  The exact form: the
+# instance matrix (12 floats) every iteration, 64 floats a node visit, 72 a
+# leaf visit.  The quantised form: the matrix and the world ray (6 floats) at
+# each transform into an instance's space, a node visit's 7 x 16 bytes of its
+# record, an exact lane's 3 of them and the 48 box floats of its exact row, 6
+# floats an undecided child, 9 x 16 bytes a leaf half
+BYTES_ITER, BYTES_NODE, BYTES_LEAF = 48, 256, 288
+BYTES_ENTER, BYTES_QNODE, BYTES_XLANE, BYTES_UNDECIDED, BYTES_HALF = 72, 112, 48 + 192, 24, 144
+
+
+def issued_bytes(stats, lane_bytes, nodes=0.0, leaves=0.0) -> float:
+    """Bytes as issued by one K1 / K2 launch: ``stats`` the quantised form's
+    counters (``traversal_wide.walk_stats``), None for the exact form, whose
+    node and leaf visits are given."""
+    if stats is None:
+        return lane_bytes + (nodes + leaves) * BYTES_ITER + nodes * BYTES_NODE \
+            + leaves * BYTES_LEAF
+    return (lane_bytes + stats["enters"] * BYTES_ENTER
+            + stats["quantised_node_visits"] * BYTES_QNODE
+            + stats["exact_lane_node_visits"] * BYTES_XLANE
+            + stats["undecided_children"] * BYTES_UNDECIDED
+            + (stats["leaf_visits"] + stats["wide_leaf_visits"]) * BYTES_HALF)
 
 
 def nbytes(*tensors) -> int:
@@ -486,6 +527,19 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     lat_n = torch.cuda.get_device_properties(dev).multi_processor_count * 32 \
         if dev.type == "cuda" else 32
     lat_ms = cuda_ms(lambda: gather.chained_gather(wide, idx[:lat_n], LATENCY_STEPS), 5)
+    # the same chains over the rows cut to the quantised node record's width
+    # (QUANT_ROW_FLOATS): the floor a narrower record could reach
+    narrow = wide[:, :QUANT_ROW_FLOATS].contiguous()
+    n_same, _ = gather_err(gather.chained_gather(narrow, idx, iters),
+                           gather.chained_gather_plain(narrow, idx, iters))
+    n_ms = cuda_ms(lambda: gather.chained_gather(narrow, idx, iters), 50)
+    n_issued = n * iters * narrow.shape[1] * 4
+    narrow_row = {"row_floats": narrow.shape[1], "exact": n_same, "ms": n_ms,
+                  "device_ms": microbench.device_ms(
+                      lambda: gather.chained_gather(narrow, idx, iters), dev),
+                  "bytes_as_issued": n_issued, "issued_per_s": n_issued / (n_ms / 1e3),
+                  "over_wide": n_ms / w_ms}
+    del narrow
     k1 = next(r for r in report if r["name"] == "traverse_closest")
     k1_walk = walk_visits["traverse_closest"]
     emit("gather_wide_table", table=list(wide.shape), lanes=n, iters=iters, exact=same,
@@ -499,7 +553,9 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
          k1_ms=k1["ms"], k1_bound_ms=k1["bound_ms"], k1_walk=k1_walk,
          k1_visits_per_active_lane=(k1_walk["node_visits"] + k1_walk["leaf_visits"])
          / max(k1_walk["active"], 1),
-         k1_over_chain=k1["ms"] / w_ms, nvidia_smi=smi)
+         k1_over_chain=k1["ms"] / w_ms, narrow=narrow_row, nvidia_smi=smi)
+    if not n_same:
+        problems.append("K12 on config3's cut table differs from its plain version")
     if not same:
         problems.append("K12 on config3's wide table differs from its plain version")
     del wide, idx
@@ -507,7 +563,11 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     return problems
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global LOG
+    ap = argparse.ArgumentParser(description="Drive the PyTorch + CUDA port on one CUDA card.")
+    ap.add_argument("--log", help="also write every JSON line, in full, to this file")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -518,8 +578,13 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "raytracer_tpu_torch")):
         return fail(f"{REPO} holds no raytracer_tpu_torch package: run from a checkout")
     sys.path.insert(0, REPO)
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        open(args.log, "w").close()
+        LOG = args.log
 
     from raytracer_tpu_torch import app, kernels, microbench
+    from raytracer_tpu_torch.accel import wide as wide_mod
     from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode, TraversalStrategy
     from raytracer_tpu_torch.diff import train
     from raytracer_tpu_torch.microbench import scatter
@@ -555,10 +620,23 @@ def main() -> int:
     rend = renderer.Renderer(cfg, device="cuda")
     scene = rend.upload(packed)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # the quantised node records' host cost: the BLAS block once a scene (its
+    # leaves' live slots with it), the TLAS every frame (ScenePacker.frame)
+    t0 = time.perf_counter()
+    wide_mod.quantised_records(packed.wd_rec, wide_mod.leaf_live_counts(
+        packed.tr_p0, packed.tr_e1, packed.tr_e2))
+    t1 = time.perf_counter()
+    wide_mod.quantised_records(packed.wt_rec)
+    t2 = time.perf_counter()
+    bvh3 = traversal_wide.build_scene_bvh(scene)
     emit("scene", name="config3_sponza", width=WIDTH, height=HEIGHT,
          triangles=int(packed.tr_p0.shape[0]), instances=int(packed.inst_inv.shape[0]),
          wide_records=list(packed.wd_rec.shape), texels=int(packed.tex_data.shape[0]),
-         seconds=time.perf_counter() - t0)
+         seconds=seconds, quantise_blas_ms=(t1 - t0) * 1e3, quantise_tlas_ms=(t2 - t1) * 1e3,
+         table_bytes=nbytes(bvh3.table), quantised_node_bytes=nbytes(bvh3.qrec),
+         exact_node_bytes=bvh3.node_rows * 72 * 4)
+    del bvh3
 
     # where each kernel's wrapper counts its launches: a module attribute, or
     # the texture wrappers' per-mode dicts
@@ -905,8 +983,15 @@ def main() -> int:
     png_split_ms = {"to_host": (t1 - t0) * 1e3, "gamma_u8": (t2 - t1) * 1e3,
                     "encode": (time.perf_counter() - t2) * 1e3}
     counters4 = {k: int(v) for k, v in stats4._asdict().items()}
+    tlas_q = []  # the frame's quantised TLAS records, inside animate_and_pack
+    for _ in range(5):
+        t0 = time.perf_counter()
+        wide_mod.quantised_records(packed4.wt_rec)
+        tlas_q.append(time.perf_counter() - t0)
     emit("frame_pieces", config="config4", width=cfg4.width, height=cfg4.height,
          ms_median_of_5=pieces_ms, sum_ms=sum(pieces_ms.values()),
+         quantise_tlas_ms=statistics.median(tlas_q) * 1e3,
+         tlas_nodes=int(packed4.wt_rec.shape[1]),
          save_png_split_ms=png_split_ms, render_profile=profile_frame(lambda: rend4(scene4)),
          host_share=(pieces_ms["animate_and_pack"] + pieces_ms["upload"]
                      + pieces_ms["save_png"]) / sum(pieces_ms.values()),
@@ -1098,29 +1183,47 @@ def main() -> int:
         return kcfg.traversal_strategy == TraversalStrategy.ORDERED
 
     def check_traverse(any_hit, bvh, o, d, t_max, active, kcfg):
-        """K1 / K2 against the plain walk; also returns the walk (its visits
-        count the work)."""
+        """K1 / K2 against the plain walk, the renderer's quantised form (through
+        trace_closest / trace_any) and the exact-record form; the quantised
+        form's counters against the plain walk's (which also holds the
+        quantised test to the exact one at every node visit).  Also returns the
+        walk (its visits count the work)."""
         walk = traversal_wide.trace_plain(bvh, o, d, t_max, active, kcfg.wide_stack_size,
-                                          ordered(kcfg), any_hit)
-        if any_hit:
-            kfound, kinc = traversal_wide.trace_any(bvh, o, d, t_max, active, kcfg)
-            same = bool(torch.equal(kfound, walk.found))
-            got = {"max_abs_err": 0.0 if same else float("inf"),
-                   "found_differs": int((kfound != walk.found).sum())}
-        else:
-            res = traversal_wide.trace_closest(bvh, o, d, t_max, active, kcfg)
-            kinc = res.incomplete
-            kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
-            same = bool(torch.equal(kbest, walk.best) and torch.equal(res.steps, walk.steps))
-            fin = torch.isfinite(walk.t)
-            gap = (res.t - walk.t)[fin].abs()
-            rel = float((gap / walk.t[fin].abs()).max()) if bool(fin.any()) else 0.0
-            same = same and rel <= 1e-6
-            got = {"max_abs_err": float(gap.max()) if bool(fin.any()) else 0.0,
-                   "ids_differ": int((kbest != walk.best).sum()),
-                   "steps_differ": int((res.steps != walk.steps).sum()), "t_max_rel": rel}
-        got.update(passed=same and int(kinc) == 0 and int(walk.incomplete) == 0,
-                   lanes=o.shape[0], active=int(active.sum()), incomplete=int(kinc))
+                                          ordered(kcfg), any_hit, quantised=True)
+        forms = {}
+        for form in traversal_wide.FORMS:
+            if form == "exact":
+                kt, kbest, ksteps, kfound, kinc = traversal_wide.trace_form(
+                    form, any_hit, bvh, o, d, t_max, active, kcfg)
+            elif any_hit:
+                kfound, kinc = traversal_wide.trace_any(bvh, o, d, t_max, active, kcfg)
+            else:
+                res = traversal_wide.trace_closest(bvh, o, d, t_max, active, kcfg)
+                kt, kinc, ksteps = res.t, res.incomplete, res.steps
+                kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
+            if any_hit:
+                same = bool(torch.equal(kfound, walk.found))
+                got = {"max_abs_err": 0.0 if same else float("inf"),
+                       "found_differs": int((kfound != walk.found).sum())}
+            else:
+                same = bool(torch.equal(kbest, walk.best) and torch.equal(ksteps, walk.steps))
+                fin = torch.isfinite(walk.t)
+                gap = (kt - walk.t)[fin].abs()
+                rel = float((gap / walk.t[fin].abs()).max()) if bool(fin.any()) else 0.0
+                same = same and rel <= 1e-6
+                got = {"max_abs_err": float(gap.max()) if bool(fin.any()) else 0.0,
+                       "ids_differ": int((kbest != walk.best).sum()),
+                       "steps_differ": int((ksteps != walk.steps).sum()), "t_max_rel": rel}
+            got.update(passed=same and int(kinc) == 0, incomplete=int(kinc))
+            forms[form] = got
+        stats = traversal_wide.walk_stats(any_hit, bvh, o, d, t_max, active, kcfg)
+        stats_equal = stats == {k: walk.quant[k] for k in traversal_wide.STATS}
+        got = forms.pop("quantised")
+        got.update(passed=got["passed"] and forms["exact"]["passed"] and stats_equal
+                   and walk.quant["bits_differ"] == 0 and int(walk.incomplete) == 0,
+                   lanes=o.shape[0], active=int(active.sum()), exact_form=forms["exact"],
+                   stats=stats, stats_equal_plain=stats_equal,
+                   bits_differ=walk.quant["bits_differ"])
         return got, walk
 
     def check_forward(inp):
@@ -1285,7 +1388,11 @@ def main() -> int:
         record(f"texture_{mode}", "raytracer_tpu_torch/csrc/texture.cu", replaces, fmax,
                cuda_ms(k3, 20), cuda_ms(p3, 5),
                bound_ms(nbytes(*read_lanes, *atlases, *tex[1:5]) + n * 12, fwd_ops), None,
-               fpassed, **fcheck, work=work,
+               fpassed, **fcheck, device_ms=microbench.device_ms(k3, dev),
+               # sample_forward alone, without the autograd.Function around it
+               forward_ms=cuda_ms(lambda: texture_sample.sample_forward(tex, lanes_in, filt,
+                                                                        data4), 20),
+               work=work,
                tolerance="max abs <= 1e-5 on >= 99.9% of lanes"
                          + (", on config3 and on config4" if config4 else ""))
 
@@ -1503,7 +1610,8 @@ def main() -> int:
            tolerance="within 1e-5 l2-relative of index_add_ in float64")
     del fb1, fbw, got, again, want
 
-    # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow rays
+    # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow
+    # rays; each in the renderer's quantised form and in the exact-record form
     walk_visits = {}  # the walks' visits, beside which the gather phase puts K12's
     for name, any_hit, replaces in (
         ("traverse_closest", False, "raytracer_tpu/ops/traversal_wide.py:503"),
@@ -1517,18 +1625,38 @@ def main() -> int:
         walk_visits[name] = {"lanes": o.shape[0], "active": int(active.sum()),
                              "node_visits": nodes, "leaf_visits": leaves_}
         out_bytes = o.shape[0] * (1 if any_hit else 12)
+        lane_bytes = nbytes(o, d, t_max, active) + out_bytes
+        st = got["stats"]
+        issued = issued_bytes(st, lane_bytes)
+        exact_issued = issued_bytes(None, lane_bytes, nodes, leaves_)
+
+        def exact_fn(any_hit=any_hit, bvh=bvh, o=o, d=d, t_max=t_max, active=active, kcfg=kcfg):
+            return traversal_wide.trace_form("exact", any_hit, bvh, o, d, t_max, active, kcfg)
+
         plain_ms = cuda_ms(lambda: traversal_wide.trace_plain(
             bvh, o, d, t_max, active, kcfg.wide_stack_size, ordered(kcfg), any_hit), 1)
+        k_ms = cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5)
+        k_dev = microbench.device_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), dev, reps=20)
+        x_dev = microbench.device_ms(exact_fn, dev, reps=20)
+        got["exact_form"].update(ms=cuda_ms(exact_fn, 5), device_ms=x_dev,
+                                 bytes_as_issued=exact_issued)
         record(name, "raytracer_tpu_torch/csrc/traverse.cu", replaces,
-               max(got.pop("max_abs_err"), on4[name]["max_abs_err"]),
-               cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5), plain_ms,
+               max(got.pop("max_abs_err"), on4[name]["max_abs_err"]), k_ms, plain_ms,
                bound_ms(nbytes(o, d, t_max, active, bvh.table, bvh.inst_mat) + out_bytes,
                         (nodes + leaves_) * OPS_ITER + nodes * OPS_NODE
                         + leaves_ * OPS_LEAF), None,
-               got.pop("passed") and on4[name]["passed"], **got, node_visits=nodes,
-               leaf_visits=leaves_, config4_900x600=on4[name],
+               got.pop("passed") and on4[name]["passed"], **got, device_ms=k_dev,
+               speedup_over_exact_form=x_dev / k_dev, bytes_as_issued=issued,
+               undecided_share=st["undecided_children"]
+               / max(8 * st["quantised_node_visits"], 1),
+               exact_lane_share=st["exact_lanes"] / max(int(active.sum()), 1),
+               live_per_leaf_visit=st["live_tests"] / max(st["leaf_visits"], 1),
+               targets={"device_ms <= 1.0": k_dev <= 1.0,
+                        "exact form / quantised >= 1.5": x_dev / k_dev >= 1.5},
+               node_visits=nodes, leaf_visits=leaves_, config4_900x600=on4[name],
                tolerance="ids, steps and found identical; t within 1e-6 relative; "
-                         "on config3 and on config4")
+                         "both forms, on config3 and on config4; the quantised form's "
+                         "counters equal the plain walk's, its test the exact one's")
         del walk
 
     # K7, forward on every generation of config3's frame and of config4's,

@@ -390,3 +390,162 @@ def octant_records(
         rec[o, :, 48:56] = f_a[rows, perm].astype(np.float32)
         rec[o, :, 56:64] = wide.child_fb[rows, perm].astype(np.float32)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Quantised node records (Ylitie, Karras and Laine, HPG 2017, kept exact).
+#
+# One 128-byte row a row of ``octant_records``, stored as 32 int32 words:
+#
+#   words 0-2    a float32 bias an axis (see the decode below)
+#   word 3       bytes 0-2: a power-of-two step exponent e an axis (int8);
+#                byte 3: the live children's mask (bit j: child j neither
+#                empty nor flat)
+#   words 4-15   48 uint8 planes, component-major: byte 16 + c*8 + j is plane c
+#                of child j, c ordered (lo_x, lo_y, lo_z, hi_x, hi_y, hi_z)
+#   words 16-23  8 child entries (f_a << 8) | f_b (f_b = 0 inherits the instance)
+#   words 24-25  8 meta bytes: bits 0-2 = a leaf child's live triangles - 1
+#   words 26-27  8 inward bytes: bit c set when plane c of the child's inner box
+#                lies one step inside its outer plane (the plane does not decode
+#                exactly)
+#   words 28-31  zero
+#
+# A plane q decodes as float32(X(q) + bias), X(q) = 2^(23+e) + q * 2^e: the
+# float whose exponent is 23 + e and whose low mantissa byte is q, built
+# without arithmetic (the kernel: one byte permute).  The decode is monotone in
+# q, and the packer fits the planes with it: q_lo is the largest q whose
+# decode is <= lo and q_hi the smallest whose decode is >= hi, so the outer
+# box (q_lo, q_hi) holds the exact box, and the inner box (q_lo + in_lo,
+# q_hi - in_hi) lies inside it.  With the slab test's monotone float32
+# operations on the decoded planes (((plane - o) * inv), as today's test does
+# on the exact ones), a ray that misses the outer box misses the exact box and
+# a ray that hits the inner box hits it; the rest take the exact test.
+#
+# "Dead" children, empty ones and boxes flat on some axis (lo == hi), are left
+# out of the live mask and encoded inverted (q_lo = 255, q_hi = 0, no inward
+# bits): on a lane whose inverse direction and origin are finite, the exact
+# slab test never sets their bit (on the flat axis t0 == t1, so t_near >= t0 >=
+# t_far).  Lanes with a non-finite inverse direction take the exact test for
+# every child.
+# ---------------------------------------------------------------------------
+
+QREC_WORDS = 32
+Q_PLANES, Q_ENTRIES, Q_META, Q_INWARD = 16, 64, 96, 104  # byte offsets in a row
+Q_EXP_MIN, Q_EXP_MAX = -100, 100  # 2^(23+e) and 255 * 2^e stay normal float32
+
+
+def decode_planes(bias, exp, q):
+    """The kernel's decode ``float32(X(q) + bias)``, X(q) = 2^(23+exp) + q *
+    2^exp built from its bits, broadcast over numpy arrays (q in 0..256)."""
+    e = np.asarray(exp, np.int64)
+    x = (((e + 150) << 23) + np.asarray(q, np.int64)).astype(np.uint32).view(np.float32)
+    return (x + np.asarray(bias, np.float32)).astype(np.float32)
+
+
+def leaf_live_counts(tr_p0, tr_e1, tr_e2) -> np.ndarray:
+    """[T/8] int32: for each 8-triangle leaf record, the least k >= 1 such that
+    slots k..7 equal slot k-1 bit for bit (the leaf padding repeats a leaf's
+    last triangle, ``accel/blas.py:_pad_leaf_multiple``).  A repeated slot gives
+    the same t as the one before it, so it never wins a closest hit (the
+    earliest slot wins a tie) and never changes an any hit."""
+    tri = np.concatenate([tr_p0, tr_e1, tr_e2], axis=1).astype(np.float32)
+    if tri.shape[0] % 8:
+        raise ValueError("leaf records hold 8 triangle slots")
+    bits = np.ascontiguousarray(tri).view(np.uint32).reshape(-1, 8, 9)
+    differs = (bits[:, 1:] != bits[:, :-1]).any(axis=2)  # [L,7]: slot j+1 vs slot j
+    last = 7 - np.argmax(differs[:, ::-1], axis=1)  # the last slot j >= 1 that differs
+    return np.where(differs.any(axis=1), last + 1, 1).astype(np.int32)
+
+
+def _fit_planes(bias, exp, lo, hi):
+    """(q_lo, q_hi) by binary search on the (monotone) decode: the largest q
+    with decode <= lo, the smallest with decode >= hi.  The frame guarantees
+    decode(0) <= lo and decode(255) >= hi."""
+    q_lo = np.zeros(lo.shape, np.int64)
+    q_hi = np.full(hi.shape, 255, np.int64)
+    for step in (128, 64, 32, 16, 8, 4, 2, 1):
+        up = q_lo + step
+        q_lo = np.where((up <= 255) & (decode_planes(bias, exp, np.minimum(up, 255)) <= lo),
+                        up, q_lo)
+        down = q_hi - step
+        q_hi = np.where((down >= 0) & (decode_planes(bias, exp, np.maximum(down, 0)) >= hi),
+                        down, q_hi)
+    return q_lo, q_hi
+
+
+def quantised_records(rec: np.ndarray, live: np.ndarray | None = None) -> np.ndarray:
+    """[8, W, 32] int32 quantised rows of ``octant_records``' [8, W, 72] rows
+    (layout above).  ``live`` ([leaf records] int, ``leaf_live_counts``) gives
+    the leaf children's live triangles; it may be None when no child is a
+    leaf (a TLAS)."""
+    rec = np.asarray(rec, np.float32)
+    lead = rec.shape[:-1]
+    rows = rec.reshape(-1, 72)
+    r = rows.shape[0]
+    lo = rows[:, 0:24].reshape(r, 3, 8)  # [R, axis, child]
+    hi = rows[:, 24:48].reshape(r, 3, 8)
+    f_a = rows[:, 48:56].astype(np.int64)  # exact float values
+    f_b = rows[:, 56:64].astype(np.int64)
+    kind = f_a >> PAYLOAD_BITS
+    dead = (kind == KIND_EMPTY) | (lo == hi).any(axis=1)  # [R, child]
+    live_box = ~dead[:, None, :]
+    if not (np.isfinite(lo) & np.isfinite(hi) | ~live_box).all():
+        raise ValueError("quantised_records: a live child's box is not finite")
+
+    # the frame of each axis: the smallest power-of-two step 2^e whose 255
+    # steps span the live children's boxes, and the bias that puts plane 0 at
+    # or below their least corner
+    has = live_box.any(axis=2)  # [R, axis]
+    least = np.where(has, np.where(live_box, lo, np.inf).min(axis=2), 0.0).astype(np.float32)
+    top = np.where(has, np.where(live_box, hi, -np.inf).max(axis=2), 0.0).astype(np.float32)
+    extent = top.astype(np.float64) - least
+    with np.errstate(divide="ignore"):
+        exp = np.ceil(np.log2(np.where(extent > 0, extent / 255.0, 1.0)))
+    exp = np.clip(exp, Q_EXP_MIN, Q_EXP_MAX).astype(np.int64)
+    for _ in range(8):
+        base = (((exp + 150) << 23).astype(np.uint32)).view(np.float32)  # 2^(23+e)
+        bias = (least - base).astype(np.float32)
+        for _ in range(4):  # decode(0) <= least, whatever the subtraction rounded
+            bias = np.where(decode_planes(bias, exp, 0) > least,
+                            np.nextafter(bias, np.float32(-np.inf)), bias).astype(np.float32)
+        short = decode_planes(bias, exp, 255) < top
+        if not short.any():
+            break
+        exp = np.where(short, exp + 1, exp)
+    if (decode_planes(bias, exp, 0) > least).any() or (decode_planes(bias, exp, 255) < top).any() \
+            or (exp > Q_EXP_MAX).any():
+        raise ValueError("quantised_records: a node's frame does not cover its children")
+
+    # planes of the live children; the dead ones inverted
+    b3, e3 = bias[:, :, None], exp[:, :, None]
+    safe_lo = np.where(live_box, lo, least[:, :, None])
+    safe_hi = np.where(live_box, hi, least[:, :, None])
+    q_lo, q_hi = _fit_planes(b3, e3, safe_lo, safe_hi)
+    in_lo = live_box & (decode_planes(b3, e3, q_lo) != lo)
+    in_hi = live_box & (decode_planes(b3, e3, q_hi) != hi)
+    q_lo = np.where(live_box, q_lo, 255)
+    q_hi = np.where(live_box, q_hi, 0)
+
+    meta = np.zeros((r, 8), np.int64)
+    is_leaf = kind == KIND_LEAF
+    if is_leaf.any():
+        if live is None:
+            raise ValueError("quantised_records: leaf children need their live counts")
+        meta = np.where(is_leaf, np.asarray(live)[np.where(is_leaf, f_a & (PAYLOAD_MAX - 1), 0)]
+                        - 1, 0)
+    inward = np.zeros((r, 8), np.int64)
+    for a in range(3):
+        inward |= in_lo[:, a].astype(np.int64) << a
+        inward |= in_hi[:, a].astype(np.int64) << (a + 3)
+    alive = (~dead).astype(np.int64) << np.arange(8)
+
+    out = np.zeros((r, 4 * QREC_WORDS), np.uint8)
+    out[:, 0:12] = bias.view(np.uint8).reshape(r, 12)
+    out[:, 12:15] = exp.astype(np.int8).view(np.uint8)
+    out[:, 15] = alive.sum(axis=1)
+    out[:, Q_PLANES:Q_PLANES + 48] = np.concatenate([q_lo, q_hi], axis=1).reshape(r, 48)
+    entries = ((f_a << 8) | f_b).astype(np.int32)
+    out[:, Q_ENTRIES:Q_ENTRIES + 32] = entries.view(np.uint8).reshape(r, 32)
+    out[:, Q_META:Q_META + 8] = meta
+    out[:, Q_INWARD:Q_INWARD + 8] = inward
+    return out.view(np.int32).reshape(*lead, QREC_WORDS)

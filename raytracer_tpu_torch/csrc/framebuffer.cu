@@ -17,7 +17,7 @@
 // out [P,3] float32, added to in place; index [n] int32 rows of out; values [n,3].
 extern "C" int rt_scatter_add3(const void* index, const void* values, int n, void* out,
                                void* stream) {
-  rt::scatter3_kernel<<<rt::grid_for(n, rt::kScatterBlock), rt::kScatterBlock, 0,
+  rt::scatter3_kernel<float><<<rt::grid_for(n, rt::kScatterBlock), rt::kScatterBlock, 0,
                         (cudaStream_t)stream>>>((const int*)index, (const float*)values, n,
                                                 1.0f, (float*)out);
   return (int)cudaGetLastError();

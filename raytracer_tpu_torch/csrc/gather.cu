@@ -346,7 +346,9 @@ extern "C" int rt_chained_gather(int indep, const void* table, int t, int r4, co
                                  int n, int iters, void* acc, void* j_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float4* tab = (const float4*)table;
-  if (r4 == 18)  // the wide walk's 72-float row
+  if (r4 == 8)  // the wide walk's 32-float quantised node record
+    launch_chain<8>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
+  else if (r4 == 18)  // the wide walk's 72-float row
     launch_chain<18>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
   else if (r4 == 32)  // the harnesses' 128-float padded row
     launch_chain<32>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);

@@ -33,6 +33,10 @@
 //    it, and fp32 atomics still change the order of those sums from run to
 //    run.
 // The warp's part is warp_scatter3, which K4 calls for its texel rows too.
+// The rows may be float64 (T = double; K5 bwd): a row that every warp of a
+// 2 M-lane launch names then takes ~65 k atomic adds, whose float32 sum is
+// ~1e-5 off the exact one, and varies by as much from run to run; the float64
+// sum is exact to float32 once rounded.
 #pragma once
 
 #include "common.cuh"
@@ -54,8 +58,9 @@ struct Scatter3List {
 // nothing).  Called by all 32 lanes of a warp, converged; `list` is the warp's
 // own.  K5 bwd and the framebuffer scatter (scatter3_kernel) and K4's texel
 // rows (texture_bwd.cu) call it.
-__device__ __forceinline__ void warp_scatter3(float* __restrict__ out, int key, float g0,
-                                              float g1, float g2, Scatter3List& list) {
+template <typename T>
+__device__ __forceinline__ void warp_scatter3(T* __restrict__ out, int key, float g0, float g1,
+                                              float g2, Scatter3List& list) {
   const int lane = threadIdx.x & 31;
   if (__ballot_sync(kFullWarp, key >= 0) == 0) return;  // warp-uniform
   // the run of `lane`: the nearest lane at or below it where the key changes
@@ -89,13 +94,14 @@ __device__ __forceinline__ void warp_scatter3(float* __restrict__ out, int key, 
   }
   __syncwarp();
   for (int slot = lane; slot < 3 * __popc(tails); slot += 32)
-    atomicAdd(out + 3ll * list.key[slot / 3] + slot % 3, list.sum[slot]);
+    atomicAdd(out + 3ll * list.key[slot / 3] + slot % 3, (T)list.sum[slot]);
   __syncwarp();  // the list is read before the warp's next call refills it
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kScatterBlock)
 scatter3_kernel(const int* __restrict__ index, const float* __restrict__ values, int n,
-                float scale, float* __restrict__ out) {
+                float scale, T* __restrict__ out) {
   __shared__ Scatter3List lists[kScatterBlock / 32];
   const int i = blockIdx.x * kScatterBlock + threadIdx.x;
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;

@@ -18,7 +18,10 @@
 // forward also writes `index` [N] int32.  Bound: bytes (12 B of cotangent a
 // lane, the index of the lanes that scatter, and the [S*S,3] gradient).
 //
-// The scatter is rt::scatter3_kernel (scatter.cuh), with a scale of 1/pi.
+// The scatter is rt::scatter3_kernel (scatter.cuh), with a scale of 1/pi,
+// into float64 rows that the wrapper rounds to float32 once: a texel that all
+// of a 2 M-lane launch names takes ~65 k atomic adds, and their float32 sum
+// was ~1e-5 off the exact one.
 #include "common.cuh"
 #include "scatter.cuh"
 
@@ -65,11 +68,12 @@ extern "C" int rt_sky_sample(const void* dir, int n, const void* sky, int size, 
   return (int)cudaGetLastError();
 }
 
-// grad_sky [S*S,3] must be zeroed by the caller.
+// grad_sky [S*S,3] float64 must be zeroed by the caller.
 extern "C" int rt_sky_sample_bwd(const void* index, const void* cot, int n, void* grad_sky,
                                  void* stream) {
-  rt::scatter3_kernel<<<rt::grid_for(n, rt::kScatterBlock), rt::kScatterBlock, 0,
-                        (cudaStream_t)stream>>>((const int*)index, (const float*)cot, n,
-                                                (float)(1.0 / kPi), (float*)grad_sky);
+  rt::scatter3_kernel<double><<<rt::grid_for(n, rt::kScatterBlock), rt::kScatterBlock, 0,
+                                (cudaStream_t)stream>>>((const int*)index, (const float*)cot,
+                                                        n, (float)(1.0 / kPi),
+                                                        (double*)grad_sky);
   return (int)cudaGetLastError();
 }

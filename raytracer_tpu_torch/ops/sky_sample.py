@@ -93,7 +93,8 @@ def sample_backward_plain(index: torch.Tensor, cot: torch.Tensor, rows: int) -> 
 def sample_backward(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.Tensor:
     """K5 backward: the [rows,3] gradient of sky_data, cot / pi scattered to
     ``index``.  CPU tensors take ``sample_backward_plain``; CUDA tensors launch
-    ``rt_sky_sample_bwd`` once (counted in ``bwd_launches``)."""
+    ``rt_sky_sample_bwd`` once (counted in ``bwd_launches``), which sums into
+    float64 rows, rounded to float32 once."""
     global bwd_launches
     n = index.shape[0]
     if (cot.shape != (n, 3) or cot.dtype != torch.float32 or index.dtype != torch.int32
@@ -103,16 +104,16 @@ def sample_backward(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.
     if cot.device.type == "cpu":
         return sample_backward_plain(index, cot, rows)
     kernels.require_contiguous("sample_sky backward", index, cot)
-    grad = torch.zeros((rows, 3), dtype=torch.float32, device=cot.device)
+    grad = torch.zeros((rows, 3), dtype=torch.float64, device=cot.device)
     if n == 0:
-        return grad
+        return grad.float()
     P, I = kernels.P, kernels.I
     fn = kernels.entry("sky", "rt_sky_sample_bwd", [P, P, I, P, P])
     err = fn(index.data_ptr(), cot.data_ptr(), n, grad.data_ptr(),
              kernels.stream_ptr(cot.device))
     bwd_launches += 1
     kernels.check(err, "rt_sky_sample_bwd")
-    return grad
+    return grad.float()
 
 
 class SkySample(torch.autograd.Function):

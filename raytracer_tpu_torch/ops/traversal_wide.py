@@ -11,6 +11,13 @@ rays whose short stack overflowed.
 run ``trace_plain`` for CPU tensors.  ``trace_plain`` is the JAX package's ``_step``
 as a vectorised loop over all lanes until none is alive, with the same float32
 arithmetic, so ids and step counts agree lane for lane.
+
+The kernel decides most children from the quantised node records
+(``accel/wide.py:quantised_records``) and takes the exact test only where they
+cannot decide; ``node_bits_quantised_plain`` is that decision in PyTorch, and
+``trace_plain(..., quantised=True)`` holds it to the exact test at every node
+visit.  ``trace_form`` launches the kernel's exact-record form (the first walk, the
+yardstick) and ``walk_stats`` its counters; the renderer uses neither.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from ..accel.wide import KIND_EMPTY, KIND_INTERNAL, KIND_LEAF, PAYLOAD_BITS
+from ..accel.wide import (
+    KIND_EMPTY, KIND_INTERNAL, KIND_LEAF, PAYLOAD_BITS, Q_INWARD, Q_PLANES, QREC_WORDS,
+)
 from ..config import RAY_EPSILON, RenderConfig, TraversalStrategy
 
 POP = -1  # take the next deferred entry off the stack
@@ -29,15 +38,25 @@ EXIT = -2  # traversal finished
 _PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
 _MAX_STACK = 64  # csrc/traverse.cu kMaxStack
 
-# rt_trace launches, closest and any hit (reset and read by chip_smoke.py)
+# rt_trace launches of the quantised form, closest and any hit (reset and read
+# by chip_smoke.py); of the exact-record form (trace_form), by kind
 closest_launches = 0
 any_launches = 0
+exact_launches = {"closest": 0, "any": 0}
+
+FORMS = {"exact": 0, "quantised": 1}  # rt_trace's form argument
+_COUNTING = 2  # rt_trace's form: quantised, adding its counters (walk_stats)
+# walk_stats' counters, in csrc/traverse.cu's order
+STATS = ("quantised_node_visits", "exact_lane_node_visits", "undecided_children",
+         "inner_hits", "leaf_visits", "wide_leaf_visits", "live_tests", "exact_lanes",
+         "enters")
 
 
 class WideSceneBVH(NamedTuple):
     """Unified per-frame traversal structure: [BLAS block | per-frame TLAS | tris]."""
 
     table: torch.Tensor  # [8*W + T/8, 72] f32 unified records
+    qrec: torch.Tensor  # [8*W, 32] int32 quantised node records (accel/wide.py)
     inst_mat: torch.Tensor  # [I+1,12] f32 inverse instance matrices (slot 0 identity)
     root: int  # global index of the TLAS wide root
     node_rows: int  # 8*W (first triangle-record row)
@@ -53,8 +72,8 @@ def build_scene_bvh(scene) -> WideSceneBVH:
     the component-major 8-triangle leaf records (col c*8 + j).  The walk is
     discrete, so the table carries no gradient, whatever ``scene``'s fields do."""
     scene = scene._replace(**{k: getattr(scene, k).detach()
-                              for k in ("wd_rec", "wt_rec", "inst_inv", "tr_p0", "tr_e1",
-                                        "tr_e2")})
+                              for k in ("wd_rec", "wt_rec", "wq_rec", "wtq_rec", "inst_inv",
+                                        "tr_p0", "tr_e1", "tr_e2")})
     n_tri = scene.tr_p0.shape[0]
     n_inst = scene.inst_inv.shape[0]
     # id encodings: best = tri << 8 | inst1 (scene/device.py), inst1 in 8 bits
@@ -74,6 +93,8 @@ def build_scene_bvh(scene) -> WideSceneBVH:
     tri_rec = tri.reshape(-1, 8, 9).transpose(1, 2).reshape(-1, 72)
     return WideSceneBVH(
         table=torch.cat([rec, tri_rec], dim=0).contiguous(),
+        qrec=torch.cat([scene.wq_rec, scene.wtq_rec], dim=1).reshape(-1, QREC_WORDS)
+        .contiguous(),
         inst_mat=inst_mat.contiguous(),
         root=wb,
         node_rows=rec.shape[0],
@@ -89,6 +110,7 @@ class Walk(NamedTuple):
     leaves: torch.Tensor  # [N] i32 leaf-record visits
     found: torch.Tensor  # [N] bool (any hit)
     incomplete: torch.Tensor  # [] i32 lanes whose stack overflowed
+    quant: dict | None = None  # trace_plain(quantised=True): STATS, and bits_differ
 
 
 class TraceResult(NamedTuple):
@@ -99,11 +121,86 @@ class TraceResult(NamedTuple):
     incomplete: torch.Tensor  # [] i32 rays whose stack overflowed
 
 
+def _exact_child_bits(rec, o, inv, tb):
+    """[N,8] today's slab test of the 8 children of exact rows ``rec`` [N,72]
+    (``trace_plain``'s, NaN-propagating; the kind test not applied)."""
+    t0 = (rec[:, 0:24].reshape(-1, 3, 8) - o[:, :, None]) * inv[:, :, None]
+    t1 = (rec[:, 24:48].reshape(-1, 3, 8) - o[:, :, None]) * inv[:, :, None]
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    t_near = torch.maximum(torch.clamp_min(lo[:, 0], RAY_EPSILON),
+                           torch.maximum(lo[:, 1], lo[:, 2]))
+    t_far = torch.minimum(torch.minimum(tb[:, None], hi[:, 0]),
+                          torch.minimum(hi[:, 1], hi[:, 2]))
+    return t_near < t_far
+
+
+def node_bits_quantised_plain(qrec, rec, o, d, tb):
+    """The quantised kernel's child test (``csrc/traverse.cu``, quant_kernel) on rows
+    ``qrec`` [N,32] int32 and their exact rows ``rec`` [N,72], for rays ``o``,
+    ``d`` [N,3] in the node's space and best t ``tb`` [N].
+
+    Returns (bits [N,8], undecided [N,8], inner [N,8], exact_lane [N]): the bits
+    the kernel sets; the children neither box decides (the kernel reads their
+    exact floats); those the inner box decides hit; and the lanes that take the
+    exact test for every child (an inverse direction component not finite or
+    0, or an origin not finite: there the slab test can see NaN, which the
+    quantised planes would not reproduce)."""
+    n = qrec.shape[0]
+    inv = 1.0 / d
+    exact_lane = ~((torch.isfinite(inv) & (inv != 0)).all(dim=1) & torch.isfinite(o).all(dim=1))
+    by = qrec.contiguous().view(torch.uint8).reshape(n, 4 * QREC_WORDS)
+    bias = qrec[:, 0:3].contiguous().view(torch.float32)[:, :, None]  # [N,3,1]
+    exp = by[:, 12:15].contiguous().view(torch.int8).to(torch.int32)[:, :, None]
+    alive = ((by[:, 15:16].to(torch.int32) >> torch.arange(8, device=qrec.device)) & 1) > 0
+    planes = by[:, Q_PLANES:Q_PLANES + 48].to(torch.int32).reshape(n, 6, 8)
+    inward = by[:, Q_INWARD:Q_INWARD + 8].to(torch.int32)[:, None, :]  # [N,1,8]
+    axis = torch.arange(3, dtype=torch.int32, device=qrec.device)[None, :, None]
+    in_lo, in_hi = (inward >> axis) & 1, (inward >> (axis + 3)) & 1  # [N,3,8]
+    q_lo, q_hi = planes[:, 0:3], planes[:, 3:6]
+
+    pos = (inv > 0)[:, :, None]
+    q_near, q_far = torch.where(pos, q_lo, q_hi), torch.where(pos, q_hi, q_lo)
+    step = torch.where(pos, 1, -1)
+    qn_in = q_near + step * torch.where(pos, in_lo, in_hi)
+    qf_in = q_far - step * torch.where(pos, in_hi, in_lo)
+    oE, iE = o[:, :, None], inv[:, :, None]
+
+    def plane_t(q):  # ((X(q) + bias) - o) * inv, X(q) = 2^(23+e) + q * 2^e from its bits
+        x = (((exp + 150) << 23) + q).to(torch.int32).view(torch.float32)
+        return ((x + bias) - oE) * iE
+
+    def hits(q_n, q_f):
+        t_near = torch.clamp_min(plane_t(q_n).amax(dim=1), RAY_EPSILON)
+        t_far = torch.minimum(plane_t(q_f).amin(dim=1), tb[:, None])
+        return t_near < t_far
+
+    outer, inner = hits(q_near, q_far) & alive, hits(qn_in, qf_in) & alive
+    nonempty = (qrec[:, 16:24] >> 28) != KIND_EMPTY
+    exact = _exact_child_bits(rec, o, inv, tb) & nonempty
+    undecided = outer & ~inner & nonempty & ~exact_lane[:, None]
+    inner = inner & nonempty & ~exact_lane[:, None]
+    bits = torch.where(exact_lane[:, None], exact, inner | (undecided & exact))
+    return bits, undecided, inner, exact_lane
+
+
+def leaf_live_plain(rec):
+    """[N] the live slots of 8-triangle rows ``rec`` [N,72] (component-major):
+    the least k >= 1 such that slots k..7 equal slot k-1 bit for bit
+    (``accel/wide.py:leaf_live_counts``)."""
+    bits = rec.contiguous().view(torch.int32).reshape(-1, 9, 8)
+    differs = (bits[:, :, 1:] != bits[:, :, :-1]).any(dim=1)  # [N,7]
+    j = torch.arange(1, 8, device=rec.device)
+    return torch.where(differs, j, 0).amax(dim=1) + 1
+
+
 def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int,
-                ordered: bool, any_hit: bool) -> Walk:
+                ordered: bool, any_hit: bool, quantised: bool = False) -> Walk:
     """Plain walk of all lanes, one ``_step`` per iteration, until none is alive.
     Besides the kernel's outputs it counts each lane's leaf visits, from which a
-    caller can compute the work of a walk."""
+    caller can compute the work of a walk.  With ``quantised``, every node visit
+    also runs ``node_bits_quantised_plain`` beside the exact test, which still
+    drives the walk: ``Walk.quant`` counts the visits where the two differ
+    (``bits_differ``) and the quantised kernel's counters (``STATS``)."""
     n = o.shape[0]
     dev = o.device
     i32 = torch.int32
@@ -123,6 +220,9 @@ def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int,
     owx, owy, owz = o[:, 0], o[:, 1], o[:, 2]
     dwx, dwy, dwz = d[:, 0], d[:, 1], d[:, 2]
     inf = torch.tensor(float("inf"), device=dev)
+    quant = dict.fromkeys(("bits_differ", *STATS), 0) if quantised else None
+    exact_lanes = torch.zeros((n,), dtype=torch.bool, device=dev)
+    space = torch.full((n,), -1, dtype=i32, device=dev)  # the kernel's cached instance
 
     while True:
         # ---- pop: resolve POP sentinels from the stack (or retire the ray) ----
@@ -219,6 +319,12 @@ def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int,
         fbv = comp(7).to(i32)
         entries = (fa << 8) | torch.where(fbv > 0, fbv, inst1[:, None])
         bits = (t_near < t_far) & is_node[:, None] & ((fa >> PAYLOAD_BITS) != KIND_EMPTY)
+        if quantised:
+            _count_quantised(quant, exact_lanes, bvh, row, rec, is_node, is_leaf, bits,
+                             torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1), tb)
+            enter = (is_node | is_leaf) & (inst1 != space)
+            quant["enters"] += int(enter.sum())
+            space = torch.where(enter, inst1, space)
 
         # nearest set child is taken now; the rest are pushed far to near
         ibits = bits.to(i32)
@@ -243,7 +349,27 @@ def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int,
         leaves = leaves + is_leaf.to(i32)
 
     lost = (ovf & ~found) if any_hit else ovf
-    return Walk(tb, best, steps, leaves, found, lost.sum(dtype=i32))
+    if quantised:
+        quant["exact_lanes"] = int(exact_lanes.sum())
+    return Walk(tb, best, steps, leaves, found, lost.sum(dtype=i32), quant)
+
+
+def _count_quantised(quant, exact_lanes, bvh, row, rec, is_node, is_leaf, bits, o, d, tb):
+    """One iteration of ``trace_plain(quantised=True)``: the quantised test at
+    its node visits against the exact ``bits``, and the kernel's counters."""
+    node = torch.nonzero(is_node)[:, 0]
+    qbits, undecided, inner, exact_lane = node_bits_quantised_plain(
+        bvh.qrec[row[node].long()], rec[node], o[node], d[node], tb[node])
+    quant["bits_differ"] += int((qbits != bits[node]).any(dim=1).sum())
+    quant["quantised_node_visits"] += int((~exact_lane).sum())
+    quant["exact_lane_node_visits"] += int(exact_lane.sum())
+    quant["undecided_children"] += int(undecided.sum())
+    quant["inner_hits"] += int(inner.sum())
+    exact_lanes[node[exact_lane]] = True
+    live = leaf_live_plain(rec[is_leaf])
+    quant["leaf_visits"] += int(live.shape[0])
+    quant["wide_leaf_visits"] += int((live > 4).sum())
+    quant["live_tests"] += int(live.sum())
 
 
 def _check_rays(what, bvh, o, d, t_max, active, stack_size):
@@ -262,11 +388,19 @@ def _check_rays(what, bvh, o, d, t_max, active, stack_size):
     kernels.require_no_grad(what, o, d, t_max, bvh.table, bvh.inst_mat)
 
 
-def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig):
-    """One rt_trace launch; returns (t, best, steps, found, incomplete)."""
+def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig,
+            form: int = FORMS["quantised"], stats=None):
+    """One rt_trace launch of ``form`` (``FORMS``, or ``_COUNTING``, which adds
+    the counters to ``stats``); returns (t, best, steps, found, incomplete)."""
     global closest_launches, any_launches
     what = "trace_any" if any_hit else "trace_closest"
     _check_rays(what, bvh, o, d, t_max, active, cfg.wide_stack_size)
+    if form != FORMS["exact"]:
+        if (bvh.qrec.dtype != torch.int32 or bvh.qrec.shape != (bvh.node_rows, QREC_WORDS)
+                or bvh.qrec.device != o.device or bvh.qrec.data_ptr() % 16):
+            raise ValueError(f"{what}: qrec [node_rows, 32] int32, 16-byte aligned, "
+                             "on the rays' device expected")
+        kernels.require_contiguous(what, bvh.qrec)
     n = o.shape[0]
     dev = o.device
     incomplete = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -282,23 +416,59 @@ def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderCo
         return t, best, steps, found, incomplete[0]
     P, I = kernels.P, kernels.I
     fn = kernels.entry("traverse", "rt_trace",
-                       [I, P, I, I, P, I, I, P, P, P, P, I, P, P, P, P, P, P])
+                       [I, I, P, P, I, I, P, I, I, P, P, P, P, I, P, P, P, P, P, P, P])
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = fn(int(any_hit), bvh.table.data_ptr(), bvh.node_rows, bvh.root,
-             bvh.inst_mat.data_ptr(), cfg.wide_stack_size,
+    err = fn(int(any_hit), form, bvh.table.data_ptr(), bvh.qrec.data_ptr(), bvh.node_rows,
+             bvh.root, bvh.inst_mat.data_ptr(), cfg.wide_stack_size,
              int(cfg.traversal_strategy == TraversalStrategy.ORDERED),
              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
-             ptr(t), ptr(best), ptr(steps), ptr(found), incomplete.data_ptr(),
+             ptr(t), ptr(best), ptr(steps), ptr(found), incomplete.data_ptr(), ptr(stats),
              kernels.stream_ptr(dev))
-    if any_hit:
+    if form == FORMS["exact"]:
+        exact_launches["any" if any_hit else "closest"] += 1
+    elif any_hit:
         any_launches += 1
     else:
         closest_launches += 1
     kernels.check(err, what)
     return t, best, steps, found, incomplete[0]
+
+
+def trace_form(form: str, any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
+               cfg: RenderConfig) -> tuple:
+    """(t, best, steps, found, incomplete) of one walk by the kernel's ``form``
+    (``FORMS``: "quantised" is the renderer's K1 / K2, "exact" the first walk of the
+    exact records, kept to time and hold the quantised one against; t, best
+    and steps are None for any hit, found for closest).  CPU tensors take
+    ``trace_plain``; CUDA tensors launch ``rt_trace`` (the exact form counted in
+    ``exact_launches``)."""
+    if form not in FORMS:
+        raise ValueError(f"trace_form: form must be one of {tuple(FORMS)}")
+    if o.device.type != "cpu":
+        return _launch(any_hit, bvh, o, d, t_max, active, cfg, FORMS[form])
+    w = trace_plain(bvh, o, d, t_max, active, cfg.wide_stack_size,
+                    cfg.traversal_strategy == TraversalStrategy.ORDERED, any_hit)
+    if any_hit:
+        return None, None, None, w.found, w.incomplete
+    return w.t, w.best, w.steps, None, w.incomplete
+
+
+def walk_stats(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
+               cfg: RenderConfig) -> dict:
+    """The quantised walk's counters (``STATS``): on CUDA tensors from one
+    launch of the kernel's counting instance (counted as a quantised launch),
+    on CPU tensors from ``trace_plain(quantised=True)``, which adds
+    ``bits_differ``."""
+    if o.device.type == "cpu":
+        return trace_plain(bvh, o, d, t_max, active, cfg.wide_stack_size,
+                           cfg.traversal_strategy == TraversalStrategy.ORDERED, any_hit,
+                           quantised=True).quant
+    stats = torch.zeros((len(STATS),), dtype=torch.int64, device=o.device)
+    _launch(any_hit, bvh, o, d, t_max, active, cfg, _COUNTING, stats)
+    return dict(zip(STATS, (int(v) for v in stats.cpu())))
 
 
 def trace_closest(bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig) -> TraceResult:

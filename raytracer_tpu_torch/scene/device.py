@@ -47,6 +47,9 @@ class DeviceScene(NamedTuple):
     # 8-wide BVH records (accel/wide.py): static BLAS block + per-frame wide TLAS
     wd_rec: object  # [8,Wb,72] f32 octant-major fused wide records (global payloads)
     wt_rec: object  # [8,Wt,72] f32 per-frame wide TLAS (root = local 0 -> global Wb)
+    # their quantised copies (accel/wide.py:quantised_records), read by the walk
+    wq_rec: object  # [8,Wb,32] int32 quantised BLAS block (packed once)
+    wtq_rec: object  # [8,Wt,32] int32 quantised per-frame TLAS
     # concatenated bottom-level BVHs (BottomLevelBVH.h)
     nd_min: object  # [M,3]
     nd_max: object
@@ -220,6 +223,8 @@ class ScenePacker:
             out[f] = cat_tr(f[3:] if False else "tri_" + f[3:], np.float32, 3)
         for f in ("tr_t0", "tr_te1", "tr_te2"):
             out[f] = cat_tr("tri_" + f[3:], np.float32, 2)
+        out["wq_rec"] = wide_mod.quantised_records(
+            out["wd_rec"], wide_mod.leaf_live_counts(out["tr_p0"], out["tr_e1"], out["tr_e2"]))
         out["tr_material"] = (
             np.concatenate([m for _, m in tr], axis=0)
             if tr
@@ -283,6 +288,7 @@ class ScenePacker:
         inst_root = np.zeros((n_inst,), np.int32)
         inst_wide_root = np.zeros((n_inst,), np.int32)
         wt_rec = np.zeros((8, 0, 72), np.float32)
+        wtq_rec = np.zeros((8, 0, 32), np.int32)
         if n_inst:
             mins = np.zeros((n_inst, 3))
             maxs = np.zeros((n_inst, 3))
@@ -303,6 +309,7 @@ class ScenePacker:
             wt_rec = wide_mod.octant_records(
                 wtlas, internal_offset=self.wide_node_count
             )
+            wtq_rec = wide_mod.quantised_records(wt_rec)  # instance entries: no leaf
             tlas = build_bvh(mins, maxs, force_split=True)
             # bake leaf 'first' -> instance id (single-instance leaves)
             is_leaf = tlas.node_count > 0
@@ -382,6 +389,8 @@ class ScenePacker:
             inst_root=_canonical(inst_root),
             wd_rec=s["wd_rec"],
             wt_rec=_canonical(wt_rec),
+            wq_rec=s["wq_rec"],
+            wtq_rec=wtq_rec,
             nd_min=s["nd_min"],
             nd_max=s["nd_max"],
             nd_left=s["nd_left"],
@@ -458,6 +467,17 @@ class ScenePacker:
             cam_y=_canonical(cam["cam_y_axis"]),
             ambient=_canonical(np.float32(desc.ambient)),
         )
+
+
+def quantised_fields(fields) -> dict:
+    """``wq_rec`` and ``wtq_rec`` of a scene's other fields (a mapping of
+    arrays): for scenes packed without them, such as the JAX package's."""
+    from ..accel import wide as wide_mod
+
+    live = wide_mod.leaf_live_counts(*(np.asarray(fields[k]) for k in ("tr_p0", "tr_e1",
+                                                                         "tr_e2")))
+    return {"wq_rec": wide_mod.quantised_records(np.asarray(fields["wd_rec"]), live),
+            "wtq_rec": wide_mod.quantised_records(np.asarray(fields["wt_rec"]), live)}
 
 
 def pack_scene(desc: SceneDescription, width: int, height: int) -> DeviceScene:

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from .. import devices
-from .device import DeviceScene
+from .device import DeviceScene, quantised_fields
 
 
 def scene_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> DeviceScene:
@@ -16,10 +16,14 @@ def scene_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> DeviceSce
 
     ``fields`` maps every ``DeviceScene`` field name to an array: this package's
     ``ScenePacker.frame()._asdict()``, or the JAX package's ``DeviceScene._asdict()``
-    passed through ``np.asarray``.  Dtypes are kept (float32 / int32).  ``device``
-    defaults to ``cuda`` and raises without a card (``devices.resolve``).
+    passed through ``np.asarray``; the quantised wide records, which the JAX
+    package does not pack, are derived from the exact ones when both are
+    absent.  Dtypes are kept (float32 / int32).  ``device`` defaults to
+    ``cuda`` and raises without a card (``devices.resolve``).
     """
     dev = devices.resolve(device)
+    if "wq_rec" not in fields and "wtq_rec" not in fields:
+        fields = {**fields, **quantised_fields(fields)}
     missing = [k for k in DeviceScene._fields if k not in fields]
     if missing:
         raise KeyError(f"scene_from_numpy: missing fields {missing}")

@@ -24,6 +24,7 @@ from raytracer_tpu_torch.ops.intersect import Hits, Rays
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import scenes, textures
 from raytracer_tpu_torch.scene.device import ScenePacker
+from torch_quant_rays import made_up_rays
 
 pytestmark = pytest.mark.gpu
 
@@ -806,3 +807,94 @@ def test_gather_kernels_refuse_misaligned_rows(cuda):
         gather.row_gather(base[1:].view(1000, 72), idx, "staged")
     with pytest.raises(ValueError, match="16-byte"):
         gather.chained_gather(base[:1000 * 70].view(1000, 70), idx, 2)
+
+
+def _walk_scene(cuda, name, strategy=TraversalStrategy.ORDERED):
+    """(bvh, cfg, primary rays, a light's shadow rays from their plain hits) of
+    config1 at 64x64 or config4 (rotated instances) at 96x64, on the card."""
+    w, h = (64, 64) if name == "config1" else (96, 64)
+    desc, cfg = scenes.make_scene(name)
+    cfg = cfg.replace(width=w, height=h, traversal_strategy=strategy)
+    rend = renderer.Renderer(cfg, device=cuda)
+    scene = rend.upload(ScenePacker(desc, w, h).frame())
+    bvh = traversal_wide.build_scene_bvh(scene)
+    rays = renderer.generate_primary_rays(scene, cfg)
+    n = rays.count
+    prim = (rays.origin, rays.direction, torch.full((n,), float("inf"), device=cuda),
+            torch.ones((n,), dtype=torch.bool, device=cuda))
+    wk = traversal_wide.trace_plain(bvh, *prim, cfg.wide_stack_size,
+                                    strategy == TraversalStrategy.ORDERED, any_hit=False)
+    hit = wk.best >= 0
+    point = prim[0] + torch.where(hit, wk.t, 0.0)[:, None] * prim[1]
+    light = torch.cat([scene.pl_pos, scene.sl_pos])[0]
+    dist = torch.linalg.norm(light - point, dim=1)
+    shadow = (point, ((light - point) / dist[:, None]).contiguous(), dist, hit)
+    return bvh, cfg, prim, shadow
+
+
+def _forms_match_plain(bvh, cfg, rays, any_hit):
+    """Both forms of K1 / K2 equal trace_plain bit for bit: best, t, steps,
+    found and incomplete; the quantised form's counters equal the plain walk's."""
+    w = traversal_wide.trace_plain(bvh, *rays, cfg.wide_stack_size,
+                                   cfg.traversal_strategy == TraversalStrategy.ORDERED,
+                                   any_hit, quantised=True)
+    assert w.quant["bits_differ"] == 0
+    for form in traversal_wide.FORMS:
+        t, best, steps, found, inc = traversal_wide.trace_form(form, any_hit, bvh, *rays, cfg)
+        if any_hit:
+            assert torch.equal(found, w.found), form
+        else:
+            assert torch.equal(best, w.best) and torch.equal(steps, w.steps), form
+            assert torch.equal(t.view(torch.int32), w.t.view(torch.int32)), form
+        assert int(inc) == int(w.incomplete), form
+    stats = traversal_wide.walk_stats(any_hit, bvh, *rays, cfg)
+    assert stats == {k: w.quant[k] for k in traversal_wide.STATS}
+
+
+@pytest.mark.parametrize("name, strategy", [("config1", TraversalStrategy.ORDERED),
+                                            ("config4", TraversalStrategy.ORDERED),
+                                            ("config4", TraversalStrategy.NAIVE)])
+def test_quantised_walks_match_plain(cuda, name, strategy):
+    """K1 and K2, the renderer's quantised form and the exact-record form, on
+    primary and shadow rays (NAIVE: every ray reads octant 0's rows);
+    trace_closest / trace_any launch the quantised form, trace_form("exact")
+    the other, each counted where it launches."""
+    bvh, cfg, prim, shadow = _walk_scene(cuda, name, strategy)
+    _forms_match_plain(bvh, cfg, prim, any_hit=False)
+    _forms_match_plain(bvh, cfg, shadow, any_hit=True)
+    before = (traversal_wide.closest_launches, traversal_wide.any_launches,
+              dict(traversal_wide.exact_launches))
+    res = traversal_wide.trace_closest(bvh, *prim, cfg)
+    found, _ = traversal_wide.trace_any(bvh, *shadow, cfg)
+    traversal_wide.trace_form("exact", False, bvh, *prim, cfg)
+    traversal_wide.trace_form("exact", True, bvh, *shadow, cfg)
+    assert (traversal_wide.closest_launches, traversal_wide.any_launches) == (before[0] + 1,
+                                                                              before[1] + 1)
+    assert traversal_wide.exact_launches == {k: v + 1 for k, v in before[2].items()}
+    w = traversal_wide.trace_plain(bvh, *prim, cfg.wide_stack_size,
+                                   strategy == TraversalStrategy.ORDERED, any_hit=False)
+    assert torch.equal(res.steps, w.steps)
+
+
+@pytest.mark.parametrize("name", ["config1", "config4"])
+def test_quantised_walks_made_up_rays(cuda, name):
+    """Both forms on rays with +-0 direction components, origins on child
+    planes, through corners and edges, and t_max at a child's entry t (aimed at
+    the children of the table's node rows, taken as world space)."""
+    bvh, cfg, _, _ = _walk_scene(cuda, name)
+    rows = bvh.table[:bvh.node_rows].cpu().numpy()
+    for label, (_, o, d, t_max) in made_up_rays(rows, 20_000, seed=3).items():
+        rays = tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(cuda)
+                     for x in (o, d, t_max))
+        rays = (*rays, torch.ones((o.shape[0],), dtype=torch.bool, device=cuda))
+        _forms_match_plain(bvh, cfg, rays, any_hit=False)
+        _forms_match_plain(bvh, cfg, rays, any_hit=True)
+
+
+def test_quantised_walk_refuses_a_misaligned_record_table(cuda):
+    """The quantised form reads its records with 16-byte loads."""
+    bvh, cfg, prim, _ = _walk_scene(cuda, "config1")
+    flat = torch.zeros(bvh.qrec.numel() + 1, dtype=torch.int32, device=cuda)
+    bad = bvh._replace(qrec=flat[1:].view(bvh.qrec.shape))
+    with pytest.raises(ValueError, match="16-byte"):
+        traversal_wide.trace_closest(bad, *prim, cfg)
