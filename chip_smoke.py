@@ -42,10 +42,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    incomplete must be 0) and each kernel's launches in one frame;
 6b. the threaded walk: config3 at 1080p under ``traversal_kernel="threaded"``
    (K10 in place of K1/K2), one frame with the counts at 0 (K10's inputs of
-   every generation kept for its rows), the median of 3 timed frames, MRays/s,
-   a profiled frame, the share of pixels more than 1e-3 from the wide walk's
-   frame (ties only), then one fwd+bwd step with the counts at 0 and the median
-   of 3 timed steps (both loss counters 0, finite gradients);
+   every generation kept for its rows, as of one config4 frame under the
+   threaded walk), the median of 3 timed frames, MRays/s, a profiled frame
+   (its device time, K10's in it), the time of packing the frame's tables
+   (``build_scene_bvh``, its device time by the profiler), the share of pixels
+   more than 1e-3 from the wide walk's frame (ties only), then one fwd+bwd step
+   with the counts at 0, the median of 3 timed steps and a profiled step's
+   device time (both loss counters 0, finite gradients);
 7. kernel vs plain: each kernel and its plain PyTorch version on the card, on
    the inputs the main path gave that kernel in generation 0 (the forward
    kernels on config3's frame and on config4's; K3 and K4 in every mode on
@@ -78,7 +81,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    yardstick), both held to the plain walk, each with its device time and
    bytes as issued, and the quantised walk's counters (undecided children,
    lanes with a 0 direction component, live triangles a leaf visit) held to
-   the plain walk's; K3 with its device time;
+   the plain walk's; K10 on every generation of config3's and config4's
+   threaded frames, and on config3's generation 0 in both forms (the
+   renderer's octant records, any hit over the active lanes, and the split
+   tables of the first version, the yardstick), each held to the plain walk
+   with its ms, device time, bytes as issued and sectors touched
+   (``microbench/threaded.py``), beside the tables' sizes and the walk's warp
+   efficiency; K3 with its device time;
 7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
    through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
    ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
@@ -89,7 +98,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel, so none waits on the host); then K12 on config3's wide table (10
    dependent 288-byte rows for each of the 2,073,600 lanes) beside K1's time
    in this run, and its latency (one warp an SM, 1,000 steps a lane), and K12
-   over the same rows cut to the quantised record's 128 bytes;
+   over the same rows cut to the quantised record's 128 bytes; then K12 over
+   the threaded walk's box rows, 54 dependent rows a lane, as they are (24
+   bytes, 32-bit loads) and padded to 32 bytes (16-byte loads);
 8. small-input checks, the card against the same render on the CPU through the
    plain versions: config3 at 64x36 (20k triangles; also under the threaded
    walk), config4 at 96x64 on animation frames 0 and 2, config2 at 64x64 and 8
@@ -385,7 +396,8 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     from raytracer_tpu_torch.microbench import gather as mb_gather
     from raytracer_tpu_torch.microbench import table_gather as mb_table_gather
     from raytracer_tpu_torch.microbench import table_rowsum as mb_table_rowsum
-    from raytracer_tpu_torch.ops import gather, traversal_wide
+    from raytracer_tpu_torch.microbench import threaded as mb_threaded
+    from raytracer_tpu_torch.ops import gather, traversal, traversal_wide
 
     dev = scene.tr_p0.device
     t_gather = time.perf_counter()
@@ -559,6 +571,16 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     if not same:
         problems.append("K12 on config3's wide table differs from its plain version")
     del wide, idx
+
+    # K12 over the threaded walk's box rows (K10's table), 54 dependent rows a
+    # lane (K10's node visits a primary ray): the rows as they are, 24 bytes
+    # with 32-bit loads, and padded to 32 bytes with 16-byte loads
+    floors = mb_threaded.chain_floor(traversal.build_scene_bvh(scene), WIDTH * HEIGHT,
+                                     mb_threaded.CHAIN_ITERS, dev, 20)
+    k10 = next(r for r in report if r["name"] == "threaded_closest")
+    emit("gather_threaded_table", rows=floors, k10_ms=k10["ms"], nvidia_smi=smi)
+    if not all(f["exact"] for f in floors):
+        problems.append("K12 on the threaded walk's box rows differs from its plain version")
     emit("gather", seconds=time.perf_counter() - t_gather)
     return problems
 
@@ -588,6 +610,7 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.config import MipmapFilter, TextureSampleMode, TraversalStrategy
     from raytracer_tpu_torch.diff import train
     from raytracer_tpu_torch.microbench import scatter
+    from raytracer_tpu_torch.microbench import threaded as mb_threaded
     from raytracer_tpu_torch.ops import (
         compaction, framebuffer, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
         traversal_wide,
@@ -1017,6 +1040,21 @@ def main(argv=None) -> int:
             renderer.present(img4, cfg4)
         torch.cuda.synchronize()
 
+    # config4's frame under the threaded walk: K10's inputs of every generation,
+    # which its rows check beside config3's
+    reset_counts()
+    with Recorder([(traversal, "trace_closest", "threaded_closest"),
+                   (traversal, "trace_any", "threaded_any")],
+                  every_call=("threaded_closest", "threaded_any")) as th4_rec:
+        th4_rec.capture = True
+        _, th4_stats = renderer.Renderer(cfg4.replace(traversal_kernel="threaded"),
+                                         device="cuda")(scene4)
+        torch.cuda.synchronize()
+    threaded4_calls = th4_rec.calls
+    th4_counters = {k: int(v) for k, v in th4_stats._asdict().items()}
+    if th4_counters["num_dropped"] or th4_counters["num_incomplete"]:
+        return fail(f"config4 threaded loss counters not 0: {th4_counters}")
+
     # ------------------------------------------------------ 6. configs 0 and 2
     k9_calls = {"config4": rec4.calls}  # K9's inputs, every call of one frame
     for name in ("config0", "config2"):
@@ -1081,6 +1119,10 @@ def main(argv=None) -> int:
         th_frame_s.append(time.perf_counter() - t0)
     th_profile = profile_frame(lambda: th_rend(scene))
 
+    # the records' packing, every frame in build_scene_bvh (one host read of
+    # the packer's checks), beside the rest of the frame
+    th_pack_ms = cuda_ms(lambda: traversal.build_scene_bvh(scene), 5)
+    th_pack_device_ms = profile_frame(lambda: traversal.build_scene_bvh(scene))["device_busy_ms"]
     th_params = train.extract_params(scene)
     reset_counts()
     _, th_sstats = fwd_bwd(th_params, th_cfg)
@@ -1103,7 +1145,13 @@ def main(argv=None) -> int:
          pixels_off_wide_share=share_off, pixels_off_wide_bound=THREADED_PIXEL_SHARE,
          max_abs_off_wide=float(th_diff.max()),
          launches={k: n for k, n in threaded_launches.items() if n}, profile=th_profile,
-         step_ms=th_step_ms, step_ms_all=[(a + b) * 1e3 for a, b in th_splits],
+         frame_device_ms=th_profile["device_busy_ms"],
+         step_device_ms=th_step_profile["device_busy_ms"],
+         k10_device_ms_in_frame={k["name"]: k["ms"]
+                                 for k in th_profile.get("top_device_kernels", [])
+                                 if "rec_kernel" in k["name"]},
+         pack_ms=th_pack_ms, pack_device_ms=th_pack_device_ms, step_ms=th_step_ms,
+         step_ms_all=[(a + b) * 1e3 for a, b in th_splits],
          fwd_ms=statistics.median(a * 1e3 for a, _ in th_splits),
          bwd_ms=statistics.median(b * 1e3 for _, b in th_splits),
          fwd_bwd_mrays_per_s=rays_of(th_scounters) / (th_step_ms / 1e3) / 1e6,
@@ -1825,10 +1873,12 @@ def main(argv=None) -> int:
     del hits_args, h_scene, h_rays, h_res, h_prior, geom_args, p_out, p_outs, ray_leaves, cots
     del valid
 
-    # K10 closest and any hit, on every generation of the threaded frame,
-    # against traversal.trace_plain; timed on generation 0
-    def check_threaded(any_hit, bvh, o, d, t_max, active, kcfg):
-        walk = traversal.trace_plain(bvh, o, d, t_max, active, ordered(kcfg), any_hit)
+    # K10 closest and any hit, on every generation of the threaded frames of
+    # config3 and config4, against traversal.trace_plain; timed on config3's
+    # generation 0 in each form
+    def check_threaded(any_hit, bvh, o, d, t_max, active, kcfg, walk=None):
+        if walk is None:
+            walk = traversal.trace_plain(bvh, o, d, t_max, active, ordered(kcfg), any_hit)
         if any_hit:
             kfound, kinc = traversal.trace_any(bvh, o, d, t_max, active, kcfg)
             same = bool(torch.equal(kfound, walk.found))
@@ -1853,26 +1903,63 @@ def main(argv=None) -> int:
         ("threaded_any", True, "raytracer_tpu/ops/traversal.py:381"),
     ):
         calls = threaded_calls[name]
-        checked = [check_threaded(any_hit, *a) for a, _ in calls]
         (bvh, o, d, t_max, active, kcfg), _ = calls[0]
+        walk = traversal.trace_plain(bvh, o, d, t_max, active, ordered(kcfg), any_hit,
+                                     visits=True)
+        checked = [check_threaded(any_hit, *a, walk=walk if k == 0 else None)
+                   for k, (a, _) in enumerate(calls)]
+        checked4 = [check_threaded(any_hit, *a) for a, _ in threaded4_calls[name]]
         fn = traversal.trace_any if any_hit else traversal.trace_closest
         nodes, pairs = checked[0]["node_visits"], checked[0]["pair_visits"]
         entries, rays = checked[0]["entries"], checked[0]["active"]
         out_bytes = o.shape[0] * (1 if any_hit else 12)
+        # both forms on generation 0, held to the plain walk (the octant form's
+        # any hit over the active lanes K6 lists, as trace_any walks them)
+        forms = {}
+        for form in traversal.FORMS:
+            def run(form=form):
+                return traversal.trace_form(form, any_hit, bvh, o, d, t_max, active, kcfg)
+            kt, kbest, ksteps, kfound, kinc = run()
+            same = (bool(torch.equal(kfound, walk.found)) if any_hit else
+                    bool(torch.equal(kbest, walk.best) and torch.equal(ksteps, walk.steps)
+                         and torch.equal(kt.view(torch.int32), walk.t.view(torch.int32))))
+            forms[form] = {
+                "exact": same and int(kinc) == 0, "ms": cuda_ms(run, 5),
+                "device_ms": microbench.device_ms(run, dev, reps=20),
+                **mb_threaded.traffic(form, bvh, walk, o.shape[0], any_hit)}
+        k_dev = microbench.device_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), dev, reps=20)
+        own = forms["octant"]
+        speedup = forms["split"]["device_ms"] / own["device_ms"]  # kernel to kernel
+        iters = walk.steps + walk.pairs
         plain_ms = cuda_ms(lambda: traversal.trace_plain(bvh, o, d, t_max, active,
                                                          ordered(kcfg), any_hit), 1)
         record(name, "raytracer_tpu_torch/csrc/traverse_threaded.cu", replaces,
-               max(c["max_abs_err"] for c in checked),
+               max(c["max_abs_err"] for c in checked + checked4),
                cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5), plain_ms,
-               bound_ms(nbytes(o, d, t_max, active, *bvh) + out_bytes,
+               bound_ms(nbytes(o, d, t_max, active, bvh.box, bvh.node, bvh.links, bvh.inst_mat,
+                               bvh.inst_root, bvh.tri) + out_bytes,
                         rays * OPS_TRAY + entries * OPS_TENTRY + nodes * OPS_TNODE
                         + pairs * OPS_TPAIR),
-               None, all(c["passed"] for c in checked), node_visits=nodes, pair_visits=pairs,
-               entries=entries,
-               per_generation=checked,
+               None, all(c["passed"] for c in checked + checked4)
+               and all(f["exact"] for f in forms.values()),
+               device_ms=k_dev, kernel=f"rec_kernel<{str(any_hit).lower()}>",
+               split_form={k: forms["split"][k] for k in ("ms", "device_ms", "bytes_as_issued",
+                                                         "sectors_touched")},
+               speedup_over_split_form=speedup,
+               bytes_as_issued=own["bytes_as_issued"], sectors_touched=own["sectors_touched"],
+               forms=forms, tables=mb_threaded.tables(bvh),
+               warp_efficiency=mb_threaded.warp_efficiency(iters),
+               warp_efficiency_compacted=mb_threaded.warp_efficiency(iters[active]),
+               targets={"device_ms <= 1.0": k_dev <= 1.0,
+                        "split form / octant form >= 1.5": speedup >= 1.5,
+                        "split form / octant form >= 1.3": speedup >= 1.3},
+               node_visits=nodes, pair_visits=pairs, entries=entries,
+               per_generation=checked, config4_per_generation=checked4,
                tolerance="ids, t, steps and found identical on every lane of every "
-                         "generation of the threaded 1080p frame")
-    del threaded_calls
+                         "generation of the threaded 1080p frame and of config4's "
+                         "threaded frame; every form identical on generation 0")
+        del walk
+    del threaded_calls, threaded4_calls
     del inputs
 
     # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame

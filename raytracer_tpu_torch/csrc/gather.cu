@@ -49,7 +49,9 @@
 // With kIndep the indices come from idx_all[i, n] instead
 // (bench_pallas_chained.py:107-113).  A row is read as R/4 independent 16-byte
 // loads (R = 72 and 128 unrolled whole); its sum runs left to right, as
-// ops/gather.py's, so acc and j equal the plain version's.
+// ops/gather.py's, so acc and j equal the plain version's.  chain_scalar_kernel
+// reads rows of any width with 32-bit loads (the threaded walk's 24-byte box
+// rows, whose stride straddles 32-byte sectors).
 // Bound: bytes (each distinct row once) at the harness's shapes with a table
 // beyond L2; operations (R + 5 a step) once the table is small.  The measure of
 // interest is its time a lane-iteration: one dependent 16-byte-load round trip
@@ -253,6 +255,30 @@ __global__ void chain_kernel(const float4* __restrict__ table, int t, int r4,
   if (!kIndep) j_out[lane] = j;
 }
 
+// K12 over rows of any width R, read with 32-bit loads (R = 6: the threaded
+// walk's [U,6] box rows at their own 24-byte stride; kR = 0 for other widths)
+template <int kR>
+__global__ void chain_scalar_kernel(const float* __restrict__ table, int t, int r,
+                                    const int* __restrict__ idx, int n, int iters,
+                                    float* __restrict__ acc_out, int* __restrict__ j_out) {
+  int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= n) return;
+  const int w = kR > 0 ? kR : r;
+  float acc = 0.0f;
+  int j = idx[lane];
+  for (int i = 0; i < iters; ++i) {
+    const float* row = table + (size_t)j * w;
+    const float first = __ldg(row);
+    float s = first;
+#pragma unroll
+    for (int c = 1; c < w; ++c) s += __ldg(row + c);
+    acc = acc + s;
+    j = next_index(j, first * (float)t, i, t);
+  }
+  acc_out[lane] = acc;
+  j_out[lane] = j;
+}
+
 template <bool kChain>
 __global__ void rowsum_kernel(const float* __restrict__ tab, int c_dim, int u_dim,
                               const int* __restrict__ idx, int n, int iters,
@@ -354,6 +380,21 @@ extern "C" int rt_chained_gather(int indep, const void* table, int t, int r4, co
     launch_chain<32>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
   else
     launch_chain<0>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
+  return (int)cudaGetLastError();
+}
+
+// K12 chained over rows of r floats with 32-bit loads: table [t, r] f32; idx:
+// [n] int32, the first rows; acc: [n] f32; j_out: [n] int32.
+extern "C" int rt_chained_gather_scalar(const void* table, int t, int r, const void* idx, int n,
+                                        int iters, void* acc, void* j_out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned grid = rt::grid_for(n, kThreads);
+  if (r == 6)
+    chain_scalar_kernel<6><<<grid, kThreads, 0, s>>>((const float*)table, t, r, (const int*)idx,
+                                                     n, iters, (float*)acc, (int*)j_out);
+  else
+    chain_scalar_kernel<0><<<grid, kThreads, 0, s>>>((const float*)table, t, r, (const int*)idx,
+                                                     n, iters, (float*)acc, (int*)j_out);
   return (int)cudaGetLastError();
 }
 

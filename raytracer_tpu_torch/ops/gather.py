@@ -179,18 +179,31 @@ def _launch_chain(indep: bool, table, idx, n, iters, acc, j_out) -> None:
     kernels.check(err, "rt_chained_gather")
 
 
-def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int) -> tuple:
+def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int,
+                   loads: str = "vector") -> tuple:
     """K12: (acc [N] f32, j [N] int32) of ``chained_gather_plain``, one thread a
     chain.  CPU tensors take the plain version; CUDA tensors launch
-    ``rt_chained_gather`` (counted in ``launches["chained"]``)."""
+    ``rt_chained_gather`` (``loads="vector"``: 16-byte loads of rows of whole
+    16-byte pieces) or ``rt_chained_gather_scalar`` (``"scalar"``: 32-bit loads
+    of rows of any width), counted in ``launches["chained"]``."""
     _check("chained_gather", table, idx0, 1)
     iters = _iters("chained_gather", iters, table.shape[0])
+    if loads not in ("vector", "scalar"):
+        raise ValueError("chained_gather: loads must be 'vector' or 'scalar'")
     if table.device.type == "cpu":
         return chained_gather_plain(table, idx0, iters)
     n = idx0.shape[0]
     acc = torch.empty((n,), dtype=torch.float32, device=table.device)
     j = torch.empty_like(idx0)
-    if n:
+    if n and loads == "scalar":
+        fn = kernels.entry("gather", "rt_chained_gather_scalar",
+                           [kernels.P, kernels.I, kernels.I, kernels.P, kernels.I, kernels.I,
+                            kernels.P, kernels.P, kernels.P])
+        err = fn(table.data_ptr(), table.shape[0], table.shape[1], idx0.data_ptr(), n, iters,
+                 acc.data_ptr(), j.data_ptr(), kernels.stream_ptr(table.device))
+        launches["chained"] += 1
+        kernels.check(err, "rt_chained_gather_scalar")
+    elif n:
         _launch_chain(False, table, idx0, n, iters, acc, j)
     return acc, j
 

@@ -17,7 +17,13 @@ octant 0's links.  The walk runs until done: it has no iteration budget, so
 ``incomplete`` is 0 (the kernel still reports rays that hit its guard).
 
 ``trace_closest`` / ``trace_any`` launch ``csrc/traverse_threaded.cu`` for CUDA
-tensors and run ``trace_plain`` for CPU tensors.
+tensors and run ``trace_plain`` for CPU tensors.  The kernel reads one 32-byte
+record a node visit (``octant_records``, packed on the device by
+``build_scene_bvh`` every frame) and an 80-byte row a triangle pair
+(``pair_rows``), each with 16-byte loads; ``trace_any`` walks only the active
+lanes, which K6 lists on the device first.  The first version's split tables
+stay, read by ``trace_form("split", ...)``, the yardstick, and by
+``trace_plain``.
 """
 
 from __future__ import annotations
@@ -29,11 +35,26 @@ import torch
 from .. import kernels
 from ..accel.links import BLAS_EXIT
 from ..config import RAY_EPSILON, RenderConfig, TraversalStrategy
+from . import compaction
 from .traversal_wide import TraceResult
 
 # rt_trace_threaded launches, closest and any hit (reset and read by chip_smoke.py)
 closest_launches = 0
 any_launches = 0
+
+# rt_trace_threaded's form argument: "octant" (the renderer's) reads one 32-byte
+# record a node visit and 80-byte pair rows with 16-byte loads, "split" the
+# first version's tables (box, node, links, tri) with 32-bit loads
+FORMS = {"split": 0, "octant": 1}
+# the split form's launches by trace_form (reset and read by chip_smoke.py)
+split_launches = {"closest": 0, "any": 0}
+REC_WORDS = 8  # a node record: 32 bytes
+PAIR_FLOATS = 20  # a pair row: its two triangles' 18 floats and 2 of padding, 80 bytes
+# the octant layout's leaf payload in the near word (csrc/traverse_threaded.cu):
+# bit 31 set (never a node, never DONE or BLAS_EXIT), bit 30 a TLAS leaf;
+# BLAS leaf: count / 2 << 21 | left / 2; TLAS leaf: count << 8 | instance
+LEAF_BIT, TLAS_BIT = -(1 << 31), 1 << 30
+BLAS_PAIR_BITS, BLAS_COUNT_BITS, TLAS_INST_BITS, TLAS_COUNT_BITS = 21, 9, 8, 21
 
 # node kinds
 INTERNAL, TLAS_LEAF, BLAS_LEAF = 0, 1, 2
@@ -49,6 +70,8 @@ class SceneBVH(NamedTuple):
     inst_mat: torch.Tensor  # [I+1,12] f32 inverse instance matrices (slot 0 identity)
     inst_root: torch.Tensor  # [I+1] i32 global BLAS root per instance (slot 0 unused)
     tri: torch.Tensor  # [T,9] f32 p0 | e1 | e2 (leaf ranges pair-aligned)
+    rec: torch.Tensor  # [8U,8] i32 octant records (octant_records)
+    pairs: torch.Tensor  # [T/2,20] f32 triangle-pair rows (pair_rows)
 
     @property
     def n_nodes(self) -> int:
@@ -87,16 +110,64 @@ def build_scene_bvh(scene) -> SceneBVH:
     bl_links = torch.where(scene.nd_links >= 0, scene.nd_links + n_tlas, scene.nd_links)
     identity = torch.cat([torch.eye(3, dtype=torch.float32, device=dev),
                           torch.zeros((3, 1), dtype=torch.float32, device=dev)], dim=1)
+    box = torch.cat([torch.cat([scene.tl_min, scene.tl_max], dim=1),
+                     torch.cat([scene.nd_min, scene.nd_max], dim=1)]).contiguous()
+    node = torch.stack([left, kind, count], dim=1).contiguous()
+    links = torch.cat([scene.tl_links, bl_links], dim=1).to(i32).contiguous()
+    tri = torch.cat([scene.tr_p0, scene.tr_e1, scene.tr_e2], dim=1).contiguous()
     return SceneBVH(
-        box=torch.cat([torch.cat([scene.tl_min, scene.tl_max], dim=1),
-                       torch.cat([scene.nd_min, scene.nd_max], dim=1)]).contiguous(),
-        node=torch.stack([left, kind, count], dim=1).contiguous(),
-        links=torch.cat([scene.tl_links, bl_links], dim=1).to(i32).contiguous(),
+        box=box, node=node, links=links,
         inst_mat=torch.cat([identity[None], scene.inst_inv]).reshape(-1, 12).contiguous(),
         inst_root=torch.cat([torch.zeros((1,), dtype=i32, device=dev),
                              (scene.inst_root + n_tlas).to(i32)]).contiguous(),
-        tri=torch.cat([scene.tr_p0, scene.tr_e1, scene.tr_e2], dim=1).contiguous(),
+        tri=tri, rec=octant_records(box, node, links), pairs=pair_rows(tri),
     )
+
+
+def octant_records(box: torch.Tensor, node: torch.Tensor, links: torch.Tensor) -> torch.Tensor:
+    """K10's node records: [8U,8] i32, octant-major, a node's box (its bits)
+    with the octant's near and skip, 32 bytes, so that a node visit is one
+    sector read by two 16-byte loads.  A leaf's near, which no walk follows, holds
+    its payload (``LEAF_BIT`` set): a BLAS leaf's left / 2 and count / 2, a
+    TLAS leaf's instance and count.  Raises ``ValueError`` where a value
+    exceeds its bits or an internal node's near is not a node."""
+    u = box.shape[0]
+    if u >= 1 << 22:
+        raise ValueError("octant_records: node count exceeds 2^22")
+    left, kind, count = node.unbind(1)
+    near, skip = links.unbind(2)  # [8,U]
+    internal, tlas, blas = kind == INTERNAL, kind == TLAS_LEAF, kind == BLAS_LEAF
+    faults = torch.stack([  # one read back a frame for all four checks
+        (~(internal | tlas | blas)).any(),
+        (blas & ((left < 0) | (left >> 1 >= 1 << BLAS_PAIR_BITS) | (count < 0)
+                 | (count >> 1 >= 1 << BLAS_COUNT_BITS))).any(),
+        (tlas & ((left < 0) | (left >= 1 << TLAS_INST_BITS) | (count < 0)
+                 | (count >= 1 << TLAS_COUNT_BITS))).any(),
+        (internal[None] & (near < 0)).any()]).tolist()
+    for fault, msg in zip(faults, (
+            "node kinds are 0, 1 and 2",
+            f"a BLAS leaf's left / 2 must lie in [0, 2^{BLAS_PAIR_BITS}) and its count / 2 "
+            f"in [0, 2^{BLAS_COUNT_BITS})",
+            f"a TLAS leaf's instance must lie in [0, 2^{TLAS_INST_BITS}) and its count in "
+            f"[0, 2^{TLAS_COUNT_BITS})",
+            "an internal node's near link must be a node")):
+        if fault:
+            raise ValueError(f"octant_records: {msg}")
+    payload = torch.where(tlas, TLAS_BIT | (count << 8) | left,
+                          ((count >> 1) << BLAS_PAIR_BITS) | (left >> 1)) | LEAF_BIT
+    near = torch.where(internal[None], near, payload.to(torch.int32)[None])
+    bits = box.contiguous().view(torch.int32)[None].expand(8, u, 6)
+    return torch.cat([bits, near[..., None], skip[..., None]], dim=2).reshape(8 * u, REC_WORDS)
+
+
+def pair_rows(tri: torch.Tensor) -> torch.Tensor:
+    """[T/2,20] f32: rows 2p and 2p + 1 of ``tri`` and two zeros, 80 bytes a pair,
+    so that a pair is five 16-byte loads."""
+    if tri.shape[0] % 2:
+        raise ValueError("pair_rows: an even number of triangle rows expected")
+    p = tri.reshape(-1, 18)
+    return torch.cat([p, torch.zeros((p.shape[0], 2), dtype=p.dtype, device=p.device)],
+                     dim=1).contiguous()
 
 
 class Walk(NamedTuple):
@@ -109,6 +180,8 @@ class Walk(NamedTuple):
     entries: torch.Tensor  # [N] i32 TLAS-leaf entries (instance transforms)
     found: torch.Tensor  # [N] bool (any hit)
     incomplete: torch.Tensor  # [] i32, 0: the walk has no budget
+    node_hist: torch.Tensor | None = None  # [U] i64 visits of each node (``visits``)
+    pair_hist: torch.Tensor | None = None  # [T/2] i64 visits of each triangle pair
 
 
 def _triangle_hit(ox, oy, oz, dx, dy, dz, r, t_max):
@@ -132,11 +205,13 @@ def _triangle_hit(ox, oy, oz, dx, dy, dz, r, t_max):
     return hit, t
 
 
-def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool) -> Walk:
+def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool,
+                visits: bool = False) -> Walk:
     """Plain walk: one ``_step`` per iteration over the lanes still alive, until
     none is.  Besides the kernel's outputs it counts each lane's pair visits,
     and its TLAS-leaf entries, from which a caller can compute the work of a
-    walk."""
+    walk; with ``visits`` also the visits of each node and each pair (which
+    rows the walk reads)."""
     n = o.shape[0]
     dev = o.device
     i32 = torch.int32
@@ -161,6 +236,10 @@ def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool
     entries = torch.zeros((k,), dtype=i32, device=dev)
     found = torch.zeros((k,), dtype=torch.bool, device=dev)
     ow, dw = o[lane], d[lane]
+    node_hist = pair_hist = None
+    if visits:
+        node_hist = torch.zeros((bvh.n_nodes,), dtype=torch.int64, device=dev)
+        pair_hist = torch.zeros((bvh.tri.shape[0] // 2,), dtype=torch.int64, device=dev)
 
     while lane.shape[0]:
         # ---- resolve a BLAS exit before the transform: the ray is back in world space
@@ -199,6 +278,8 @@ def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool
         pi = torch.where(has_tri, pi + 1, pi)
         rem = torch.where(has_tri, rem - 1, rem)
         pairs = pairs + has_tri.to(i32)
+        if visits:
+            pair_hist.index_add_(0, p[has_tri], torch.ones_like(p[has_tri]))
 
         # ---- node phase: follow the threaded links
         do_node = ~has_tri & (cur >= 0) & ~found
@@ -238,6 +319,8 @@ def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool
         cur = torch.where(do_node, nxt, cur)
         steps = steps + do_node.to(i32)
         entries = entries + is_tl.to(i32)
+        if visits:
+            node_hist.index_add_(0, nidx[do_node], torch.ones_like(nidx[do_node]))
 
         # ---- retire the lanes that are done
         alive = (cur >= 0) | (cur == BLAS_EXIT) | (rem > 0)
@@ -260,36 +343,55 @@ def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool
                                                   pairs[keep], entries[keep], found[keep])
 
     zero = torch.zeros((), dtype=i32, device=dev)
-    return Walk(t_out, best_out, steps_out, pairs_out, entries_out, found_out, zero)
+    return Walk(t_out, best_out, steps_out, pairs_out, entries_out, found_out, zero, node_hist,
+                pair_hist)
 
 
 def _check_rays(what, bvh, o, d, t_max, active):
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3) or t_max.shape != (n,) or active.shape != (n,):
         raise ValueError(f"{what}: o, d [N,3], t_max, active [N] expected")
-    if any(x.dtype != torch.float32 for x in (o, d, t_max, bvh.box, bvh.inst_mat, bvh.tri)):
+    if any(x.dtype != torch.float32
+           for x in (o, d, t_max, bvh.box, bvh.inst_mat, bvh.tri, bvh.pairs)):
         raise TypeError(f"{what}: float32 rays and tables expected")
-    if any(x.dtype != torch.int32 for x in (bvh.node, bvh.links, bvh.inst_root)):
-        raise TypeError(f"{what}: int32 node, link and root tables expected")
+    if any(x.dtype != torch.int32 for x in (bvh.node, bvh.links, bvh.inst_root, bvh.rec)):
+        raise TypeError(f"{what}: int32 node, record, link and root tables expected")
     if active.dtype != torch.bool:
         raise TypeError(f"{what}: active must be bool")
     if any(x.device != o.device for x in (d, t_max, active, *bvh)):
         raise ValueError(f"{what}: inputs on different devices")
     kernels.require_contiguous(what, o, d, t_max, active, *bvh)
-    kernels.require_no_grad(what, o, d, t_max, bvh.box, bvh.inst_mat, bvh.tri)
+    kernels.require_no_grad(what, o, d, t_max, bvh.box, bvh.inst_mat, bvh.tri, bvh.pairs)
 
 
-def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig):
-    """One rt_trace_threaded launch; returns (t, best, steps, found, incomplete)."""
+def _check_records(what: str, bvh: SceneBVH) -> None:
+    """The octant form's tables: the records' and pair rows' shapes, and the
+    16-byte aligned bases its vector loads need."""
+    if tuple(bvh.rec.shape) != (8 * bvh.n_nodes, REC_WORDS):
+        raise ValueError(f"{what}: rec [8U, {REC_WORDS}] expected")
+    if tuple(bvh.pairs.shape) != (bvh.tri.shape[0] // 2, PAIR_FLOATS):
+        raise ValueError(f"{what}: pairs [T/2, {PAIR_FLOATS}] expected")
+    if any(x.data_ptr() % 16 for x in (bvh.rec, bvh.pairs, bvh.inst_mat)):
+        raise ValueError(f"{what}: rec, pairs and inst_mat must be 16-byte aligned")
+
+
+def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig,
+            form: str = "octant"):
+    """One rt_trace_threaded launch of ``form``; the octant form's any hit over
+    the active lanes listed by K6 (``compact_launch``, nothing read back).
+    Returns (t, best, steps, found, incomplete)."""
     global closest_launches, any_launches
     what = "threaded trace_any" if any_hit else "threaded trace_closest"
     _check_rays(what, bvh, o, d, t_max, active)
+    if form == "octant":
+        _check_records(what, bvh)
     n = o.shape[0]
     dev = o.device
     incomplete = torch.zeros((1,), dtype=torch.int32, device=dev)
+    compact = any_hit and form == "octant"
     if any_hit:
         t = best = steps = None
-        found = torch.empty((n,), dtype=torch.bool, device=dev)
+        found = (torch.zeros if compact else torch.empty)((n,), dtype=torch.bool, device=dev)
     else:
         t = torch.empty((n,), dtype=torch.float32, device=dev)
         best = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -297,25 +399,45 @@ def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig
         found = None
     if n == 0:
         return t, best, steps, found, incomplete[0]
+    lane_list = lane_count = None
+    if compact:
+        lane_list, lane_count = compaction.compact_launch(active)
     P, I = kernels.P, kernels.I
     fn = kernels.entry("traverse_threaded", "rt_trace_threaded",
-                       [I, P, P, P, I, P, P, P, I, P, P, P, P, I, P, P, P, P, P, P])
+                       [I, I, P, P, P, P, P, I, P, P, P, I, P, P, P, P, I, P, P, P, P, P, P, P,
+                        P])
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = fn(int(any_hit), bvh.box.data_ptr(), bvh.node.data_ptr(), bvh.links.data_ptr(),
-             bvh.n_nodes, bvh.inst_mat.data_ptr(), bvh.inst_root.data_ptr(),
-             bvh.tri.data_ptr(), int(_ordered(cfg)),
-             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
-             ptr(t), ptr(best), ptr(steps), ptr(found), incomplete.data_ptr(),
-             kernels.stream_ptr(dev))
-    if any_hit:
+    err = fn(int(any_hit), FORMS[form], bvh.box.data_ptr(), bvh.node.data_ptr(),
+             bvh.links.data_ptr(), bvh.rec.data_ptr(), bvh.pairs.data_ptr(), bvh.n_nodes,
+             bvh.inst_mat.data_ptr(), bvh.inst_root.data_ptr(), bvh.tri.data_ptr(),
+             int(_ordered(cfg)), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+             active.data_ptr(), n, ptr(lane_list), ptr(lane_count), ptr(t), ptr(best),
+             ptr(steps), ptr(found), incomplete.data_ptr(), kernels.stream_ptr(dev))
+    if form == "split":
+        split_launches["any" if any_hit else "closest"] += 1
+    elif any_hit:
         any_launches += 1
     else:
         closest_launches += 1
     kernels.check(err, what)
     return t, best, steps, found, incomplete[0]
+
+
+def trace_form(form: str, any_hit: bool, bvh: SceneBVH, o, d, t_max, active,
+               cfg: RenderConfig):
+    """One K10 launch in ``form`` (``FORMS``: ``"octant"`` is the renderer's,
+    ``"split"`` the first version, the yardstick); returns (t, best, steps,
+    found, incomplete) as the kernel writes them (t, best and steps None for
+    any hit, found None for closest).  CUDA tensors only; the split form's
+    launches count in ``split_launches``."""
+    if form not in FORMS:
+        raise ValueError(f"trace_form: form must be one of {tuple(FORMS)}")
+    if o.device.type != "cuda":
+        raise ValueError("trace_form: CUDA tensors expected")
+    return _launch(any_hit, bvh, o, d, t_max, active, cfg, form)
 
 
 def _ordered(cfg: RenderConfig) -> bool:
@@ -340,7 +462,8 @@ def trace_any(bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig):
     """K10: any-hit (shadow) traversal; a ray retires at its first hit against
     ``t_max``.  Returns (found [N] bool, incomplete [] i32).  CPU tensors take
     ``trace_plain``; CUDA tensors launch ``rt_trace_threaded`` (counted in
-    ``any_launches``)."""
+    ``any_launches``) over the active lanes, listed on the device by K6
+    (``compaction.compact_launch``, counted in its ``launches``)."""
     if o.device.type == "cpu":
         w = trace_plain(bvh, o, d, t_max, active, _ordered(cfg), any_hit=True)
         return w.found, w.incomplete

@@ -660,36 +660,143 @@ def test_hits_backward_kernel_matches_plain(cuda, object_space):
             assert float((k - p).norm() / p.norm()) <= 1e-5, name
 
 
-@pytest.mark.parametrize("strategy", ["ORDERED", "NAIVE"])
-def test_threaded_traversal_kernels_match_plain(cuda, strategy):
-    """K10 closest and any hit against traversal.trace_plain on the card: ids,
-    t, steps and found equal on every lane."""
-    rend, packed = _config1(cuda, 64, 64)
-    cfg = rend.cfg.replace(traversal_kernel="threaded",
-                           traversal_strategy=TraversalStrategy[strategy])
-    scene = rend.upload(packed)
+def _threaded_scene(device, name, strategy):
+    """(bvh, cfg, primary rays, shadow rays of every light from their plain hits)
+    of config1 at 64x64 or config4 (rotated instances; its directional light
+    points along an axis) at 96x64 under the threaded walk, on ``device``."""
+    w, h = (64, 64) if name == "config1" else (96, 64)
+    desc, cfg = scenes.make_scene(name)
+    cfg = cfg.replace(width=w, height=h, traversal_kernel="threaded",
+                      traversal_strategy=TraversalStrategy[strategy])
+    rend = renderer.Renderer(cfg, device=device)
+    scene = rend.upload(ScenePacker(desc, w, h).frame())
     bvh = traversal.build_scene_bvh(scene)
     rays = renderer.generate_primary_rays(scene, cfg)
     n = rays.count
-    t_max = torch.full((n,), float("inf"), device=cuda)
-    active = torch.ones((n,), dtype=torch.bool, device=cuda)
-    ordered = strategy == "ORDERED"
-    before = (traversal.closest_launches, traversal.any_launches)
-    k = traversal.trace_closest(bvh, rays.origin, rays.direction, t_max, active, cfg)
-    w = traversal.trace_plain(bvh, rays.origin, rays.direction, t_max, active, ordered, False)
+    prim = (rays.origin, rays.direction, torch.full((n,), float("inf"), device=device),
+            torch.ones((n,), dtype=torch.bool, device=device))
+    w0 = traversal.trace_plain(bvh, *prim, True, False)
+    hit = w0.best >= 0
+    point = prim[0] + torch.where(hit, w0.t, 0.0)[:, None] * prim[1]
+    lights = torch.cat([scene.pl_pos, scene.sl_pos])
+    to_l = lights[:, None, :] - point[None]
+    dist = torch.linalg.norm(to_l, dim=2)
+    n_dl = scene.dl_neg_dir.shape[0]
+    k = lights.shape[0] + n_dl
+    shadow = (point.repeat(k, 1),
+              torch.cat([(to_l / dist[..., None]).reshape(-1, 3),
+                         scene.dl_neg_dir.repeat_interleave(n, dim=0)]),
+              torch.cat([dist.reshape(-1), torch.full((n_dl * n,), float("inf"),
+                                                      device=device)]),
+              hit.repeat(k))
+    return bvh, cfg, prim, tuple(x.contiguous() for x in shadow)
+
+
+def _threaded_form_matches_plain(form, bvh, cfg, rays, any_hit):
+    """K10 in ``form`` equals trace_plain bit for bit: best, t, steps, found,
+    incomplete 0."""
+    ordered = cfg.traversal_strategy == TraversalStrategy.ORDERED
+    w = traversal.trace_plain(bvh, *rays, ordered, any_hit)
+    t, best, steps, found, inc = traversal.trace_form(form, any_hit, bvh, *rays, cfg)
+    if any_hit:
+        assert torch.equal(found, w.found), form
+    else:
+        assert torch.equal(best, w.best) and torch.equal(steps, w.steps), form
+        assert torch.equal(t.view(torch.int32), w.t.view(torch.int32)), form
+    assert int(inc) == 0, form
+    return w
+
+
+@pytest.mark.parametrize("form", list(traversal.FORMS))
+@pytest.mark.parametrize("name, strategy", [("config1", "ORDERED"), ("config1", "NAIVE"),
+                                            ("config4", "ORDERED"), ("config4", "NAIVE")])
+def test_threaded_traversal_kernels_match_plain(cuda, name, strategy, form):
+    """K10 closest and any hit in each form against traversal.trace_plain on the
+    card: ids, t, steps and found equal on every lane, on the primaries and the
+    shadow rays of every light (config4's axis-aligned directional light gives 0
+    direction components and infinite reciprocals); trace_closest / trace_any
+    launch the octant form (any hit over the active lanes K6 lists), each
+    launch counted where it is made."""
+    bvh, cfg, prim, shadow = _threaded_scene(cuda, name, strategy)
+    w = _threaded_form_matches_plain(form, bvh, cfg, prim, any_hit=False)
+    wa = _threaded_form_matches_plain(form, bvh, cfg, shadow, any_hit=True)
+    assert int(wa.found.sum()) > 0 and int(w.steps.sum()) > 0
+    before = (traversal.closest_launches, traversal.any_launches,
+              dict(traversal.split_launches))
+    k = traversal.trace_closest(bvh, *prim, cfg)
+    found, inc = traversal.trace_any(bvh, *shadow, cfg)
     best = torch.where(k.tri >= 0, (k.tri << 8) | (k.inst + 1), -1)
     assert torch.equal(best, w.best) and torch.equal(k.steps, w.steps)
     assert torch.equal(k.t, w.t) and int(k.incomplete) == 0
-
-    hit = k.tri >= 0
-    point = rays.origin + torch.where(hit, k.t, 0.0)[:, None] * rays.direction
-    to_light = torch.nn.functional.normalize(scene.sl_pos[0] - point, dim=1).contiguous()
-    dist = torch.linalg.norm(scene.sl_pos[0] - point, dim=1)
-    found, inc = traversal.trace_any(bvh, point, to_light, dist, hit, cfg)
-    wa = traversal.trace_plain(bvh, point, to_light, dist, hit, ordered, True)
     assert torch.equal(found, wa.found) and int(inc) == 0
     assert (traversal.closest_launches, traversal.any_launches) == (before[0] + 1,
                                                                     before[1] + 1)
+    assert traversal.split_launches == before[2]
+
+
+def _box_rays(bvh, n, seed):
+    """{set: (o, d, t_max)} aimed at the table's node boxes, taken as world space:
+    axis-parallel rays (two components +0 or -0) from outside or inside a box;
+    origins inside a box with random directions; each with t_max infinite and
+    finite (a random share of the box's diagonal)."""
+    rng = np.random.default_rng(seed)
+    box = bvh.box.cpu().numpy()
+    pick = rng.integers(0, box.shape[0], n)
+    lo, hi = box[pick, :3], box[pick, 3:]
+    size = np.maximum(hi - lo, 1e-3).astype(np.float32)
+    inside = (lo + rng.random((n, 3), np.float32) * size).astype(np.float32)
+    axis = rng.integers(0, 3, n)
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    d_axis = np.where(rng.random((n, 3)) < 0.5, np.float32(0.0), np.float32(-0.0))
+    d_axis[np.arange(n), axis] = sign
+    back = inside.copy()
+    back[np.arange(n), axis] -= sign * (2 * size[np.arange(n), axis] + 1)
+    o_axis = np.where((rng.random(n) < 0.5)[:, None], inside, back).astype(np.float32)
+    d_rand = rng.normal(size=(n, 3)).astype(np.float32)
+    d_rand /= np.linalg.norm(d_rand, axis=1, keepdims=True)
+    diag = np.linalg.norm(size, axis=1).astype(np.float32)
+    out = {}
+    for label, (o, d) in (("axis", (o_axis, d_axis)), ("inside", (inside, d_rand))):
+        out[f"{label}_inf"] = (o, d, np.full(n, np.inf, np.float32))
+        out[f"{label}_finite"] = (o, d, (rng.random(n) * 2 * diag).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("name", ["config1", "config4"])
+def test_threaded_kernels_made_up_rays(cuda, name):
+    """Every form against trace_plain on axis-parallel rays, origins inside
+    boxes, infinite and finite t_max, ORDERED and NAIVE, and on an all-inactive
+    wavefront (t_max, -1, 0 steps and no hit on every lane)."""
+    for strategy in ("ORDERED", "NAIVE"):
+        bvh, cfg, _, _ = _threaded_scene(cuda, name, strategy)
+        for label, arrays in _box_rays(bvh, 20_000, seed=3).items():
+            rays = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in arrays)
+            rays = (*rays, torch.rand((rays[0].shape[0],), device=cuda) < 0.9)
+            for form in traversal.FORMS:
+                _threaded_form_matches_plain(form, bvh, cfg, rays, any_hit=False)
+                _threaded_form_matches_plain(form, bvh, cfg, rays, any_hit=True)
+        o, d, t_max = (torch.from_numpy(x).to(cuda) for x in _box_rays(bvh, 1000, 4)["axis_inf"])
+        idle = (o, d, t_max, torch.zeros((1000,), dtype=torch.bool, device=cuda))
+        for form in traversal.FORMS:
+            w = _threaded_form_matches_plain(form, bvh, cfg, idle, any_hit=False)
+            assert int(w.steps.sum()) == 0 and bool((w.best == -1).all())
+            _threaded_form_matches_plain(form, bvh, cfg, idle, any_hit=True)
+
+
+def test_threaded_walk_refuses_misaligned_or_misshapen_records(cuda):
+    """The octant form reads records, pair rows and matrices with 16-byte loads,
+    and the records and pair rows in their own shapes."""
+    bvh, cfg, prim, _ = _threaded_scene(cuda, "config1", "ORDERED")
+    for field in ("rec", "pairs", "inst_mat"):
+        x = getattr(bvh, field)
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+        bad = bvh._replace(**{field: flat[1:].view(x.shape)})
+        with pytest.raises(ValueError, match="16-byte"):
+            traversal.trace_closest(bad, *prim, cfg)
+    for field, match in (("rec", "rec \\[8U"), ("pairs", "pairs \\[T/2")):
+        x = getattr(bvh, field)
+        with pytest.raises(ValueError, match=match):
+            traversal.trace_any(bvh._replace(**{field: x[:-1]}), *prim, cfg)
 
 
 def test_threaded_render_on_card_matches_cpu(cuda):
@@ -782,6 +889,23 @@ def test_chained_gather_kernel_matches_plain(cuda, width, wild):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     assert (gather.launches["chained"], gather.launches["indep"]) == (before[0] + 1,
                                                                     before[1] + 1)
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("width", [6, 5, 8])
+def test_chained_gather_scalar_loads_match_plain(cuda, width, wild):
+    """K12 with 32-bit loads (rows of any width from a 4-byte aligned base, the
+    threaded walk's 24-byte box rows among them) against the plain loop: acc
+    and j equal on every lane; width 6 takes the unrolled row."""
+    table = _gather_table(cuda, 5001, width, 8, wild)[1:]
+    idx = _gather_idx(cuda, 5000, 65536, 9)
+    before = gather.launches["chained"]
+    acc, j = gather.chained_gather(table, idx, 54, loads="scalar")
+    pacc, pj = gather.chained_gather_plain(table, idx, 54)
+    assert gather.launches["chained"] == before + 1
+    assert torch.equal(j, pj)
+    assert torch.equal(acc.nan_to_num(), pacc.nan_to_num())
+    assert torch.equal(acc.isnan(), pacc.isnan())
 
 
 @pytest.mark.parametrize("c", [72, 71])
