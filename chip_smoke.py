@@ -52,7 +52,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. kernel vs plain: each kernel and its plain PyTorch version on the card, on
    the inputs the main path gave that kernel in generation 0 (the forward
    kernels on config3's frame and on config4's; K3 and K4 in every mode on
-   that mode's config3 frame, K4 also on its generation with the most
+   that mode's config3 frame (K3 also on config4's lanes), K4 also on its
+   generation with the most
    top-texel lanes; K8 on config4's presented frame and on config3's 1080p
    frame; K9 on every generation of config4, config0 and config2, the rays
    that start inside a dielectric sphere among them), with the stated
@@ -87,7 +88,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    tables of the first version, the yardstick), each held to the plain walk
    with its ms, device time, bytes as issued and sectors touched
    (``microbench/threaded.py``), beside the tables' sizes and the walk's warp
-   efficiency; K3 with its device time;
+   efficiency; K3 in every mode and K8 in two forms each, the renderer's
+   (K3's vector form, K8's tile form) held bit for bit to the first
+   (the yardstick), each with its device time (in turns), K3 with its taps'
+   spread a lane and a warp, and EWA's set-up share (the window cut to one
+   texel); K5, K7 and K9 with their device time;
 7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
    through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
    ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
@@ -165,11 +170,11 @@ OPS_MODE = {  # mode: (fwd per lane, fwd per filter tap, bwd per lane, bwd per f
 OPS_EWA_TEXEL, OPS_EWABWD_TEXEL = 27, 34
 # the modes the filters phase drives, besides the main path's ANISOTROPIC
 FILTER_MODES = ("trilinear", "ewa", "bilinear", "nearest")
-# csrc/fxaa.cu, per pixel (a powf counted as one operation): 21 texel fetches
-# of 3 gamma'd channels (9 each), 6 lumas (5), the min / max, direction, reduce
-# and span clamp (31), 4 tap positions (16), 4 bilinear taps (43), the means and
-# the range test (20)
-OPS_FXAA = 21 * 9 + 6 * 5 + 31 + 16 + 4 * 43 + 20
+# csrc/fxaa.cu, what a pixel needs (a powf counted as one operation): its
+# texel's gamma (9) and luma (5) once, the result's luma (5), the min / max,
+# direction, reduce and span clamp (31), 4 tap positions (16), 4 bilinear taps
+# (43), the means and the range test (20)
+OPS_FXAA = 9 + 2 * 5 + 31 + 16 + 4 * 43 + 20
 # csrc/primitives.cu: per closest-hit lane the ray's a and 1/2a (7), each sphere
 # 30, each plane 17; per any-hit test a sphere 27, a plane 17
 OPS_PRIM_LANE, OPS_PRIM_SPHERE, OPS_PRIM_PLANE = 7, 30, 17
@@ -292,6 +297,28 @@ def issued_bytes(stats, lane_bytes, nodes=0.0, leaves=0.0) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tap_spread(per_lane, filtered) -> dict:
+    """A per-lane count (K3's taps or texels) over the lanes on the filter
+    branch: mean, p50, p99 and max; and what a warp pays, the mean over warps of
+    32 consecutive lanes (launch order) of their largest count, beside the mean
+    a lane over all lanes."""
+    import torch
+
+    from raytracer_tpu_torch.microbench import threaded as mb_threaded
+
+    x = per_lane[filtered].float()
+    if not x.numel():
+        return {"lanes": 0}
+    q = torch.quantile(x, torch.tensor([0.5, 0.99], device=x.device))
+    n = per_lane.shape[0]
+    warps = torch.nn.functional.pad(per_lane.float(), (0, (-n) % 32)).view(-1, 32)
+    return {"lanes": x.numel(), "mean": float(x.mean()), "p50": float(q[0]),
+            "p99": float(q[1]), "max": float(x.max()),
+            "lane_mean": float(per_lane.float().mean()),
+            "warp_max_mean": float(warps.amax(dim=1).mean()),
+            "warp_efficiency": mb_threaded.warp_efficiency(per_lane)}
 
 
 def rays_of(counters: dict) -> int:
@@ -1214,11 +1241,17 @@ def main(argv=None) -> int:
                       "lanes": direction.shape[0], "lanes_other_texel": frac}
 
     def check_texture(tex, lanes, tcfg, data4):
-        err = (texture_sample.sample(tex, *lanes, tcfg, data4=data4)
-               - texture_sample.sample_plain(tex, *lanes, tcfg, data4)).abs().amax(dim=1)
+        """K3 against sample_plain, and its vector form's bits against its first
+        form's."""
+        got = texture_sample.sample(tex, *lanes, tcfg, data4=data4)
+        err = (got - texture_sample.sample_plain(tex, *lanes, tcfg, data4)).abs().amax(dim=1)
+        first = texture_sample.sample_forward(tex, lanes, texture_sample.filter_of(tcfg), data4,
+                                              "first")
+        differ = int((got.view(torch.int32) != first.view(torch.int32)).any(dim=1).sum())
         frac = float((err <= 1e-5).float().mean())
-        return {"max_abs_err": float(err.max()), "passed": frac >= 0.999,
-                "lanes": err.shape[0], "lanes_within_tolerance": frac}
+        return {"max_abs_err": float(err.max()), "passed": frac >= 0.999 and differ == 0,
+                "lanes": err.shape[0], "lanes_within_tolerance": frac,
+                "lanes_differ_from_first_form": differ}
 
     def check_compact(flags):
         k_idx, k_n = compaction.compact(flags)
@@ -1341,6 +1374,8 @@ def main(argv=None) -> int:
            cuda_ms(lambda: sky_sample.sample_sky_plain(sky_data, direction), 5),
            bound_ms(nbytes(direction, sky_data) + n * 12, n * OPS_SKY), None,
            sky_check.pop("passed") and on4["sky"]["passed"], **sky_check,
+           device_ms=microbench.device_ms(lambda: sky_sample.sample_sky(sky_data, direction),
+                                          dev),
            config4_900x600=on4["sky"],
            tolerance="texel values equal; <= 1e-3 of lanes may take a neighbouring "
                      "texel; on config3 and on config4")
@@ -1420,6 +1455,11 @@ def main(argv=None) -> int:
         # reads: NEAREST and BILINEAR no derivative, NEAREST no quad atlas,
         # BILINEAR no base atlas
         work = texture_sample.lane_work(tex, lanes_in, kcfg)
+        per_lane = texture_sample.lane_taps(tex, lanes_in, kcfg)
+        spread = {"taps": tap_spread(per_lane.taps, per_lane.filtered)}
+        if mode == "ewa":
+            spread["weighted"] = tap_spread(per_lane.weighted, per_lane.filtered)
+        del per_lane
         read_lanes = lanes_in[:3] if mode in ("nearest", "bilinear") else lanes_in
         atlases = {"nearest": (tex[0],), "bilinear": (data4,)}.get(mode, (tex[0], data4))
         lane_f, tap_f, lane_b, tap_b = OPS_MODE[mode]
@@ -1433,15 +1473,50 @@ def main(argv=None) -> int:
         if config4 is not None:
             fmax, fpassed = max(fmax, config4["max_abs_err"]), fpassed and config4["passed"]
             fcheck["config4_900x600"] = config4
+        # both forms launched alone (sample_forward, no autograd.Function), in
+        # turns: first, vector, vector, first
+        def form_run(form):
+            return lambda: texture_sample.sample_forward(tex, lanes_in, filt, data4, form)
+
+        form_dev = {f: [] for f in texture_sample.FWD_FORMS}
+        for f in ("first", "vector", "vector", "first"):
+            form_dev[f].append(microbench.device_ms(form_run(f), dev))
+        k3_dev = min(form_dev["vector"])
+        first_dev = min(form_dev["first"])
+        first_form = {"ms": cuda_ms(form_run("first"), 20), "device_ms": first_dev,
+                      "device_ms_runs": form_dev["first"],
+                      "kernel": f"texture_kernel<{texture_sample.MODES.index(mode)}>",
+                      "lanes_differ": fcheck["lanes_differ_from_first_form"],
+                      "bit_identical": fcheck["lanes_differ_from_first_form"] == 0
+                      and (config4 is None or config4["lanes_differ_from_first_form"] == 0)}
+        span1 = {}
+        if mode == "ewa":
+            # the set-up's share: both forms with the window cut to one texel
+            one = filt._replace(ewa_span=1)
+
+            def span1_run(form):
+                return lambda: texture_sample.sample_forward(tex, lanes_in, one, data4, form)
+
+            first_form["device_ms_span1"] = microbench.device_ms(span1_run("first"), dev)
+            span1["forward_device_ms_span1"] = microbench.device_ms(span1_run("vector"), dev)
+        targets = {"first form / vector form (device)": first_dev / k3_dev}
+        if mode == "aniso":
+            targets["device_ms <= 0.0574"] = k3_dev <= 0.0574
+        elif mode == "ewa":
+            targets["first form / vector form >= 2"] = first_dev / k3_dev >= 2.0
+        else:
+            targets["device_ms <= 1.05 x first form"] = k3_dev <= 1.05 * first_dev
         record(f"texture_{mode}", "raytracer_tpu_torch/csrc/texture.cu", replaces, fmax,
                cuda_ms(k3, 20), cuda_ms(p3, 5),
                bound_ms(nbytes(*read_lanes, *atlases, *tex[1:5]) + n * 12, fwd_ops), None,
                fpassed, **fcheck, device_ms=microbench.device_ms(k3, dev),
-               # sample_forward alone, without the autograd.Function around it
-               forward_ms=cuda_ms(lambda: texture_sample.sample_forward(tex, lanes_in, filt,
-                                                                        data4), 20),
-               work=work,
-               tolerance="max abs <= 1e-5 on >= 99.9% of lanes"
+               forward_ms=cuda_ms(form_run("vector"), 20), forward_device_ms=k3_dev,
+               forward_device_ms_runs=form_dev["vector"],
+               **span1,
+               kernel=f"vector_kernel<{texture_sample.MODES.index(mode)}>",
+               first_form=first_form, targets=targets, work=work, lane_spread=spread,
+               tolerance="max abs <= 1e-5 on >= 99.9% of lanes; the same bits as the "
+                         "first form on every lane"
                          + (", on config3 and on config4" if config4 else ""))
 
         # A lane whose K3 result differs (another mip level at a rounding
@@ -1595,8 +1670,13 @@ def main(argv=None) -> int:
 
     tex_calls = rec.calls["texture_aniso"]
     texture_rows("aniso", tex_calls, config4=on4["texture_aniso"])
+    # the other modes also on config4's generation-0 lanes (a lane's inputs do
+    # not depend on the mode)
+    (tex4, *lanes4, tcfg4), kw4 = rec4.inputs["texture_aniso"]
     for mode in FILTER_MODES:
-        texture_rows(mode, filter_calls[mode])
+        texture_rows(mode, filter_calls[mode], config4=check_texture(
+            tex4, tuple(lanes4), tcfg4.replace(**mode_changes[mode]), kw4["data4"]))
+    del tex4, lanes4
     del tex_calls, filter_calls, rec, step_rec
 
     # K6 compaction, on generation 0's 2N candidate flags
@@ -1831,8 +1911,9 @@ def main(argv=None) -> int:
     record("hits", "raytracer_tpu_torch/csrc/hits.cu", "raytracer_tpu/render/renderer.py:124",
            max(c["max_abs_err"] for v in fwd_checks.values() for c in v),
            cuda_ms(k7, 20), cuda_ms(p7, 5), bound_ms(fwd_bytes, n_mesh * OPS_HITS_FWD), None,
-           all(c["passed"] for v in fwd_checks.values() for c in v), lanes=n,
-           mesh_lanes=n_mesh, table_rows=rows, bytes=fwd_bytes, per_generation=fwd_checks,
+           all(c["passed"] for v in fwd_checks.values() for c in v),
+           device_ms=microbench.device_ms(k7, dev), lanes=n, mesh_lanes=n_mesh,
+           table_rows=rows, bytes=fwd_bytes, per_generation=fwd_checks,
            launches_per_frame=launches["hits"], launches_per_step=train_launches["hits"],
            tolerance="every field equal on every lane (0 ulps) of every generation of "
                      "config3's 1080p frame and config4's frame")
@@ -1862,8 +1943,9 @@ def main(argv=None) -> int:
     record("hits_bwd", "raytracer_tpu_torch/csrc/hits.cu", "raytracer_tpu/render/renderer.py:124",
            max(c["max_abs_err"] for v in bwd_checks.values() for c in v),
            cuda_ms(k7b, 20), cuda_ms(p7b, 5), bound_ms(bwd_bytes, n_mesh * OPS_HITS_BWD), None,
-           all(c["passed"] for v in bwd_checks.values() for c in v), lanes=n,
-           mesh_lanes=n_mesh, bytes=bwd_bytes, ms_with_table_gradients=bwd_ms_tables,
+           all(c["passed"] for v in bwd_checks.values() for c in v),
+           device_ms=microbench.device_ms(k7b, dev), lanes=n, mesh_lanes=n_mesh,
+           bytes=bwd_bytes, ms_with_table_gradients=bwd_ms_tables,
            per_generation=bwd_checks, launches_per_step=train_launches["hits_bwd"],
            tolerance="each gradient within 1e-5 l2-relative of the plain version's: "
                      "the ray fields' and the prior record's on every generation of "
@@ -1962,26 +2044,43 @@ def main(argv=None) -> int:
     del threaded_calls, threaded4_calls
     del inputs
 
-    # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame
+    # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame,
+    # in its tile form and its first form (device times in turns: first, tile,
+    # tile, first)
     fx = {}
     for label, img_in in (("900x600", rec4.inputs["fxaa"][0][0]), ("1920x1080", image)):
         px = img_in.shape[0] * img_in.shape[1]
-        err = (fxaa.fxaa(img_in) - fxaa.fxaa_plain(img_in)).abs().amax(dim=-1)
+        got = fxaa.fxaa(img_in)
+        err = (got - fxaa.fxaa_plain(img_in)).abs().amax(dim=-1)
+        differ = int((got.view(torch.int32) != fxaa.fxaa_form("first", img_in)
+                      .view(torch.int32)).any(dim=-1).sum())
+        form_dev = {f: [] for f in fxaa.FORMS}
+        for f in ("first", "tile", "tile", "first"):
+            form_dev[f].append(microbench.device_ms(lambda f=f: fxaa.fxaa_form(f, img_in), dev))
         fx[label] = {
             "pixels": px, "max_abs_err": float(err.max()),
             "pixels_within_tolerance": float((err <= 1e-5).float().mean()),
             "mean_abs_err": float(err.mean()),
             "ms": cuda_ms(lambda: fxaa.fxaa(img_in), 20),
+            "device_ms": min(form_dev["tile"]), "device_ms_runs": form_dev["tile"],
             "plain_ms": cuda_ms(lambda: fxaa.fxaa_plain(img_in), 5),
+            "first_form": {"ms": cuda_ms(lambda: fxaa.fxaa_form("first", img_in), 20),
+                           "device_ms": min(form_dev["first"]),
+                           "device_ms_runs": form_dev["first"], "pixels_differ": differ,
+                           "bit_identical": differ == 0},
+            "first_form_over_tile_form": min(form_dev["first"]) / min(form_dev["tile"]),
             "bound": bound_ms(2 * nbytes(img_in), px * OPS_FXAA)}
     fx_ok = all(v["pixels_within_tolerance"] >= 0.999 and v["mean_abs_err"] <= 1e-6
-                for v in fx.values())
+                and v["first_form"]["bit_identical"] for v in fx.values())
     row = fx.pop("900x600")
     record("fxaa", "raytracer_tpu_torch/csrc/fxaa.cu", "raytracer_tpu/ops/fxaa.py:45",
            row.pop("max_abs_err"), row.pop("ms"), row.pop("plain_ms"), row.pop("bound"),
-           None, fx_ok, **row, launches_per_frame=app_launches["fxaa"] / APP_FRAMES,
+           None, fx_ok, **row, kernel="tile_kernel",
+           targets={"first form / tile form >= 3": row["first_form_over_tile_form"] >= 3},
+           launches_per_frame=app_launches["fxaa"] / APP_FRAMES,
            at_1920x1080={**fx["1920x1080"], "bound_ms": fx["1920x1080"].pop("bound")[0]},
-           tolerance="<= 1e-5 abs on >= 99.9% of pixels, mean <= 1e-6, at both sizes")
+           tolerance="<= 1e-5 abs on >= 99.9% of pixels, mean <= 1e-6, and the same bits "
+                     "as the first form on every pixel, at both sizes")
 
     # K9, timed on config4's generation 0: the primaries' closest hit, the shadow
     # rays' any hit (3 lights in one launch).  Its check covers every generation
@@ -2003,7 +2102,9 @@ def main(argv=None) -> int:
            cuda_ms(lambda: intersect.pick_closest_plain(prims, o9, d9), 5),
            bound_ms(nbytes(o9, d9) + n * 8,
                     n * (OPS_PRIM_LANE + n_s * OPS_PRIM_SPHERE + n_p * OPS_PRIM_PLANE)),
-           None, passed, lanes=n, spheres=n_s, planes=n_p, checked=per_config,
+           None, passed,
+           device_ms=microbench.device_ms(lambda: intersect.pick_closest(prims, o9, d9), dev),
+           lanes=n, spheres=n_s, planes=n_p, checked=per_config,
            launches_per_frame=app_launches["prim_closest"] / APP_FRAMES,
            also_replaces="raytracer_tpu/ops/intersect.py:222 (plane_trace)",
            tolerance="winner ids and t identical on every lane of every generation "
@@ -2018,7 +2119,10 @@ def main(argv=None) -> int:
            cuda_ms(lambda: intersect.pick_any(prims, oa, da, tmax, act), 20),
            cuda_ms(lambda: intersect.pick_any_plain(prims, oa, da, tmax, act), 5),
            bound_ms(n * 2 + n_act * 28, n_act * (n_s * OPS_ANY_SPHERE + n_p * OPS_ANY_PLANE)),
-           None, passed, lanes=n, active=n_act, checked=per_config,
+           None, passed,
+           device_ms=microbench.device_ms(
+               lambda: intersect.pick_any(prims, oa, da, tmax, act), dev),
+           lanes=n, active=n_act, checked=per_config,
            launches_per_frame=app_launches["prim_any"] / APP_FRAMES,
            also_replaces="raytracer_tpu/ops/intersect.py:265 (plane_intersect)",
            tolerance="blocked identical on every lane of every generation of config4, "

@@ -33,9 +33,16 @@ _EWA_TABLE_SIZE = 128  # Texture.h:52-62
 
 # the modes of ``sample``, in the order of texture.cuh's ``enum Mode``
 MODES = ("nearest", "bilinear", "trilinear", "aniso", "ewa")
+# K3's forms, in the order of texture.cu's ``enum Form``: "vector" (the
+# renderer's: the level read once a lane, 16-byte quad-row loads, the wrap
+# without division, EWA's weights from a table) and "first", the first design,
+# kept as the yardstick of chip_smoke.py's K3 rows and never picked by a render
+# or training path; both give the same bits
+FWD_FORMS = ("vector", "first")
 # K3 (rt_texture) and K4 (rt_texture_bwd) launches per mode (reset and read by
-# chip_smoke.py)
+# chip_smoke.py); K3's first form counts apart, in first_launches
 launches = dict.fromkeys(MODES, 0)
+first_launches = dict.fromkeys(MODES, 0)
 bwd_launches = dict.fromkeys(MODES, 0)
 # K4's ways of adding into the atlas gradients, in the order of texture_bwd.cu's
 # ``enum Form``: "lane" is the earlier design (one-float atomics from every lane, zero
@@ -243,6 +250,21 @@ def _ewa_weight(r2):
     return torch.exp(-_EWA_ALPHA * r2q) - math.exp(-_EWA_ALPHA)
 
 
+def ewa_weight_table() -> torch.Tensor:
+    """[128] ``_ewa_weight`` at each of its indices, as K3's vector form builds
+    its table once a device (``csrc/texture.cu``: exp(-2 i / 127) - exp(-2))."""
+    idx = torch.arange(_EWA_TABLE_SIZE, dtype=torch.float32)
+    return torch.exp(-_EWA_ALPHA * (idx / (_EWA_TABLE_SIZE - 1))) - math.exp(-_EWA_ALPHA)
+
+
+def ewa_weight_lookup(table, r2):
+    """``_ewa_weight(r2)`` for r2 < 1 as the vector form reads it (``table_weight``):
+    the table at the rounded index, capped at 127; an index below 0 (r2 rounded
+    below 0) takes ``_ewa_weight`` itself."""
+    idx = torch.clamp_max(torch.floor(r2 * _EWA_TABLE_SIZE + 0.5), _EWA_TABLE_SIZE - 1)
+    return torch.where(idx >= 0, table[idx.clamp_min(0).long()], _ewa_weight(r2))
+
+
 class _Ewa(NamedTuple):
     """_sample_ewa's ellipse at level_c: its quadratic form (a, b, c) about the
     texel-space centre (ss, tt), its box [s0, s1] x [t0, t1] and its branch."""
@@ -386,20 +408,25 @@ def sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfi
     return torch.where((tex[3][tex_id] > 1)[:, None], mip, bil)
 
 
+class LaneTaps(NamedTuple):
+    """Per lane [N]: which term of ``sample`` it returns (``top``, ``filtered``;
+    the rest the level-0 bilinear tap), its filter's taps (0 off the filter
+    branch) and, under EWA, the taps inside the ellipse (``weighted``)."""
+
+    top: torch.Tensor
+    filtered: torch.Tensor
+    taps: torch.Tensor
+    weighted: torch.Tensor
+
+
 @torch.no_grad()
-def lane_work(tex, lanes, cfg: RenderConfig) -> dict:
-    """What ``sample`` computes on these lanes, for the kernels' bounds and for
-    coverage checks: how many lanes return the level-0 bilinear tap
-    (``bilinear``), the top texel (``top``) or the mode's own filter (``filter``),
-    and that filter's taps (``taps``: texels for NEAREST, bilinear taps for
-    BILINEAR, TRILINEAR and ANISOTROPIC, the window's texels inside the
-    ellipse's box for EWA, of which ``weighted`` lie inside the ellipse).
-    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)."""
+def lane_taps(tex, lanes, cfg: RenderConfig) -> LaneTaps:
+    """``lane_work`` lane by lane.  lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)."""
     filt = filter_of(cfg)
     tex_id, s, t, *derivs = lanes
-    n = float(s.shape[0])
     if filt.mode in ("nearest", "bilinear"):
-        return {"bilinear": 0.0, "top": 0.0, "filter": n, "taps": n, "weighted": 0.0}
+        none = torch.zeros_like(s, dtype=torch.bool)
+        return LaneTaps(none, ~none, torch.ones_like(s), torch.zeros_like(s))
     tex_id = tex_id.long()
     lv = tex[3][tex_id]
     weighted = torch.zeros_like(s)
@@ -420,9 +447,22 @@ def lane_work(tex, lanes, cfg: RenderConfig) -> dict:
     mip = lv > 1
     top = mip & use_top
     filtered = mip & ~use_top & ~use_bil
-    return {"bilinear": float((~top & ~filtered).sum()), "top": float(top.sum()),
-            "filter": float(filtered.sum()), "taps": float(taps[filtered].sum()),
-            "weighted": float(weighted[filtered].sum())}
+    return LaneTaps(top, filtered, torch.where(filtered, taps, 0.0),
+                    torch.where(filtered, weighted, 0.0))
+
+
+def lane_work(tex, lanes, cfg: RenderConfig) -> dict:
+    """What ``sample`` computes on these lanes, for the kernels' bounds and for
+    coverage checks: how many lanes return the level-0 bilinear tap
+    (``bilinear``), the top texel (``top``) or the mode's own filter (``filter``),
+    and that filter's taps (``taps``: texels for NEAREST, bilinear taps for
+    BILINEAR, TRILINEAR and ANISOTROPIC, the window's texels inside the
+    ellipse's box for EWA, of which ``weighted`` lie inside the ellipse).
+    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy)."""
+    got = lane_taps(tex, lanes, cfg)
+    return {"bilinear": float((~got.top & ~got.filtered).sum()), "top": float(got.top.sum()),
+            "filter": float(got.filtered.sum()), "taps": float(got.taps.sum()),
+            "weighted": float(got.weighted.sum())}
 
 
 class TapSlot(NamedTuple):
@@ -588,22 +628,29 @@ def _atlas_ptrs(tex, data4) -> list:
     return [_ptr(x) for x in (data, data4, width, height, levels, offsets)]
 
 
-def sample_forward(tex, lanes, filt: Filter, data4) -> torch.Tensor:
-    """K3, one ``rt_texture`` launch in ``filt.mode`` (counted in ``launches``).
-    lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy), each [N]; data4 may be
-    None under NEAREST."""
+def sample_forward(tex, lanes, filt: Filter, data4, form: str = "vector") -> torch.Tensor:
+    """K3, one ``rt_texture`` launch in ``filt.mode`` and ``form`` (one of
+    ``FWD_FORMS``; counted in ``launches``, the first form in
+    ``first_launches``).  lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy),
+    each [N]; data4 may be None under NEAREST."""
     _check_inputs(tex, lanes, data4, filt)
+    if form not in FWD_FORMS:
+        raise ValueError(f"texture sample: form must be one of {FWD_FORMS}")
+    if form == "vector" and data4 is not None and data4.data_ptr() % 16:
+        # its 48-byte rows are read as three 16-byte vectors
+        raise ValueError("texture sample: data4 must be 16-byte aligned")
     n = lanes[1].shape[0]
     dev = lanes[1].device
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     P, I, F = kernels.P, kernels.I, kernels.F
-    fn = kernels.entry("texture", "rt_texture", [I] + [P] * 13 + [I, F, I, P, P])
-    err = fn(MODES.index(filt.mode), *_atlas_ptrs(tex, data4), *(x.data_ptr() for x in lanes),
-             n, filt.max_anisotropy, filt.ewa_span, out.data_ptr(), kernels.stream_ptr(dev))
-    launches[filt.mode] += 1
-    kernels.check(err, f"rt_texture ({filt.mode})")
+    fn = kernels.entry("texture", "rt_texture", [I, I] + [P] * 13 + [I, F, I, P, P])
+    err = fn(MODES.index(filt.mode), FWD_FORMS.index(form), *_atlas_ptrs(tex, data4),
+             *(x.data_ptr() for x in lanes), n, filt.max_anisotropy, filt.ewa_span,
+             out.data_ptr(), kernels.stream_ptr(dev))
+    (launches if form == "vector" else first_launches)[filt.mode] += 1
+    kernels.check(err, f"rt_texture ({filt.mode}, {form})")
     return out
 
 

@@ -43,3 +43,36 @@ def test_fxaa_blurs_an_edge_and_keeps_flat_regions():
     edge[8:, :] = 1.0  # an L-shaped edge: the diagonal gradient is nonzero
     out = fxaa.fxaa(edge).numpy()
     assert ((out > 0.01) & (out < 0.99)).any()
+
+
+@pytest.mark.parametrize("special", ["finite", "nan_inf"])
+@pytest.mark.parametrize("h,w", [(37, 53), (1, 7), (7, 1), (5, 5), (64, 48)])
+def test_fxaa_taps_stay_in_the_halo(h, w, special):
+    """The tile form of K8 (``csrc/fxaa.cu``) holds a block's pixels and
+    ``fxaa.HALO`` texels around them (4 before, 5 after, passed to the kernel,
+    which refuses any other): on seeded images every texel that a tap of
+    ``fxaa_plain`` reads lies within it, except on pixels whose direction is
+    not finite (a NaN centre or diagonal), whose taps the kernel reads from
+    the image.  On the larger images some tap reaches the halo's edge."""
+    img = _image(h, w, h * 100 + w)
+    if special == "nan_inf":
+        rng = np.random.default_rng(w)
+        for value in (np.nan, np.inf, -np.inf):
+            img[rng.random((h, w)) < 0.03, rng.integers(0, 3)] = value
+        img[0, 0, 0] = np.nan
+    lo_x, hi_x, lo_y, hi_y, finite = fxaa.fxaa_halo(torch.from_numpy(img))
+    before, after = fxaa.HALO
+    within = (lo_x >= -before) & (hi_x <= after) & (lo_y >= -before) & (hi_y <= after)
+    assert bool(within[finite].all())
+    assert bool(finite.any())
+    if special == "nan_inf":
+        assert not bool(finite.all())
+    if h * w > 1000 and special == "finite":
+        assert int(lo_x.min()) == -before and int(hi_x.max()) == after
+
+
+def test_fxaa_form_takes_only_a_cuda_image():
+    with pytest.raises(ValueError, match="form"):
+        fxaa.fxaa_form("other", torch.zeros((4, 4, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        fxaa.fxaa_form("tile", torch.zeros((4, 4, 3)))

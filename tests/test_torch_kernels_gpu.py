@@ -97,11 +97,27 @@ def _random_texture_inputs(cuda, seed=1, n=50_000):
     return tex, lanes, cot
 
 
-def test_texture_kernel_matches_plain(cuda):
+def _forward(form, tex, lanes, cfg, data4):
+    """K3 in ``form``: the renderer's form through ``sample``, the first through
+    ``sample_forward``; each launches once, on its own count."""
+    counts = texture_sample.launches if form == "vector" else texture_sample.first_launches
+    mode = texture_sample.filter_of(cfg).mode
+    before = counts[mode]
+    if form == "vector":
+        k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
+    else:
+        k = texture_sample.sample_forward(tex, lanes, texture_sample.filter_of(cfg), data4,
+                                          form)
+    assert counts[mode] == before + 1
+    return k
+
+
+@pytest.mark.parametrize("form", texture_sample.FWD_FORMS)
+def test_texture_kernel_matches_plain(cuda, form):
     tex, lanes, _ = _random_texture_inputs(cuda)
     cfg = RenderConfig()
     data4 = texture_sample.expand_quads(tex)
-    k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
+    k = _forward(form, tex, lanes, cfg, data4)
     p = texture_sample.sample_plain(tex, *lanes, cfg, data4)
     err = (k - p).abs().amax(dim=1)
     assert float((err <= 1e-5).float().mean()) >= 0.999
@@ -175,17 +191,17 @@ def _mode_inputs(cuda, mode):
     return tex, (tex_id, s, t, sx, sy.contiguous(), tx, ty.contiguous()), cot, cfg
 
 
+@pytest.mark.parametrize("form", texture_sample.FWD_FORMS)
 @pytest.mark.parametrize("mode", list(NEW_MODES))
-def test_texture_mode_kernel_matches_plain(cuda, mode):
-    """K3 in NEAREST, BILINEAR, TRILINEAR and EWA (16 x 16 window) against
-    sample_plain: max abs <= 1e-5 on >= 99.9% of lanes, one launch, and under
-    TRILINEAR and EWA every branch (level-0 tap, top texel, filter) taken."""
+def test_texture_mode_kernel_matches_plain(cuda, mode, form):
+    """K3 in NEAREST, BILINEAR, TRILINEAR and EWA (16 x 16 window), in both
+    forms, against sample_plain: max abs <= 1e-5 on >= 99.9% of lanes, one
+    launch, and under TRILINEAR and EWA every branch (level-0 tap, top texel,
+    filter) taken."""
     tex, lanes, _, cfg = _mode_inputs(cuda, mode)
-    before = texture_sample.launches[mode]
     data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
-    k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
+    k = _forward(form, tex, lanes, cfg, data4)
     p = texture_sample.sample_plain(tex, *lanes, cfg, data4)
-    assert texture_sample.launches[mode] == before + 1
     err = (k - p).abs().amax(dim=1)
     assert float((err <= 1e-5).float().mean()) >= 0.999
     if mode in ("trilinear", "ewa"):
@@ -201,6 +217,91 @@ def test_texture_mode_backward_kernel_matches_plain(cuda, mode):
 
 
 ALL_MODES = {"aniso": {}, **NEW_MODES}
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _odd_texture_inputs(cuda, n=40_000, seed=11):
+    """Textures of 1x1, 3x5, 7x13 (one level each: not powers of 2), 2x64 and
+    64x64; lanes with s and t on texel edges and centres of every texture
+    around [0, 1] (taps that wrap across every edge, and s in [-3, 4] beyond);
+    derivatives at a mip level's rounding boundary (log2 within a few ulps of
+    k + 1/2, under both the trilinear and the anisotropic level) and up to 40
+    texture widths (windows cut at the span)."""
+    rng = np.random.default_rng(seed)
+    texs = [textures.from_array(rng.random((h, w, 3), dtype=np.float32), srgb=False)
+            for h, w in ((1, 1), (5, 3), (13, 7), (64, 2), (64, 64))]
+    atlas = textures.build_atlas(texs)
+    tex = tuple(torch.from_numpy(np.asarray(a)).to(cuda) for a in (
+        atlas.data, atlas.width, atlas.height, atlas.mip_levels, atlas.mip_offsets,
+        atlas.quad_idx))
+    k = atlas.width.shape[0]
+    tex_id = rng.integers(0, k, n).astype(np.int32)
+    size = atlas.width[tex_id].astype(np.float32), atlas.height[tex_id].astype(np.float32)
+    st = []
+    for extent in size:
+        edge = rng.integers(-2, 3, n) + rng.integers(0, 3, n) * 0.5  # edges and centres
+        x = np.where(rng.random(n) < 0.5, edge / extent, rng.uniform(0, 1, n) + edge.round())
+        far = rng.random(n) < 0.1
+        st.append(np.where(far, rng.uniform(-3, 4, n), x).astype(np.float32))
+    mag = 2.0 ** (rng.integers(-9, 2, n) + 0.5)
+    mag = mag * (1 + rng.integers(-3, 4, n) * np.finfo(np.float32).eps)
+    mag = np.where(rng.random(n) < 0.15, 10.0 ** rng.uniform(-1, 1.6, n), mag)
+    ratio = np.where(rng.random(n) < 0.5, 1.0, rng.integers(1, 9, n))
+    der = np.stack([mag, mag / ratio * rng.uniform(0.5, 1, n), mag / ratio * 0.25,
+                    mag * rng.uniform(0, 0.5, n)]) * rng.choice([-1.0, 1.0], (4, n))
+    lanes = (torch.from_numpy(tex_id).to(cuda),
+             *(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda)
+               for x in (*st, *der)))
+    return tex, lanes
+
+
+@pytest.mark.parametrize("case", ["random", "edges"])
+@pytest.mark.parametrize("mode,span", [(m, 16) for m in ALL_MODES] + [("ewa", 3)])
+def test_texture_forms_bit_identical(cuda, mode, span, case):
+    """K3's vector form against its first form, every mode: the same bits on
+    every lane (EWA keeps the first form's dj-major order, and its table holds
+    the first form's weights); both within the texture tolerance of
+    sample_plain.  Seeded lanes over three textures, and made-up lanes on
+    textures of 1x1 and of widths that are not powers of 2, on texel edges,
+    wrapping across every edge, at mip-level rounding boundaries, and EWA
+    windows cut at ewa_max_span (16, and 3)."""
+    if case == "random":
+        tex, lanes, _ = _random_texture_inputs(cuda, seed=21)
+    else:
+        tex, lanes = _odd_texture_inputs(cuda)
+    cfg = RenderConfig(**ALL_MODES[mode], ewa_max_span=span)
+    data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
+    vec = _forward("vector", tex, lanes, cfg, data4)
+    first = _forward("first", tex, lanes, cfg, data4)
+    assert torch.equal(_bits(vec), _bits(first))
+    plain = texture_sample.sample_plain(tex, *lanes, cfg, data4)
+    err = (vec - plain).abs().amax(dim=1)
+    assert float((err <= 1e-5).float().mean()) >= 0.999
+    if mode not in ("nearest", "bilinear"):
+        work = texture_sample.lane_work(tex, lanes, cfg)
+        assert work["filter"] > 0 and work["top"] > 0 and work["bilinear"] > 0, work
+
+
+def test_texture_vector_form_refuses_a_misaligned_quad_atlas(cuda):
+    """The vector form reads data4's rows as 16-byte vectors: a view 4 bytes
+    off alignment raises, and nothing is launched; the first form takes it."""
+    tex, lanes, _ = _random_texture_inputs(cuda, n=1000)
+    data4 = texture_sample.expand_quads(tex)
+    flat = torch.empty(data4.numel() + 1, device=cuda)
+    off = flat[1:].view(data4.shape)
+    off.copy_(data4)
+    assert off.data_ptr() % 16 == 4
+    filt = texture_sample.filter_of(RenderConfig())
+    before = dict(texture_sample.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        texture_sample.sample_forward(tex, lanes, filt, off)
+    assert texture_sample.launches == before
+    first = texture_sample.sample_forward(tex, lanes, filt, off, "first")
+    assert torch.equal(_bits(first), _bits(texture_sample.sample_forward(tex, lanes, filt,
+                                                                          data4)))
 
 
 def _pattern_inputs(cuda, mode, pattern, n):
@@ -503,19 +604,58 @@ def test_render_grads_on_card_match_cpu(cuda):
             assert float((g - c).norm() / c.norm()) <= 1e-3, k
 
 
+def _fxaa_form(form, img):
+    """K8 in ``form``: the renderer's through ``fxaa``, the first through
+    ``fxaa_form``; each launches once, on its own count."""
+    count = "launches" if form == "tile" else "first_launches"
+    before = getattr(fxaa, count)
+    k = fxaa.fxaa(img) if form == "tile" else fxaa.fxaa_form(form, img)
+    assert getattr(fxaa, count) == before + 1
+    return k
+
+
+@pytest.mark.parametrize("form", fxaa.FORMS)
 @pytest.mark.parametrize("h,w", [(1, 7), (37, 53), (600, 900)])
-def test_fxaa_kernel_matches_plain(cuda, h, w):
-    """K8 against fxaa_plain: values outside [0, 1], hard edges, odd sizes."""
+def test_fxaa_kernel_matches_plain(cuda, h, w, form):
+    """K8 in both forms against fxaa_plain: values outside [0, 1], hard edges,
+    odd sizes."""
     rng = np.random.default_rng(h * w)
     img = rng.uniform(-0.2, 1.4, (h, w, 3)).astype(np.float32)
     img[:, w // 2:] *= 0.05
     img = torch.from_numpy(img).to(cuda)
-    before = fxaa.launches
-    k = fxaa.fxaa(img)
+    k = _fxaa_form(form, img)
     p = fxaa.fxaa_plain(img)
-    assert fxaa.launches == before + 1
     d = (k - p).abs().amax(dim=-1)
     assert float((d <= 1e-5).float().mean()) >= 0.999 and float(d.mean()) <= 1e-6
+
+
+@pytest.mark.parametrize("special", ["none", "nan_inf"])
+@pytest.mark.parametrize("h,w", [(1, 7), (7, 1), (5, 5), (1, 1), (16, 32), (17, 33), (37, 53),
+                                 (600, 900), (1080, 1920)])
+def test_fxaa_forms_bit_identical(cuda, h, w, special):
+    """K8's tile form against its first form, the same bits on every pixel:
+    images smaller than a tile, sizes that are and are not multiples of the
+    32 x 16 tile, hard edges on the tile boundaries (x = 32k, y = 16k), values
+    outside [0, 1], and NaN and inf pixels (a NaN centre or diagonal gives a
+    NaN direction, whose taps leave the tile and read the image)."""
+    rng = np.random.default_rng(h * 7919 + w)
+    img = rng.uniform(-0.2, 1.4, (h, w, 3)).astype(np.float32)
+    img[:, (np.arange(w) // 32) % 2 == 1] *= 0.05
+    img[(np.arange(h) // 16) % 2 == 1, :, 1] = 0.0
+    if special == "nan_inf":
+        for value in (np.nan, np.inf, -np.inf):
+            pick = rng.random((h, w)) < 0.01
+            img[pick, rng.integers(0, 3)] = value
+        img[0, 0, 0] = np.nan
+    img = torch.from_numpy(img).to(cuda)
+    tile = _fxaa_form("tile", img)
+    first = _fxaa_form("first", img)
+    assert torch.equal(_bits(tile), _bits(first))
+    if special == "none":
+        d = (tile - fxaa.fxaa_plain(img)).abs().amax(dim=-1)
+        assert float((d <= 1e-5).float().mean()) >= 0.999 and float(d.mean()) <= 1e-6
+    else:
+        assert bool(tile.isnan().any())
 
 
 def _primitive_inputs(cuda, n=200_000, seed=3):

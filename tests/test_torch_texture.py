@@ -170,3 +170,46 @@ def test_k4_patterns_and_run_counts(atlas):
     zero = scatter.k4_runs(ttex, pats["zero90"][0], tcfg, pats["zero90"][1])
     assert 0.85 <= zero["zero_cotangent_share"] <= 0.95
     assert zero["atomics_warp_form"] < 0.2 * runs["atomics_warp_form"]
+
+
+def test_ewa_weight_table_matches_jax():
+    """EWA's weights as K3's vector form reads them: the 128-entry table
+    (``ewa_weight_table``, built as ``csrc/texture.cu`` builds it) at every
+    bucket against JAX's ``_ewa_weight``, and through the kernel's lookup
+    (``ewa_weight_lookup``) on 200,000 seeded r2 in [-0.01, 1) and every bucket
+    edge, negative indices among them: the same bits as the port's own
+    ``_ewa_weight``, and within 6e-8 of JAX's (one float32 ulp in [0.5, 1):
+    XLA's exp and torch's differ by one on 13 of the 128 buckets)."""
+    table = texture_sample.ewa_weight_table()
+    assert table.shape == (128,) and table.dtype == torch.float32
+    buckets = np.arange(128, dtype=np.float32) / 128  # r2 at the centre of bucket i
+    ref = np.asarray(jax_texture._ewa_weight(jnp.asarray(buckets)))
+    assert np.abs(table.numpy() - ref).max() <= 6e-8
+    rng = np.random.default_rng(0)
+    edges = (np.arange(129, dtype=np.float32) - 0.5) / 128
+    r2 = np.concatenate([rng.uniform(-0.01, 1.0, 200_000), edges, [-0.5 / 128, -0.004]])
+    r2 = r2[r2 < 1.0].astype(np.float32)
+    assert (np.floor(r2 * 128 + 0.5) < 0).sum() > 1000  # the lookup's other path
+    got = texture_sample.ewa_weight_lookup(table, torch.from_numpy(r2))
+    assert torch.equal(got, texture_sample._ewa_weight(torch.from_numpy(r2)))
+    ref = np.asarray(jax_texture._ewa_weight(jnp.asarray(r2)))
+    assert np.abs(got.numpy() - ref).max() <= 6e-8
+
+
+def test_sample_forward_refuses_before_launching():
+    """K3's wrapper checks its form and, for the vector form, data4's 16-byte
+    alignment before it builds or launches anything (here, on the CPU, there is
+    nothing to launch: a check that passed would try to build the kernels)."""
+    rng = np.random.default_rng(1)
+    tex = (torch.from_numpy(rng.random((5, 3), dtype=np.float32)),
+           *(torch.ones(1, dtype=torch.int32) for _ in range(3)),
+           torch.zeros((1, 16), dtype=torch.int32), torch.zeros((5, 4), dtype=torch.int32))
+    lanes = (torch.zeros(4, dtype=torch.int32), *(torch.full((4,), 0.5) for _ in range(6)))
+    data4 = texture_sample.expand_quads(tex)
+    off = torch.empty(data4.numel() + 1)[1:].view(data4.shape)
+    off.copy_(data4)
+    filt = texture_sample.Filter("bilinear", 8.0, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        texture_sample.sample_forward(tex, lanes, filt, off)
+    with pytest.raises(ValueError, match="form"):
+        texture_sample.sample_forward(tex, lanes, filt, data4, "other")
