@@ -100,12 +100,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each harness kernel (K11 direct and staged, K11 from the 2.40 MB table, K12
    at the harnesses' two loop shapes, K13 single and chained) against its
    plain version, exact, with its device time (the calls queued behind a wait
-   kernel, so none waits on the host); then K12 on config3's wide table (10
-   dependent 288-byte rows for each of the 2,073,600 lanes) beside K1's time
-   in this run, and its latency (one warp an SM, 1,000 steps a lane), and K12
-   over the same rows cut to the quantised record's 128 bytes; then K12 over
-   the threaded walk's box rows, 54 dependent rows a lane, as they are (24
-   bytes, 32-bit loads) and padded to 32 bytes (16-byte loads);
+   kernel, so none waits on the host); K12 and K13 in both forms, the new one
+   (K12's warp form, K13's one block an SM) and the first, each exact, timed
+   in turns, each row's launches the new form's own; then K12 in both
+   forms on config3's wide table (10 dependent 288-byte rows for each of the
+   2,073,600 lanes) beside K1's time in this run, its latency (one warp an SM,
+   1,000 steps a lane), and over the same rows cut to the quantised record's
+   128 bytes; then K12 over the threaded walk's box rows, 54 dependent rows a
+   lane, as they are (24 bytes, 32-bit loads) and padded to 32 bytes (16-byte
+   loads, both forms): the first form is the floor under K1's and K10's
+   one-lane-one-record reads, the warp form the floor a fetch shared across a
+   warp could reach;
 8. small-input checks, the card against the same render on the CPU through the
    plain versions: config3 at 64x36 (20k triangles; also under the threaded
    walk), config4 at 96x64 on animation frames 0 and 2, config2 at 64x64 and 8
@@ -137,6 +142,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# shared memory's rate: 128 bytes a clock an SM, 132 SMs at the H100 SXM's top
+# clock of 1.98 GHz (K13's floor as issued: its shared-memory reads)
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 WIDTH, HEIGHT, TRIANGLES = 1920, 1080, 260_000
 
 # float32 operations per unit of work, counted from the kernel sources
@@ -428,14 +436,16 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
 
     dev = scene.tr_p0.device
     t_gather = time.perf_counter()
-    problems, runs = [], {}
+    problems, runs, runs_first = [], {}, {}
     for label, bench in (("gather", mb_gather), ("chained", mb_chained),
                          ("table_gather", mb_table_gather), ("table_rowsum", mb_table_rowsum)):
-        for key in gather.launches:
-            gather.launches[key] = 0
+        for counts in (gather.launches, gather.first_launches):
+            for key in counts:
+                counts[key] = 0
         with contextlib.redirect_stdout(io.StringIO()):
             lines = bench.main([])
         runs[label] = dict(gather.launches)
+        runs_first[label] = dict(gather.first_launches)
         checks = {f"{line['name']}.{k}": v for line in lines for k, v in line.items()
                   if k in ("match", "exact", "j_equal", "per_call_equal")}
         emit("gather_bench", bench=label, module=f"raytracer_tpu_torch.microbench.{label}",
@@ -465,17 +475,60 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
             j = gather.next_index(j, table[j.long(), 0] * t, i, t)
         return int(seen.sum())
 
+    def turns(fns: dict, reps: int) -> dict:
+        """Each function's ms (CUDA events) and device ms, timed in turns (a, b,
+        ..., b, a): {name: {ms, device_ms (the means), device_ms_turns}}."""
+        got = {k: ([], []) for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            got[k][0].append(cuda_ms(fns[k], reps))
+            got[k][1].append(microbench.device_ms(fns[k], dev, reps))
+        return {k: {"ms": sum(m) / len(m), "device_ms": sum(d) / len(d), "device_ms_turns": d}
+                for k, (m, d) in got.items()}
+
     def gather_row(name, replaces, run, key, kernel, plain, bnd, library=None, reps=50,
-                   **extra):
-        launches[name] = runs[run][key]
-        if launches[name] <= 0:
-            problems.append(f"{name} launched {launches[name]} times in microbench.{run}")
-        exact, err = gather_err(kernel(), plain())
+                   first=None, issued=None, **extra):
+        """One kernel row; ``first``: the kernel's first form (K12, K13), held to
+        the plain version too and timed in turns with the new form.  The row's
+        launches are its new form's (the first form's stand in ``first_form``)."""
+        first_launches = runs_first[run].get(key, 0)
+        launches[name] = runs[run][key] - first_launches
+        if launches[name] <= 0 or (first is not None and first_launches <= 0):
+            problems.append(f"{name} launched {launches[name]} times in microbench.{run}, "
+                            f"its first form {first_launches}")
+        want = plain()
+        exact, err = gather_err(kernel(), want)
+        if first is None:
+            t = {"new": {"ms": cuda_ms(kernel, reps),
+                         "device_ms": microbench.device_ms(kernel, dev)}}
+        else:
+            first_exact, first_err = gather_err(first(), want)
+            t = turns({"first": first, "new": kernel}, reps)
+            extra["device_ms_turns"] = t["new"]["device_ms_turns"]
+            extra["first_form"] = dict(t["first"], exact=first_exact, max_abs_err=first_err,
+                                       launches=first_launches)
+            extra["speedup_device"] = t["first"]["device_ms"] / t["new"]["device_ms"]
+            exact = exact and first_exact
+        if issued is not None:
+            extra["bytes_as_issued"] = issued
+            extra["issued_per_s"] = issued / (t["new"]["device_ms"] / 1e3)
+            if first is not None:
+                extra["first_form"]["issued_per_s"] = issued / (t["first"]["device_ms"] / 1e3)
         record(name, "raytracer_tpu_torch/csrc/gather.cu", replaces, err,
-               cuda_ms(kernel, reps), cuda_ms(plain, 5), bnd,
+               t["new"]["ms"], cuda_ms(plain, 5), bnd,
                None if library is None else cuda_ms(library, reps), exact,
-               device_ms=microbench.device_ms(kernel, dev),
+               device_ms=t["new"]["device_ms"],
                microbench=f"raytracer_tpu_torch.microbench.{run}", **extra)
+
+    def both_forms(table, lanes, steps, reps=50) -> dict:
+        """K12 in both forms over ``table``: {form: {exact, ms, device_ms,
+        bytes_as_issued, issued_per_s}}, timed in turns."""
+        want = gather.chained_gather_plain(table, lanes, steps)
+        fns = {f: (lambda f=f: gather.chained_gather(table, lanes, steps, form=f))
+               for f in gather.K12_FORMS}
+        t = turns(fns, reps)
+        issued = lanes.shape[0] * steps * table.shape[1] * 4
+        return {f: dict(t[f], exact=gather_err(fns[f](), want)[0], bytes_as_issued=issued,
+                        issued_per_s=issued / (t[f]["device_ms"] / 1e3)) for f in fns}
 
     _, padded, idx = mb_gather.inputs(dev)
     k11_bytes = (torch.unique(idx).numel() * padded.shape[1] * 4 + nbytes(idx)
@@ -509,29 +562,38 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
                lambda: gather.chained_gather_plain(table, idx, iters),
                bound_ms(rows * width * 4 + nbytes(idx) + n * 8,
                         n * iters * (width - 1 + OPS_CHAIN_STEP)),
+               first=lambda: gather.chained_gather(table, idx, iters, form="first"),
+               issued=n * iters * width * 4,
                shape={"table": list(table.shape), "lanes": n, "iters": iters},
-               rows_read=rows, tolerance="acc and j equal on every lane")
+               rows_read=rows, tolerance="acc and j equal on every lane, both forms")
     del table, idx
 
     table, idx, idx_all = mb_chained.inputs(dev)
     n, iters, width = idx.shape[0], mb_chained.ITERS, table.shape[1]
     rows = chain_rows(table, idx, iters)
     issued = n * iters * width * 4
-    indep_exact, indep_err = gather_err(gather.indep_gather(table, idx_all),
-                                        gather.indep_gather_plain(table, idx_all))
+    indep_want = gather.indep_gather_plain(table, idx_all)
+    indep_forms = {f: (lambda f=f: gather.indep_gather(table, idx_all, form=f))
+                   for f in gather.K12_FORMS}
+    indep_t = turns(indep_forms, 50)
+    indep = {"launches": runs["chained"]["indep"] - runs_first["chained"]["indep"],
+             "first_launches": runs_first["chained"]["indep"]}
+    for f, fn in indep_forms.items():
+        f_exact, f_err = gather_err(fn(), indep_want)
+        indep[f] = dict(indep_t[f], exact=f_exact, max_abs_err=f_err)
+        if not f_exact:
+            problems.append(f"K12 indep ({f}) differs from its plain version by {f_err}")
     gather_row("chained_gather", "scratch/bench_pallas_chained.py:25 pallas_gather "
                "(in make_fn :67-84)", "chained", "chained",
                lambda: gather.chained_gather(table, idx, iters),
                lambda: gather.chained_gather_plain(table, idx, iters),
                bound_ms(rows * width * 4 + nbytes(idx) + n * 8,
                         n * iters * (width - 1 + OPS_CHAIN_STEP)),
-               shape={"table": list(table.shape), "lanes": n, "iters": iters}, rows_read=rows,
-               bytes_as_issued=issued, bound_as_issued_ms=issued / PEAK_BYTES_PER_S * 1e3,
-               indep={"launches": runs["chained"]["indep"], "max_abs_err": indep_err,
-                      "ms": cuda_ms(lambda: gather.indep_gather(table, idx_all), 50)},
-               tolerance="acc and j equal on every lane; indep's acc equal")
-    if not indep_exact:
-        problems.append(f"K12 indep differs from its plain version by {indep_err}")
+               first=lambda: gather.chained_gather(table, idx, iters, form="first"),
+               issued=issued, shape={"table": list(table.shape), "lanes": n, "iters": iters},
+               rows_read=rows, bound_as_issued_ms=issued / PEAK_BYTES_PER_S * 1e3,
+               indep=indep, tolerance="acc and j equal on every lane, both forms; indep's "
+               "acc equal, both forms")
     del table, idx, idx_all
 
     tab, idx = mb_table_rowsum.inputs(dev)
@@ -540,14 +602,19 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
                "rowsum", lambda: gather.table_rowsum(tab, idx),
                lambda: gather.table_rowsum_plain(tab, idx),
                bound_ms(nbytes(tab, idx) + n * 4, n * (comps - 1)),
+               first=lambda: gather.table_rowsum(tab, idx, form="first"),
                shape={"table": list(tab.shape), "lanes": n},
-               tolerance="equal on every lane (both sum left to right)")
+               smem_floor_as_issued_ms=n * comps * 4 / SMEM_BYTES_PER_S * 1e3,
+               tolerance="equal on every lane, both forms (both sum left to right)")
     gather_row("table_rowsum_chain", "scratch/bench_vmem_invreg.py:39 in_kernel",
                "table_rowsum", "rowsum_chain", lambda: gather.table_rowsum_chain(tab, idx, iters),
                lambda: gather.table_rowsum_chain_plain(tab, idx, iters),
                bound_ms(nbytes(tab, idx) + n * 8, n * iters * (comps - 1 + OPS_CHAIN_STEP)),
+               first=lambda: gather.table_rowsum_chain(tab, idx, iters, form="first"),
                shape={"table": list(tab.shape), "lanes": n, "iters": iters},
-               tolerance="acc and j equal on every lane (j follows the float sum)")
+               smem_floor_as_issued_ms=n * iters * comps * 4 / SMEM_BYTES_PER_S * 1e3,
+               tolerance="acc and j equal on every lane, both forms (j follows the float "
+               "sum)")
     del tab, idx
 
     # K12 on config3's own wide table: one dependent 288-byte row a step, 10
@@ -556,43 +623,38 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     n, iters = WIDTH * HEIGHT, WIDE_CHAIN_ITERS
     idx = torch.from_numpy(np.random.default_rng(0).integers(
         0, wide.shape[0], n).astype(np.int32)).to(dev)
-    same, _ = gather_err(gather.chained_gather(wide, idx, iters),
-                         gather.chained_gather_plain(wide, idx, iters))
-    w_ms = cuda_ms(lambda: gather.chained_gather(wide, idx, iters), 50)
-    w_dev = microbench.device_ms(lambda: gather.chained_gather(wide, idx, iters), dev)
+    forms = both_forms(wide, idx, iters)
+    same = all(f["exact"] for f in forms.values())
+    w_ms = forms["warp"]["ms"]
     rows = chain_rows(wide, idx, iters)
-    issued = n * iters * wide.shape[1] * 4
     # the latency of one dependent row: one warp an SM, so no row waits for bandwidth
     lat_n = torch.cuda.get_device_properties(dev).multi_processor_count * 32 \
         if dev.type == "cuda" else 32
-    lat_ms = cuda_ms(lambda: gather.chained_gather(wide, idx[:lat_n], LATENCY_STEPS), 5)
+    latency = {"lanes": lat_n, "steps": LATENCY_STEPS}
+    for f in gather.K12_FORMS:
+        lat_ms = cuda_ms(lambda f=f: gather.chained_gather(wide, idx[:lat_n], LATENCY_STEPS,
+                                                           form=f), 5)
+        latency[f] = {"ms": lat_ms, "ns_per_step": lat_ms * 1e6 / LATENCY_STEPS}
     # the same chains over the rows cut to the quantised node record's width
     # (QUANT_ROW_FLOATS): the floor a narrower record could reach
     narrow = wide[:, :QUANT_ROW_FLOATS].contiguous()
-    n_same, _ = gather_err(gather.chained_gather(narrow, idx, iters),
-                           gather.chained_gather_plain(narrow, idx, iters))
-    n_ms = cuda_ms(lambda: gather.chained_gather(narrow, idx, iters), 50)
-    n_issued = n * iters * narrow.shape[1] * 4
-    narrow_row = {"row_floats": narrow.shape[1], "exact": n_same, "ms": n_ms,
-                  "device_ms": microbench.device_ms(
-                      lambda: gather.chained_gather(narrow, idx, iters), dev),
-                  "bytes_as_issued": n_issued, "issued_per_s": n_issued / (n_ms / 1e3),
-                  "over_wide": n_ms / w_ms}
+    narrow_forms = both_forms(narrow, idx, iters)
+    n_same = all(f["exact"] for f in narrow_forms.values())
+    narrow_row = {"row_floats": narrow.shape[1], "forms": narrow_forms,
+                  "over_wide": narrow_forms["warp"]["device_ms"] / forms["warp"]["device_ms"]}
     del narrow
     k1 = next(r for r in report if r["name"] == "traverse_closest")
     k1_walk = walk_visits["traverse_closest"]
     emit("gather_wide_table", table=list(wide.shape), lanes=n, iters=iters, exact=same,
-         ms=w_ms, device_ms=w_dev, ns_per_lane_iter=w_ms * 1e6 / (n * iters),
-         rows_read=rows,
+         ms=w_ms, device_ms=forms["warp"]["device_ms"],
+         ns_per_lane_iter=w_ms * 1e6 / (n * iters), forms=forms, rows_read=rows,
          bound_ms=bound_ms(rows * wide.shape[1] * 4 + nbytes(idx) + n * 8,
                            n * iters * (wide.shape[1] - 1 + OPS_CHAIN_STEP))[0],
-         bytes_as_issued=issued, issued_per_s=issued / (w_ms / 1e3),
-         latency={"lanes": lat_n, "steps": LATENCY_STEPS, "ms": lat_ms,
-                  "ns_per_step": lat_ms * 1e6 / LATENCY_STEPS},
-         k1_ms=k1["ms"], k1_bound_ms=k1["bound_ms"], k1_walk=k1_walk,
+         latency=latency, k1_ms=k1["ms"], k1_bound_ms=k1["bound_ms"], k1_walk=k1_walk,
          k1_visits_per_active_lane=(k1_walk["node_visits"] + k1_walk["leaf_visits"])
          / max(k1_walk["active"], 1),
-         k1_over_chain=k1["ms"] / w_ms, narrow=narrow_row, nvidia_smi=smi)
+         k1_over_chain={f: k1["ms"] / forms[f]["ms"] for f in forms}, narrow=narrow_row,
+         nvidia_smi=smi)
     if not n_same:
         problems.append("K12 on config3's cut table differs from its plain version")
     if not same:
@@ -601,7 +663,7 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
 
     # K12 over the threaded walk's box rows (K10's table), 54 dependent rows a
     # lane (K10's node visits a primary ray): the rows as they are, 24 bytes
-    # with 32-bit loads, and padded to 32 bytes with 16-byte loads
+    # with 32-bit loads, and padded to 32 bytes with 16-byte loads in both forms
     floors = mb_threaded.chain_floor(traversal.build_scene_bvh(scene), WIDTH * HEIGHT,
                                      mb_threaded.CHAIN_ITERS, dev, 20)
     k10 = next(r for r in report if r["name"] == "threaded_closest")

@@ -39,32 +39,43 @@
 //   Bound: bytes.  It reads the rows it names (each distinct row once) and the
 //   indices, and writes N x R floats.
 //
-// K12 chain_kernel<kR4, kIndep> replaces the loop of
-// scratch/bench_pallas_chained.py:67-84 make_fn (and of
-// scratch/bench_vmem_gather.py:61-75 bench_loop) around those gathers.  One
-// thread walks one chain, as K1 and K10 walk one ray:
+// K12 replaces the loop of scratch/bench_pallas_chained.py:67-84 make_fn (and
+// of scratch/bench_vmem_gather.py:61-75 bench_loop) around those gathers:
 //     j = idx0; acc = 0
 //     for i in [0, iters): row = table[j]; s = row[0] + ... + row[R-1];
 //                          acc += s; j = next_index(j, row[0] * T, i, T)
 // With kIndep the indices come from idx_all[i, n] instead
-// (bench_pallas_chained.py:107-113).  A row is read as R/4 independent 16-byte
-// loads (R = 72 and 128 unrolled whole); its sum runs left to right, as
-// ops/gather.py's, so acc and j equal the plain version's.  chain_scalar_kernel
-// reads rows of any width with 32-bit loads (the threaded walk's 24-byte box
-// rows, whose stride straddles 32-byte sectors).
+// (bench_pallas_chained.py:107-113).  Every step reads the whole row from
+// global memory and sums it left to right, as ops/gather.py's, so acc and j
+// equal the plain version's.  Two forms:
+//   - chain_warp_kernel<kR4, kIndep> (the warp form, the default): a warp's 32
+//     chains fetch their rows together, 32 consecutive 16-byte pieces an
+//     instruction, through a slot of shared memory (see the kernel).
+//   - chain_kernel<kR4, kIndep> (the first form, the yardstick): one thread
+//     reads its own row, R/4 16-byte loads (R = 72 and 128 unrolled whole), as
+//     K1 and K10 read a node record: each load instruction of a warp touches
+//     32 different lines.
+// chain_scalar_kernel reads rows of any width with 32-bit loads (the threaded
+// walk's 24-byte box rows, whose stride straddles 32-byte sectors), one thread
+// a chain, its one form.
 // Bound: bytes (each distinct row once) at the harness's shapes with a table
 // beyond L2; operations (R + 5 a step) once the table is small.  The measure of
-// interest is its time a lane-iteration: one dependent 16-byte-load round trip
-// per row, the floor under K1's and K10's walks.
+// interest is its time a lane-iteration and its rate of rows as issued: the
+// floor under K1's and K10's walks.
 //
-// K13 rowsum_kernel<kChain> replaces scratch/bench_vmem_invreg.py:63
-// gather_kernel (single: out[n] = sum_c tab[c, idx[n]]) and :39 in_kernel (the
-// chain inside the kernel: s from the table, j = next_index(j, s * 7, i, U)).
-// Each block stages the [C, U] table (records in columns, 36 KB at C = 72,
-// U = 128) once in shared memory transposed to [U][C | 1]: the odd row stride
-// puts the same component of 32 different records in 32 different banks.  Then
-// one thread a lane, summing c = 0 .. C-1 left to right (bit-exact with the
-// plain version under --fmad=false).  Bound: bytes single, operations chained.
+// K13 replaces scratch/bench_vmem_invreg.py:63 gather_kernel (single: out[n] =
+// sum_c tab[c, idx[n]]) and :39 in_kernel (the chain inside the kernel: s from
+// the table, j = next_index(j, s * 7, i, U)).  The [C, U] table (records in
+// columns, 36 KB at C = 72, U = 128) is staged in shared memory, then one
+// thread a lane sums c = 0 .. C-1 left to right (bit-exact with the plain
+// version under --fmad=false).  Two forms:
+//   - rowsum_sm_kernel<kChain, kC> (the default): one block of 1024 threads an
+//     SM stages the table once, in its own [C][U] layout with one bulk async
+//     copy, and walks the lanes by grid stride.
+//   - rowsum_kernel<kChain> (the first form): up to 4 blocks an SM, each staging
+//     the table transposed to [U][C | 1] with its threads.
+// Bound: bytes single, operations chained; with random records shared
+// memory's bank conflicts set the pace.
 #include "common.cuh"
 
 namespace {
@@ -137,6 +148,21 @@ __device__ __forceinline__ void bulk_wait_read() {
 
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// 16 bytes, global -> shared, through L1 (.ca)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until every cp.async of this thread has landed in shared memory.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __global__ void row_gather_kernel(const float4* __restrict__ table, int r4,
@@ -310,6 +336,137 @@ __global__ void rowsum_kernel(const float* __restrict__ tab, int c_dim, int u_di
   }
 }
 
+// K12's warp form: a warp walks 32 chains, one a lane, and fetches their rows
+// together.  Each step, piece p of the 32 rows laid end to end (p = 32k + lane,
+// k = 0 .. r4 - 1) is one 16-byte cp.async into the warp's slot in shared
+// memory, so that instruction k reads 32 consecutive pieces (a 512-byte row is
+// 4 lines, not 32); the row's index comes from its lane by a shuffle.  The
+// slot's rows lie (r4 | 1) pieces apart: each lane then reads its own row, 16
+// bytes a load, the 8 lanes of each phase on 8 different 4-bank groups, and
+// sums it left to right.  One slot a warp: the next step's copies go out once
+// every lane has summed its row.  Measured slower on the harnesses' tables
+// (device time, NVIDIA H100 80GB HBM3, 700 W): two slots a warp (the next
+// step's copies issued before the sum, half the warps an SM), copies through
+// L2 only (.cg; .ca goes through L1), one bulk async copy a row, and plain
+// loads and stores.
+constexpr int kWarpBlock = 4;  // warps a block of the warp form at most
+
+template <int kR4, bool kIndep>
+__global__ void __launch_bounds__(32 * kWarpBlock)
+chain_warp_kernel(const float4* __restrict__ table, int t, int r4_arg,
+                  const int* __restrict__ idx, int n, int iters,
+                  float* __restrict__ acc_out, int* __restrict__ j_out) {
+  extern __shared__ __align__(16) float4 slot_mem[];  // warps x 32 rows x (r4 | 1)
+  const int r4 = kR4 > 0 ? kR4 : r4_arg;
+  const int stride = r4 | 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int first = (blockIdx.x * (blockDim.x >> 5) + warp) * 32;
+  if (first >= n) return;  // no barrier spans the block's warps
+  const int rows = min(32, n - first);  // the warp's chains
+  const bool live = lane < rows;
+  const int me = first + lane;
+  float4* const slot = slot_mem + warp * 32 * stride;
+  // the rows of one step into the slot: row r is chain r's, jv on lane r its index
+  auto issue = [&](int jv) {
+#pragma unroll
+    for (int k = 0; k < r4; ++k) {
+      const int p = k * 32 + lane, r = p / r4, q = p - r * r4;
+      const int jr = __shfl_sync(0xffffffffu, jv, r);
+      if (r < rows) cp_async16(slot + r * stride + q, table + (size_t)jr * r4 + q);
+    }
+    cp_async_commit();
+  };
+  float acc = 0.0f;
+  int j = (!kIndep && live) ? idx[me] : 0;
+  if (iters > 0) issue(kIndep ? (live ? idx[me] : 0) : j);
+  for (int i = 0; i < iters; ++i) {
+    // indep: the next step's index, read while this step's rows land
+    const int jn = (kIndep && i + 1 < iters && live) ? idx[(size_t)(i + 1) * n + me] : 0;
+    cp_async_wait_all();
+    __syncwarp();  // every lane's copies have landed
+    const float4* row = slot + lane * stride;
+    float4 v = row[0];
+    float s = v.x;
+    if (!kIndep) j = next_index(j, v.x * (float)t, i, t);
+    s += v.y;
+    s += v.z;
+    s += v.w;
+#pragma unroll
+    for (int q = 1; q < r4; ++q) {
+      v = row[q];
+      s += v.x;
+      s += v.y;
+      s += v.z;
+      s += v.w;
+    }
+    acc = acc + s;
+    if (i + 1 < iters) {
+      __syncwarp();  // every lane has read its row
+      issue(kIndep ? jn : j);
+    }
+  }
+  if (live) {
+    acc_out[me] = acc;
+    if (!kIndep) j_out[me] = j;
+  }
+}
+
+// K13's persistent form: one block an SM, which stages the table once, in its
+// own [C][U] layout, and walks the lanes by grid stride.  One bulk async copy
+// brings the table's 16-byte body, completing on an mbarrier (threads copy a
+// tail, or all of it from a base that is not 16-byte aligned).  kC > 0: the
+// record's width, its reads unrolled ahead of the adds.  Measured against the
+// first form's [U][C | 1] and a [U][C4 | 1] of 16-byte pieces, read 16 bytes a
+// load: on the harness's random records their bank conflicts differ little,
+// and [C][U], which needs no transposition, was the fastest (PERF.md, Findings).
+constexpr int kSmThreads = 1024;
+
+template <bool kChain, int kC>
+__global__ void __launch_bounds__(kSmThreads, 1)
+rowsum_sm_kernel(const float* __restrict__ tab, int c_arg, int u_dim,
+                 const int* __restrict__ idx, int n, int iters, float* __restrict__ acc_out,
+                 int* __restrict__ j_out) {
+  extern __shared__ __align__(16) float sm[];  // [C][U]
+  __shared__ __align__(8) unsigned long long bar;
+  const int c_dim = kC > 0 ? kC : c_arg;
+  const int lane0 = blockIdx.x * kSmThreads + threadIdx.x;
+  int j_first = lane0 < n ? idx[lane0] : 0;  // read while the table lands
+  const int total = c_dim * u_dim;
+  const int body = ((uintptr_t)tab % 16 == 0) ? (total & ~3) : 0;
+  if (body && threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_expect_tx(&bar, (unsigned)body * 4u);
+    bulk_load(sm, tab, (unsigned)body * 4u, &bar);
+  }
+  for (int e = body + threadIdx.x; e < total; e += kSmThreads) sm[e] = tab[e];
+  __syncthreads();  // the barrier's init and the tail
+  if (body) mbar_wait(&bar, 0);
+  // record j's sum, c = 0 first
+  auto record_sum = [&](int j) {
+    const float* r = sm + j;
+    float s = r[0];
+#pragma unroll
+    for (int c = 1; c < c_dim; ++c) s += r[c * u_dim];
+    return s;
+  };
+  for (int lane = lane0; lane < n; lane += gridDim.x * kSmThreads) {
+    int j = lane == lane0 ? j_first : idx[lane];
+    float acc = 0.0f;
+    if constexpr (kChain) {
+      for (int i = 0; i < iters; ++i) {
+        const float s = record_sum(j);
+        acc = acc + s;
+        j = next_index(j, s * 7.0f, i, u_dim);
+      }
+      j_out[lane] = j;
+    } else {
+      acc = record_sum(j);
+    }
+    acc_out[lane] = acc;
+  }
+}
+
 template <int kR4>
 void launch_chain(bool indep, const float4* table, int t, int r4, const int* idx, int n,
                   int iters, float* acc, int* j_out, cudaStream_t s) {
@@ -318,6 +475,75 @@ void launch_chain(bool indep, const float4* table, int t, int r4, const int* idx
     chain_kernel<kR4, true><<<grid, kThreads, 0, s>>>(table, t, r4, idx, n, iters, acc, j_out);
   else
     chain_kernel<kR4, false><<<grid, kThreads, 0, s>>>(table, t, r4, idx, n, iters, acc, j_out);
+}
+
+// shared memory a block may opt in to on the H100 (232,448 B), less room for the
+// kernels' static barriers
+constexpr int kSmemOptIn = 232448 - 1024;
+
+// Once a device: `kern` may take up to kSmemOptIn bytes of dynamic shared memory.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int* set_device) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || *set_device == device) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+  if (err == cudaSuccess) *set_device = device;
+  return err;
+}
+
+template <int kR4, bool kIndep>
+int launch_chain_warp(const float4* table, int t, int r4, const int* idx, int n, int iters,
+                      float* acc, int* j_out, cudaStream_t s) {
+  static int set_device = -1;
+  auto kern = chain_warp_kernel<kR4, kIndep>;
+  cudaError_t err = allow_smem(kern, &set_device);
+  if (err != cudaSuccess) return (int)err;
+  // a warp's slot; blocks of kWarpBlock warps where the slots are small, so
+  // that the SM's limit on blocks does not cap its warps
+  const size_t warp_smem = (size_t)32 * (r4 | 1) * sizeof(float4);
+  const int warps = warp_smem * kWarpBlock <= 48 * 1024 ? kWarpBlock : 1;
+  kern<<<rt::grid_for(n, 32 * warps), 32 * warps, warp_smem * warps, s>>>(table, t, r4, idx, n,
+                                                                        iters, acc, j_out);
+  return (int)cudaGetLastError();
+}
+
+template <bool kIndep>
+int dispatch_chain_warp(const float4* table, int t, int r4, const int* idx, int n, int iters,
+                        float* acc, int* j_out, cudaStream_t s) {
+  if (r4 == 8)
+    return launch_chain_warp<8, kIndep>(table, t, r4, idx, n, iters, acc, j_out, s);
+  if (r4 == 18)
+    return launch_chain_warp<18, kIndep>(table, t, r4, idx, n, iters, acc, j_out, s);
+  if (r4 == 32)
+    return launch_chain_warp<32, kIndep>(table, t, r4, idx, n, iters, acc, j_out, s);
+  return launch_chain_warp<0, kIndep>(table, t, r4, idx, n, iters, acc, j_out, s);
+}
+
+template <bool kChain, int kC>
+int launch_rowsum_sm(const float* tab, int c_dim, int u_dim, const int* idx, int n, int iters,
+                     float* acc, int* j_out, cudaStream_t s) {
+  static int set_device = -1;
+  auto kern = rowsum_sm_kernel<kChain, kC>;
+  cudaError_t err = allow_smem(kern, &set_device);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  unsigned grid = rt::grid_for(n, kSmThreads);
+  if (grid > (unsigned)sms) grid = (unsigned)sms;
+  kern<<<grid, kSmThreads, (size_t)c_dim * u_dim * sizeof(float), s>>>(tab, c_dim, u_dim, idx, n,
+                                                                        iters, acc, j_out);
+  return (int)cudaGetLastError();
+}
+
+template <bool kChain>
+int dispatch_rowsum_sm(const float* tab, int c_dim, int u_dim, const int* idx, int n, int iters,
+                       float* acc, int* j_out, cudaStream_t s) {
+  if (c_dim == 72)  // the harness's record: the wide walk's 72-float node row
+    return launch_rowsum_sm<kChain, 72>(tab, c_dim, u_dim, idx, n, iters, acc, j_out, s);
+  return launch_rowsum_sm<kChain, 0>(tab, c_dim, u_dim, idx, n, iters, acc, j_out, s);
 }
 
 }  // namespace
@@ -368,18 +594,26 @@ extern "C" int rt_row_gather(int staged, const void* table, int r4, const void* 
 
 // table: [t, 4 * r4] f32, 16-byte aligned; idx: [n] int32 (chained: the first
 // rows) or [iters, n] (indep); acc: [n] f32; j_out: [n] int32 (chained only).
-extern "C" int rt_chained_gather(int indep, const void* table, int t, int r4, const void* idx,
-                                 int n, int iters, void* acc, void* j_out, void* stream) {
+// form 1: the warp form (chain_warp_kernel, 32 rows of (r4 | 1) pieces of
+// shared memory a warp), 0: the first (chain_kernel).
+extern "C" int rt_chained_gather(int indep, int form, const void* table, int t, int r4,
+                                 const void* idx, int n, int iters, void* acc, void* j_out,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float4* tab = (const float4*)table;
+  const int* ix = (const int*)idx;
+  if (form == 1)
+    return indep ? dispatch_chain_warp<true>(tab, t, r4, ix, n, iters, (float*)acc, nullptr, s)
+                 : dispatch_chain_warp<false>(tab, t, r4, ix, n, iters, (float*)acc,
+                                              (int*)j_out, s);
   if (r4 == 8)  // the wide walk's 32-float quantised node record
-    launch_chain<8>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
+    launch_chain<8>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
   else if (r4 == 18)  // the wide walk's 72-float row
-    launch_chain<18>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
+    launch_chain<18>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
   else if (r4 == 32)  // the harnesses' 128-float padded row
-    launch_chain<32>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
+    launch_chain<32>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
   else
-    launch_chain<0>(indep, tab, t, r4, (const int*)idx, n, iters, (float*)acc, (int*)j_out, s);
+    launch_chain<0>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
   return (int)cudaGetLastError();
 }
 
@@ -400,10 +634,19 @@ extern "C" int rt_chained_gather_scalar(const void* table, int t, int r, const v
 
 // tab: [c_dim, u_dim] f32, u_dim * (c_dim | 1) floats within 48 KB; idx: [n]
 // int32 in [0, u_dim).  j_out null: single (acc_out[n] = the record's sum);
-// else the chain of iters steps, its acc and last j.
-extern "C" int rt_table_rowsum(const void* tab, int c_dim, int u_dim, const void* idx, int n,
-                               int iters, void* acc_out, void* j_out, void* stream) {
+// else the chain of iters steps, its acc and last j.  form 1: the persistent
+// form (rowsum_sm_kernel, one block an SM); form 0: the first (rowsum_kernel).
+extern "C" int rt_table_rowsum(int form, const void* tab, int c_dim, int u_dim,
+                               const void* idx, int n, int iters, void* acc_out, void* j_out,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const float* t = (const float*)tab;
+  const int* ix = (const int*)idx;
+  if (form == 1)
+    return j_out ? dispatch_rowsum_sm<true>(t, c_dim, u_dim, ix, n, iters, (float*)acc_out,
+                                            (int*)j_out, s)
+                 : dispatch_rowsum_sm<false>(t, c_dim, u_dim, ix, n, iters, (float*)acc_out,
+                                             nullptr, s);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -414,12 +657,10 @@ extern "C" int rt_table_rowsum(const void* tab, int c_dim, int u_dim, const void
   if (grid > 4u * sms) grid = 4u * sms;
   size_t smem = (size_t)u_dim * (c_dim | 1) * sizeof(float);
   if (j_out)
-    rowsum_kernel<true><<<grid, kThreads, smem, s>>>((const float*)tab, c_dim, u_dim,
-                                                     (const int*)idx, n, iters,
+    rowsum_kernel<true><<<grid, kThreads, smem, s>>>(t, c_dim, u_dim, ix, n, iters,
                                                      (float*)acc_out, (int*)j_out);
   else
-    rowsum_kernel<false><<<grid, kThreads, smem, s>>>((const float*)tab, c_dim, u_dim,
-                                                      (const int*)idx, n, iters,
+    rowsum_kernel<false><<<grid, kThreads, smem, s>>>(t, c_dim, u_dim, ix, n, iters,
                                                       (float*)acc_out, nullptr);
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,11 @@ one JSON line each:
   space and in each instance's (every active ray counted in every space);
 - ``chain_floor``: K12 (``gather.chained_gather``) over the primaries' count of
   lanes x ``--iters`` dependent rows (54: K10's node visits a primary ray): the
-  ``[U,6]`` box rows at their 24-byte stride with 32-bit loads, then the same
-  rows padded to 32 bytes with 16-byte loads.  The first column picks the next
-  row, so both run the same chains;
+  ``[U,6]`` box rows at their 24-byte stride with 32-bit loads (one thread a
+  chain), then the same rows padded to 32 bytes with 16-byte loads in K12's
+  two forms (``"warp"``: a warp fetches its 32 chains' rows together;
+  ``"first"``: a thread reads its own row, as K10 reads a record).  The first
+  column picks the next row, so all run the same chains;
 - ``walk`` (closest, any): the plain walk's node, pair and TLAS-leaf visits and
   its warp efficiency (the sum of the lanes' iterations over the sum of 32 x
   each warp's longest lane), in launch order and with the active lanes
@@ -154,9 +156,9 @@ def traffic(form: str, bvh, walk, lanes: int, any_hit: bool) -> dict:
 
 
 def chain_floor(bvh, lanes: int, iters: int, device, reps: int) -> list:
-    """K12 over the box rows as they are and padded to 32 bytes (see the module
-    docstring): per table {rows, ms, device_ms, bytes as issued, sectors touched,
-    exact}."""
+    """K12 over the box rows as they are and padded to 32 bytes, the latter in
+    both forms (see the module docstring): per table and form {rows, ms,
+    device_ms, bytes as issued, their rate, sectors touched, exact}."""
     import torch
 
     from ..ops import gather
@@ -168,25 +170,28 @@ def chain_floor(bvh, lanes: int, iters: int, device, reps: int) -> list:
     idx = torch.from_numpy(np.random.default_rng(0).integers(0, u, lanes).astype(np.int32)).to(
         box.device)
     out = []
-    for label, table, loads in (("box_rows_24B", box, "scalar"),
-                                ("rows_32B", padded, "vector")):
+    for label, table, loads, forms in (("box_rows_24B", box, "scalar", ("scalar",)),
+                                       ("rows_32B", padded, "vector", gather.K12_FORMS)):
         want = gather.chained_gather_plain(table, idx, iters)
-        got = gather.chained_gather(table, idx, iters, loads)
-        exact = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
-                    for a, b in zip(got, want))
         row = table.shape[1] * 4
         sec, j = 0, idx
         for i in range(iters):  # the rows each chain reads, as the kernel does
             sec += int(sectors(j.long() * row, row).sum())
             j = gather.next_index(j, table[j.long(), 0] * u, i, u)
-        t_ms = ms(lambda t=table, ld=loads: gather.chained_gather(t, idx, iters, ld), reps,
-                  device)
-        out.append({"table": label, "shape": list(table.shape), "loads": loads,
-                    "lanes": lanes, "iters": iters, "exact": exact, "ms": t_ms,
-                    "device_ms": device_ms(
-                        lambda t=table, ld=loads: gather.chained_gather(t, idx, iters, ld),
-                        device, reps),
-                    "bytes_as_issued": lanes * iters * row, "sectors_touched": sec})
+        for form in forms:
+            def run(t=table, ld=loads, f=None if form == "scalar" else form):
+                return gather.chained_gather(t, idx, iters, ld, f)
+
+            exact = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                        for a, b in zip(run(), want))
+            dev_ms = device_ms(run, device, reps)
+            out.append({"table": label, "shape": list(table.shape), "loads": loads,
+                        "form": form, "lanes": lanes, "iters": iters, "exact": exact,
+                        "ms": ms(run, reps, device), "device_ms": dev_ms,
+                        "bytes_as_issued": lanes * iters * row,
+                        "issued_per_s": (lanes * iters * row / (dev_ms / 1e3)
+                                         if isinstance(dev_ms, float) else "not measured"),
+                        "sectors_touched": sec})
     return out
 
 

@@ -242,6 +242,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gather.table_rowsum(table.t(), idx)
 
 
+@pytest.mark.parametrize("form", gather.K12_FORMS)
+def test_k12_forms_on_cpu_return_the_plain_result(form):
+    """On CPU tensors every K12 form (checked, then not used) gives the plain
+    loop's acc and j, chained with either loads and indep."""
+    table, idx, idx_all = (_t(_table("random", (300, 8), 13)), _t(_idx(300, 70, 14)),
+                           _t(_idx(300, (3, 70), 15)))
+    want = gather.chained_gather_plain(table, idx, 3)
+    for got in (gather.chained_gather(table, idx, 3, "vector", form),
+                gather.chained_gather(table, idx, 3, "scalar")):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(gather.indep_gather(table, idx_all, form),
+                       gather.indep_gather_plain(table, idx_all))
+
+
+@pytest.mark.parametrize("shape", [(5, 33), (72, 128)])
+@pytest.mark.parametrize("form", gather.K13_FORMS)
+def test_k13_forms_on_cpu_return_the_plain_result(form, shape):
+    """On CPU tensors every K13 form gives the plain result, single and chained,
+    on an odd table and the harness's [72, 128]."""
+    tab, idx = _t(_table("random", shape, 16)), _t(_idx(shape[1], 70, 17))
+    assert torch.equal(gather.table_rowsum(tab, idx, form), gather.table_rowsum_plain(tab, idx))
+    got = gather.table_rowsum_chain(tab, idx, 4, form)
+    assert all(torch.equal(a, b) for a, b in zip(got, gather.table_rowsum_chain_plain(tab, idx,
+                                                                                      4)))
+
+
+def test_gather_wrappers_refuse_an_unknown_form():
+    """A form names one kernel: an unknown one raises on either device, as does
+    any form given with K12's scalar loads, which have one kernel."""
+    table, idx = torch.zeros((10, 8)), torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="form must be one of"):
+        gather.chained_gather(table, idx, 2, form="sm")
+    with pytest.raises(ValueError, match="form must be one of"):
+        gather.chained_gather(table, idx, 2, loads="vector", form="tile")
+    for form in (*gather.K12_FORMS, "tile"):
+        with pytest.raises(ValueError, match="loads='scalar' has one form"):
+            gather.chained_gather(table, idx, 2, loads="scalar", form=form)
+    with pytest.raises(ValueError, match="form must be one of"):
+        gather.indep_gather(table, idx[None], form="tile")
+    with pytest.raises(ValueError, match="form must be one of"):
+        gather.table_rowsum(table, idx, form="warp")
+    with pytest.raises(ValueError, match="form must be one of"):
+        gather.table_rowsum_chain(table, idx, 2, form="warp")
+
+
+def test_bank_conflicts_counts_distinct_words_a_bank():
+    """K13's bank-conflict count in a [C][U] table: one record a warp is a
+    broadcast, 32 consecutive records 32 banks (1 wavefront each); records 0,
+    32, 64 and 96 share bank 0 (4 wavefronts); one warp of each averages."""
+    same = torch.zeros((1, 32), dtype=torch.int32)
+    consecutive = torch.arange(32, dtype=torch.int32)[None]
+    spread = torch.tensor([[0, 32, 64, 96] * 8], dtype=torch.int32)
+    assert mb_table_rowsum.bank_conflicts(same) == 1.0
+    assert mb_table_rowsum.bank_conflicts(consecutive) == 1.0
+    assert mb_table_rowsum.bank_conflicts(spread) == 4.0
+    assert mb_table_rowsum.bank_conflicts(torch.cat([same, spread], dim=1)) == 2.5
+
+
 @pytest.mark.parametrize("bench,argv", [
     (mb_gather, ["--t", "3000", "--n", "700"]),
     (mb_chained, ["--t", "3000", "--n", "700", "--iters", "3"]),

@@ -7,6 +7,7 @@ may lack and these tests do not use):
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q
 """
 
+import re
 import types
 
 import numpy as np
@@ -1061,6 +1062,141 @@ def test_table_rowsum_kernel_matches_plain(cuda, c):
     assert torch.equal(acc, pacc) and torch.equal(j, pj)
     assert (gather.launches["rowsum"], gather.launches["rowsum_chain"]) == (before[0] + 1,
                                                                             before[1] + 1)
+
+
+def _equal_nan(got, want) -> bool:
+    """Equal on every lane, a NaN against a NaN (its payload aside)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+               if a.is_floating_point() else torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _same_bits(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 32])
+@pytest.mark.parametrize("n", [1, 31, 33, 65541])
+@pytest.mark.parametrize("width", [32, 72, 128, 20])
+def test_chained_gather_warp_form_matches_plain_and_first(cuda, width, n, iters):
+    """K12's warp form, chained and indep, on a wild table (NaNs, infinities,
+    any magnitude): equal to the plain loops on every lane and the same bits as
+    the first form; partial warps (n = 1, 31, 33, 65,541) load and write only
+    their own lanes; width 20 takes the kernel's generic row loop."""
+    table = _gather_table(cuda, 5000, width, 10, wild=True)
+    idx = _gather_idx(cuda, 5000, n, 11)
+    idx_all = _gather_idx(cuda, 5000, (iters, n), 12)
+    before = (gather.launches["chained"], gather.launches["indep"])
+    got = gather.chained_gather(table, idx, iters)
+    assert _equal_nan(got, gather.chained_gather_plain(table, idx, iters))
+    assert _same_bits(got, gather.chained_gather(table, idx, iters, form="first"))
+    got = gather.indep_gather(table, idx_all)
+    assert _equal_nan(got, gather.indep_gather_plain(table, idx_all))
+    assert _same_bits(got, gather.indep_gather(table, idx_all, form="first"))
+    assert (gather.launches["chained"], gather.launches["indep"]) == (before[0] + 2,
+                                                                    before[1] + 2)
+
+
+def test_chained_gather_warp_form_on_the_harness_table(cuda):
+    """K12's warp form on ``microbench.table_gather``'s [4680, 128] table at its
+    131,072 lanes x 32 steps: the plain loop's and the first form's bits."""
+    from raytracer_tpu_torch.microbench import table_gather
+
+    table, idx = table_gather.inputs(cuda)
+    got = gather.chained_gather(table, idx, 32)
+    assert _same_bits(got, gather.chained_gather_plain(table, idx, 32))
+    assert _same_bits(got, gather.chained_gather(table, idx, 32, form="first"))
+    idx_all = _gather_idx(cuda, table.shape[0], (32, idx.shape[0]), 13)
+    got = gather.indep_gather(table, idx_all)
+    assert _same_bits(got, gather.indep_gather_plain(table, idx_all))
+    assert _same_bits(got, gather.indep_gather(table, idx_all, form="first"))
+
+
+@pytest.mark.parametrize("c,u,n", [(72, 128, 131073), (5, 33, 1000)])
+def test_table_rowsum_sm_form_matches_plain(cuda, c, u, n):
+    """K13's form "sm", single and chained, against the plain versions and the
+    first form: the same bits on every lane, n not a multiple
+    of the 1024-thread block, and an odd [5, 33] table (its 165 floats no whole
+    number of 16-byte pieces: the bulk copy takes the first 164, a thread the
+    last)."""
+    tab = _gather_table(cuda, c, u, 14)
+    idx = _gather_idx(cuda, u, n, 15)
+    got = gather.table_rowsum(tab, idx)
+    assert _same_bits(got, gather.table_rowsum_plain(tab, idx))
+    assert _same_bits(got, gather.table_rowsum(tab, idx, form="first"))
+    got = gather.table_rowsum_chain(tab, idx, 32)
+    assert _same_bits(got, gather.table_rowsum_chain_plain(tab, idx, 32))
+    assert _same_bits(got, gather.table_rowsum_chain(tab, idx, 32, form="first"))
+
+
+def test_chained_gather_warp_form_refuses_rows_its_slot_cannot_hold(cuda):
+    """A warp's slot holds 32 rows of at most 1,804 floats in the shared memory a
+    block may have; the first form takes any width."""
+    table = _gather_table(cuda, 40, 1808, 23)
+    idx = _gather_idx(cuda, 40, 33, 24)
+    with pytest.raises(ValueError, match="at most 1804 floats"):
+        gather.chained_gather(table, idx, 2)
+    assert _same_bits(gather.chained_gather(table, idx, 2, form="first"),
+                      gather.chained_gather_plain(table, idx, 2))
+    assert _same_bits(gather.chained_gather(table[:, :1804].contiguous(), idx, 2),
+                      gather.chained_gather_plain(table[:, :1804].contiguous(), idx, 2))
+
+
+def test_table_rowsum_sm_form_from_an_unaligned_base(cuda):
+    """A table view 4 bytes past a 16-byte boundary: the form "sm"'s threads
+    copy it all (no bulk copy from a base that is not 16-byte aligned)."""
+    base = _gather_table(cuda, 1, 72 * 128 + 1, 16)[0]
+    tab = base[1:].view(72, 128)
+    assert tab.data_ptr() % 16
+    idx = _gather_idx(cuda, 128, 5000, 17)
+    assert _same_bits(gather.table_rowsum(tab, idx), gather.table_rowsum_plain(tab, idx))
+    assert _same_bits(gather.table_rowsum_chain(tab, idx, 8),
+                      gather.table_rowsum_chain_plain(tab, idx, 8))
+
+
+def _launched(fn) -> list:
+    """The names of the CUDA kernels ``fn`` launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()]
+
+
+def test_each_gather_form_launches_the_kernel_it_names(cuda):
+    """Each form of K12 and K13 launches its own kernel (by name, in the
+    profiler's trace) and counts one launch under its mode's key, the first form
+    also in ``first_launches``."""
+    table, idx = _gather_table(cuda, 5000, 128, 18), _gather_idx(cuda, 5000, 4096, 19)
+    idx_all = _gather_idx(cuda, 5000, (4, 4096), 20)
+    tab, ridx = _gather_table(cuda, 72, 128, 21), _gather_idx(cuda, 128, 4096, 22)
+    cases = [
+        ("chained", "chain_warp_kernel", lambda: gather.chained_gather(table, idx, 4)),
+        ("chained", "chain_kernel",
+         lambda: gather.chained_gather(table, idx, 4, form="first")),
+        ("indep", "chain_warp_kernel", lambda: gather.indep_gather(table, idx_all)),
+        ("indep", "chain_kernel", lambda: gather.indep_gather(table, idx_all, form="first")),
+        ("rowsum", "rowsum_sm_kernel", lambda: gather.table_rowsum(tab, ridx)),
+        ("rowsum", "rowsum_kernel", lambda: gather.table_rowsum(tab, ridx, form="first")),
+        ("rowsum_chain", "rowsum_sm_kernel", lambda: gather.table_rowsum_chain(tab, ridx, 4)),
+        ("rowsum_chain", "rowsum_kernel",
+         lambda: gather.table_rowsum_chain(tab, ridx, 4, form="first")),
+    ]
+    kernels = {"chain_warp_kernel", "chain_kernel", "rowsum_sm_kernel", "rowsum_kernel"}
+    for key, kernel, fn in cases:
+        fn()  # built and loaded outside the trace
+        before = (gather.launches[key], gather.first_launches[key])
+        names = _launched(fn)
+        first = kernel in ("chain_kernel", "rowsum_kernel")
+        assert (gather.launches[key], gather.first_launches[key]) == (before[0] + 1,
+                                                                    before[1] + first)
+        # demangled ("::chain_kernel<") or mangled ("12chain_kernelI")
+        ran = {k for k in kernels for nm in names if re.search(rf"(::|\d){k}[<I]", nm)}
+        assert ran == {kernel}, (key, kernel, names)
 
 
 def test_gather_kernels_refuse_misaligned_rows(cuda):
