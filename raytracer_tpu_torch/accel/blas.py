@@ -89,9 +89,21 @@ def clear_cache() -> None:
     _blas_memory_cache.clear()
 
 
+def _builder(accelerator: MeshAccelerator) -> str:
+    """Which builder makes this accelerator here: the SBVH is the native
+    spatial-split builder's where it loads, else the numpy object-split one's."""
+    from . import native
+
+    if accelerator == MeshAccelerator.SBVH and native.available():
+        return "native"
+    return "numpy"
+
+
 def _mesh_hash(mesh: MeshData, accelerator: MeshAccelerator) -> str:
+    """Cache key: the mesh, the accelerator and the builder that makes it, so a
+    file one builder wrote is never read where the other's is expected."""
     h = hashlib.sha256()
-    h.update(f"v{_BUILDER_VERSION}/{int(accelerator)}".encode())
+    h.update(f"v{_BUILDER_VERSION}/{int(accelerator)}/{_builder(accelerator)}".encode())
     for f in ("p0", "p1", "p2"):
         h.update(np.ascontiguousarray(getattr(mesh, f)).tobytes())
     h.update(np.ascontiguousarray(mesh.material_id).tobytes())

@@ -6,9 +6,13 @@ arrays made from a seed.  The JAX side runs on the CPU (tests/conftest.py) under
 its lossless profile with one chunk, which is the port's semantics.
 """
 
+import atexit
 import contextlib
 import functools
 import os
+import shutil
+import tempfile
+import time
 
 import jax
 import jax.numpy as jnp
@@ -36,14 +40,58 @@ CONFIG3_TINY = dict(width=64, height=36, target_triangles=20_000)
 CONFIG1_TINY = dict(width=32, height=32)
 
 
+_CACHE_DIR = None
+
+
+def _run_cache_dir() -> str:
+    """This process's BLAS cache directory: made fresh under ``.cache/`` on
+    first use and removed at exit, so no later run reads what this one wrote."""
+    global _CACHE_DIR
+    if _CACHE_DIR is None:
+        os.makedirs(os.path.join(REPO, ".cache"), exist_ok=True)
+        _CACHE_DIR = tempfile.mkdtemp(prefix="torch_parity_", dir=os.path.join(REPO, ".cache"))
+        atexit.register(shutil.rmtree, _CACHE_DIR, True)
+    return _CACHE_DIR
+
+
+def same_builder() -> bool:
+    """Make both packages run the same SBVH builder and return whether it is
+    the native one.
+
+    The JAX package compiles its library with no lock; a process that opens it
+    while another writes it falls back to the numpy object-split builder for
+    the rest of its life (``raytracer_tpu/accel/native.py:_load``).  Under the
+    port's build lock (held on the JAX library's own lock file) this loads the
+    JAX side's library; if a race left its failure flag set while g++ is on
+    ``PATH``, it clears the flag and the JAX package's BLAS memory cache and
+    tries again, then asserts that both sides agree on native or numpy."""
+    from raytracer_tpu.accel import blas as jax_blas
+    from raytracer_tpu.accel import native as jax_native
+    from raytracer_tpu_torch.accel import native as port_native
+
+    port = port_native.available()
+    with port_native.build_lock(jax_native._SO):
+        ok = jax_native.available()
+        for _ in range(20):
+            if ok or shutil.which("g++") is None:
+                break
+            time.sleep(0.5)  # another process may be writing the file
+            jax_native._lib_failed = False
+            jax_blas.clear_cache()
+            ok = jax_native.available()
+    assert ok == port, f"SBVH builders differ: JAX native={ok}, port native={port}"
+    return port
+
+
 @contextlib.contextmanager
 def private_bvh_cache():
-    """Build scenes with this process's own BLAS disk cache.  Both packages cache
-    BLASes under a path relative to the working directory, written without a
-    lock, and test workers that build the same mesh at once would write the same
-    file; a per-process working directory (gitignored) keeps them apart."""
-    d = os.path.join(REPO, ".cache", f"torch_parity_{os.getpid()}")
-    os.makedirs(d, exist_ok=True)
+    """Build scenes with both packages on the same SBVH builder and with this
+    process's own BLAS disk cache.  Both packages cache BLASes under a path
+    relative to the working directory, written without a lock, and test workers
+    that build the same mesh at once would write the same file; a directory
+    made fresh for this process (gitignored) keeps them apart."""
+    same_builder()
+    d = _run_cache_dir()
     old = os.getcwd()
     os.chdir(d)
     try:
