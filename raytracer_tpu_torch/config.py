@@ -68,11 +68,13 @@ class RenderConfig:
     therefore accepts and IGNORES the knobs that size the JAX package's static
     straggler ladders, queues and chunks: ``traversal_chunk``, ``chunk_strided``,
     ``traversal_rounds``, ``ladder_sort_octant``, ``traversal_unroll``,
-    ``wide_rounds*``, ``queue_factor``, ``scan_bounces``, ``chunk_checkpoint`` and
-    ``scene_shard_axis``.  ``traversal_kernel`` is honoured as in the JAX
-    package (``"wide"`` walks the 8-wide BVH, any other value the threaded
-    binary BVH, which runs until done), and so is ``wide_stack_size`` (the wide
-    walk's stack overflow is what ``RenderStats.num_incomplete`` counts).
+    ``wide_rounds*``, ``queue_factor``, ``scan_bounces`` and ``chunk_checkpoint``.
+    ``scene_shard_axis`` is honoured as in the JAX package (the hit records and
+    shadow masks are combined over that mesh axis, ``parallel/scene_shard.py``),
+    and so are ``traversal_kernel`` (``"wide"`` walks the 8-wide BVH, any
+    other value the threaded binary BVH, which runs until done) and
+    ``wide_stack_size`` (the wide walk's stack overflow is what
+    ``RenderStats.num_incomplete`` counts).
     """
 
     # Render settings (Config.h:8-12)
@@ -174,8 +176,8 @@ class RenderConfig:
     wide_rounds_any_secondary: "tuple | None" = None
 
     # Tensor-parallel scene sharding (SURVEY.md 2.3 "tensor/model parallel" row):
-    # when set to a mesh axis name (e.g. "sp"), the renderer is being called inside
-    # a shard_map where each device along that axis holds a DIFFERENT sub-scene
+    # when set to a mesh axis name (e.g. "sp"), the renderer runs on every rank
+    # along that axis of a registered mesh, each holding a DIFFERENT sub-scene
     # (parallel/scene_shard.py); closest-hit records are min-t combined and any-hit
     # masks OR-combined across the axis after each local traversal.  None (default)
     # = scene replicated, no collectives in the forward pass.

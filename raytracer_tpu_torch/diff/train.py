@@ -141,3 +141,112 @@ def make_train_step(cfg: RenderConfig,
         return params, opt, loss.detach()
 
     return init, step
+
+
+def _reduced_grads(params, loss, group, divide: float, scale: float):
+    """Sum ``loss`` and every parameter's gradient over ``group`` in ONE
+    all-reduce, divide by ``divide``, scale by ``scale``, and leave the result
+    in each ``.grad``; returns the reduced loss."""
+    from ..parallel import collectives
+
+    leaves = list(params.values())
+    flat = torch.cat([loss.detach().reshape(1)] + [
+        (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1) for p in leaves])
+    flat = collectives.all_reduce_sum(flat, group) * (scale / divide)
+    off = 1
+    for p in leaves:
+        p.grad = flat[off:off + p.numel()].reshape(p.shape).clone()
+        off += p.numel()
+    return flat[0]
+
+
+def _local_sum_loss(params, scene, target_flat, cfg, pixel_idx):
+    """Sum (not mean) of the squared error over this rank's pixels, so the
+    sum over ranks is the whole frame's; padded lanes (-1) add nothing."""
+    rgb, _ = renderer.render_pixels(apply_params(scene, params), cfg, pixel_idx)
+    tgt = target_flat.index_select(0, torch.clamp_min(pixel_idx, 0))
+    valid = (pixel_idx >= 0)[:, None]
+    return torch.sum(torch.where(valid, (rgb - tgt) ** 2, 0.0))
+
+
+def make_sharded_train_step(cfg: RenderConfig, mesh, axes=None,
+                            optimizer: Callable[..., torch.optim.Optimizer] | None = None,
+                            fields=DIFFERENTIABLE_FIELDS):
+    """Multi-rank fwd+bwd step: pixels sharded over ``axes`` of ``mesh`` (default
+    all), scene parameters replicated, the loss and every parameter gradient
+    summed over the ranks (the collective inventory of SURVEY.md 2.3/5.8; here
+    one all-reduce of them all), then scaled to the whole frame's mean.
+
+    Returns ``(init, step)`` as ``make_train_step``: ``init(scene) -> (params,
+    opt)``; ``step(params, opt, scene, target) -> (params, opt, loss)``, the loss
+    before the update.  Every rank calls both with the same scene and target."""
+    from ..parallel.shard import PixelShards, axes_group
+
+    make_opt = optimizer or (lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    group, n_shards = axes_group(mesh, axes if axes is not None else mesh.mesh_dim_names)
+    shards = {}
+
+    def init(scene):
+        params = extract_params(scene, fields)
+        return params, make_opt(params.values())
+
+    def step(params, opt, scene, target):
+        dev = target.device
+        if dev not in shards:
+            shards[dev] = PixelShards(cfg, group, n_shards, dev)
+        opt.zero_grad(set_to_none=True)
+        local = _local_sum_loss(params, scene, target.reshape(-1, 3), cfg,
+                                shards[dev].pixels)
+        local.backward()
+        loss = _reduced_grads(params, local, group, 1.0, 1.0 / (cfg.num_pixels * 3))
+        opt.step()
+        return params, opt, loss
+
+    return init, step
+
+
+def make_tensor_parallel_train_step(cfg: RenderConfig, mesh, dp_axis="dp", sp_axis="sp",
+                                    optimizer: Callable[..., torch.optim.Optimizer]
+                                    | None = None, fields=DIFFERENTIABLE_FIELDS):
+    """Fwd+bwd step with pixels sharded over ``dp_axis`` AND triangle geometry
+    over ``sp_axis`` (parallel/scene_shard.py).
+
+    Scene parameters (materials/lights/camera/textures/sky) are replicated —
+    they are identical across scene shards by construction (split_description
+    shares the material buffer).  Every sp member computes the loss over its
+    dp-shard of pixels redundantly (shading is post-combine), and BOTH gradient
+    paths — the shading path on each member and the hit-reconstruction path
+    flowing back through the all-gather to the winning shard — appear once in
+    every member's loss, so the sum over dp averaged over sp is exactly the
+    single-device gradient.  ``init(scene)`` takes the parameters from this
+    rank's own shard scene; ``step(params, opt, scene, target)`` as
+    ``make_train_step``."""
+    from ..parallel import collectives
+    from ..parallel.shard import PixelShards
+
+    make_opt = optimizer or (lambda ps: torch.optim.Adam(ps, lr=1e-2))
+    collectives.register_mesh(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    dp, sp = mesh.size(names.index(dp_axis)), mesh.size(names.index(sp_axis))
+    every = collectives.whole_group(mesh)
+    cfg_sp = cfg.replace(scene_shard_axis=sp_axis)
+    shards = {}
+
+    def init(scene):
+        params = extract_params(scene, fields)
+        return params, make_opt(params.values())
+
+    def step(params, opt, scene, target):
+        dev = target.device
+        if dev not in shards:
+            shards[dev] = PixelShards(cfg, mesh.get_group(dp_axis), dp, dev)
+        opt.zero_grad(set_to_none=True)
+        local = _local_sum_loss(params, scene, target.reshape(-1, 3), cfg_sp,
+                                shards[dev].pixels)
+        local.backward()
+        # psum over dp, then pmean over sp: the sum over every rank over sp
+        loss = _reduced_grads(params, local, every, float(sp), 1.0 / (cfg.num_pixels * 3))
+        opt.step()
+        return params, opt, loss
+
+    return init, step

@@ -155,7 +155,60 @@ def trace_scene(scene, bvh, rays: Rays, active, cfg: RenderConfig):
                                object_space_diffs=cfg.differentials_object_space)
         incomplete = res.incomplete
     # lanes outside the wavefront are misses
-    return hits._replace(hit=hits.hit & active), incomplete
+    hits = hits._replace(hit=hits.hit & active)
+    if cfg.scene_shard_axis is not None:
+        hits, incomplete = _combine_hits_over_shards(hits, incomplete, cfg.scene_shard_axis)
+    return hits, incomplete
+
+
+# the hit record's float fields in the order they ride the shard combine; its
+# integer fields (hit, material_id, bvh_steps) ride beside them as raw bits
+_FLOAT_FIELDS = ("t", "point", "normal", "u", "v", "ds_dx", "ds_dy", "dt_dx", "dt_dy",
+                 "dO_dx", "dO_dy", "dN_dx", "dN_dy")
+
+
+def _combine_hits_over_shards(hits: Hits, incomplete, axis: str):
+    """Min-t reduce reconstructed hit records across scene shards.
+
+    The tensor-parallel mode (parallel/scene_shard.py) gives each rank along
+    ``axis`` a spatial subset of the triangle geometry; every shard traverses
+    the full wavefront against its sub-scene and reconstructs hit attributes
+    locally (only the owner of the winning triangle can gather its attributes),
+    then the per-ray winner is selected by minimum hit distance.  Misses carry
+    t=inf (make_miss_hits), so any real hit beats them; ties and all-miss rays
+    keep shard 0's record (``argmin`` takes the first).  Analytic primitives are
+    replicated, so ties between shards are identical records.
+
+    One collective: the record as one [N+1, 28] float row a lane (the integer
+    fields' bits viewed as float, and this shard's ``incomplete`` in the extra
+    row), gathered with autograd so that the gradient of each picked field
+    flows back to the shard that won (``collectives.all_gather``)."""
+    from ..parallel import collectives
+
+    n = hits.t.shape[0]
+    floats = torch.cat([getattr(hits, f).reshape(n, -1) for f in _FLOAT_FIELDS], dim=1)
+    ints = torch.stack([hits.hit.to(torch.int32), hits.material_id.to(torch.int32),
+                        hits.bvh_steps.to(torch.int32)], dim=1)
+    extra = torch.zeros((1, 3), dtype=torch.int32, device=ints.device)
+    extra[0, 0] = incomplete
+    rows = torch.cat([
+        torch.cat([floats, torch.zeros((1, floats.shape[1]), dtype=floats.dtype,
+                                       device=floats.device)]),
+        torch.cat([ints, extra]).view(torch.float32)], dim=1)
+    g = collectives.all_gather(rows, collectives.group(axis))  # [S, N+1, 28]
+    k = torch.argmin(g[:, :n, 0].detach(), dim=0)  # [N]
+    win = g[:, :n].gather(0, k[None, :, None].expand(1, n, g.shape[2]))[0]
+    wints = win[:, floats.shape[1]:].detach().contiguous().view(torch.int32)
+    out, col = {}, 0
+    for f in _FLOAT_FIELDS:
+        ref = getattr(hits, f)
+        width = 1 if ref.dim() == 1 else ref.shape[1]
+        out[f] = win[:, col:col + width].reshape(ref.shape)
+        col += width
+    out.update(hit=wints[:, 0] != 0, material_id=wints[:, 1], bvh_steps=wints[:, 2])
+    incomplete = g[:, n, floats.shape[1]:].detach().contiguous().view(torch.int32)[:, 0].sum(
+        dtype=torch.int32)
+    return Hits(**out), incomplete
 
 
 def intersect_scene(scene, bvh, origin, direction, max_distance, active, cfg):
@@ -173,6 +226,15 @@ def intersect_scene(scene, bvh, origin, direction, max_distance, active, cfg):
             bvh, origin, direction, max_distance, active & ~blocked, cfg
         )
         blocked = blocked | found
+    if cfg.scene_shard_axis is not None:
+        # a lane is shadowed if ANY scene shard's sub-geometry blocks it: one
+        # all-reduce of the blocked lanes with this shard's incomplete count
+        from ..parallel import collectives
+
+        summed = collectives.all_reduce_sum(
+            torch.cat([blocked.to(torch.int32), incomplete.reshape(1).to(torch.int32)]),
+            collectives.group(cfg.scene_shard_axis))
+        blocked, incomplete = summed[:-1] > 0, summed[-1]
     return blocked & active, incomplete
 
 

@@ -9,7 +9,7 @@ import torch
 from raytracer_tpu.render import renderer as jax_renderer
 from raytracer_tpu_torch.ops import traversal
 from raytracer_tpu_torch.render import renderer
-from torch_parity import jax_scene, jit, torch_config, torch_scene
+from torch_parity import jax_render, jax_scene, jit, torch_config, torch_scene
 
 # mean abs bound per scene.  config3-tiny is looser than the 1e-4 of config1:
 # one primary lane's closest hit goes to the neighbouring triangle across a
@@ -22,9 +22,7 @@ MEAN_ABS = {"config1": 1e-4, "config3": 5e-4}
 @pytest.mark.parametrize("name", ["config1", "config3"])
 def test_render_matches_jax(name):
     scene, cfg = jax_scene(name)
-    ref_img, ref_stats = jit(lambda s: jax_renderer.render_with_stats(s, cfg))(scene)
-    ref_img = np.asarray(ref_img)
-    ref_stats = {k: int(v) for k, v in ref_stats._asdict().items()}
+    ref_img, ref_stats = jax_render(name)
 
     with torch.no_grad():
         img, stats = renderer.render_with_stats(torch_scene(scene), torch_config(cfg))

@@ -8,6 +8,7 @@ its lossless profile with one chunk, which is the port's semantics.
 
 import atexit
 import contextlib
+import enum
 import functools
 import os
 import shutil
@@ -106,6 +107,15 @@ def jax_scene(name: str):
     once per process (the arrays are immutable), as several files use each."""
     with private_bvh_cache():
         return _jax_scene(name)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_render(name: str):
+    """(image numpy [H,W,3], counters) of JAX's render of ``jax_scene(name)``;
+    rendered once per process."""
+    scene, cfg = jax_scene(name)
+    img, stats = jit(lambda s: jax_renderer.render_with_stats(s, cfg))(scene)
+    return np.asarray(img), stat_dict(stats)
 
 
 def _lossless(cfg, w, h, **changes):
@@ -228,8 +238,15 @@ def torch_scene(scene):
 
 
 def torch_config(cfg) -> TorchConfig:
-    """The port's copy of a JAX RenderConfig, knob for knob."""
-    return TorchConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    """The port's copy of a JAX RenderConfig, knob for knob; enum knobs become
+    the port's own enum members of the same name."""
+    ours = TorchConfig()
+
+    def knob(f):
+        v = getattr(cfg, f)
+        return type(getattr(ours, f))[v.name] if isinstance(v, enum.Enum) else v
+
+    return TorchConfig(**{f: knob(f) for f in cfg.__dataclass_fields__})
 
 
 def jit(fn):
