@@ -117,6 +117,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bounces, forward; config3 and config4 fwd+bwd; the gradients of a weighted
    image sum of config3 at 64x36 with respect to the triangle tables and the
    instance matrices;
+8b. the oracle: the four scenes of ``tests/test_torch_oracle.py`` (the JAX
+   package's ``tests/test_oracle.py`` scenes, built by the port) rendered on
+   the card and held to the port's scalar oracle (``render/oracle.py``, numpy
+   on the host) under ``tests/test_oracle.py``'s bounds, the CPU readings'
+   tighter bounds reported beside them;
+8c. pixel sharding: a process group of world size 1 over NCCL, config3 at
+   1080p through ``parallel/shard.make_sharded_renderer`` (with the counts at
+   0: every forward kernel launched) against the unsharded frame (max
+   difference printed; identical bits expected), one
+   ``diff/train.make_sharded_train_step`` step against ``make_train_step``'s
+   (loss and every gradient within 1e-5 relative), frame and step ms in
+   turns beside the unsharded ones, the collectives each made, and
+   ``parallel/scaling.measure`` (only 1 device runs on one card);
+8d. scene sharding: config3's geometry split in two
+   (``parallel/scene_shard.ShardedScenePacker``), two spawned processes on the
+   one card over gloo (NCCL refuses two ranks on one device), dp=1 x sp=2:
+   the combined frame against the unsharded one (mismatch share at 1e-5 below
+   1e-3, the six counters equal), each rank's kernel launches, the
+   collectives and the host copies a generation (``parallel/collectives``
+   stages gloo's CUDA tensors through the host), then one
+   ``make_tensor_parallel_train_step`` step (loss within 1e-5 of the unsharded
+   step's), and which collectives gloo takes on CUDA tensors;
 9. the kernels line, the ``nvidia-smi`` line, and last the device line.
 
 ``--log PATH`` also writes every JSON line, in full, to PATH.
@@ -416,6 +438,52 @@ def profile_frame(render) -> dict:
     }
 
 
+def kernel_counters() -> tuple:
+    """(forward kernels, every kernel): {name: (holder, key)}, where each
+    kernel's wrapper counts its launches: a module attribute, or the texture
+    wrappers' per-mode dicts."""
+    from raytracer_tpu_torch.ops import (
+        compaction, framebuffer, fxaa, hits, intersect, sky_sample, texture_sample, traversal,
+        traversal_wide,
+    )
+
+    fwd_counts = {
+        "traverse_closest": (traversal_wide, "closest_launches"),
+        "traverse_any": (traversal_wide, "any_launches"),
+        "hits": (hits, "launches"),
+        "texture_aniso": (texture_sample.launches, "aniso"),
+        "sky": (sky_sample, "launches"),
+        "compact": (compaction, "launches"),
+        "fb_scatter": (framebuffer, "launches"),
+    }
+    counts = {**fwd_counts,
+              "hits_bwd": (hits, "bwd_launches"),
+              "texture_aniso_bwd": (texture_sample.bwd_launches, "aniso"),
+              "sky_bwd": (sky_sample, "bwd_launches"),
+              "fxaa": (fxaa, "launches"),
+              "prim_closest": (intersect, "closest_launches"),
+              "prim_any": (intersect, "any_launches"),
+              "threaded_closest": (traversal, "closest_launches"),
+              "threaded_any": (traversal, "any_launches")}
+    for mode in FILTER_MODES:
+        counts[f"texture_{mode}"] = (texture_sample.launches, mode)
+        counts[f"texture_{mode}_bwd"] = (texture_sample.bwd_launches, mode)
+    return fwd_counts, counts
+
+
+def reset_kernel_counts(counts: dict) -> None:
+    for holder, key in counts.values():
+        if isinstance(holder, dict):
+            holder[key] = 0
+        else:
+            setattr(holder, key, 0)
+
+
+def read_kernel_counts(counts: dict) -> dict:
+    return {name: holder[key] if isinstance(holder, dict) else getattr(holder, key)
+            for name, (holder, key) in counts.items()}
+
+
 def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
                  smi: str) -> list:
     """Phase 7b: the four row-gather harnesses of scratch/ through the port's
@@ -674,6 +742,413 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     return problems
 
 
+# ------------------------------------------- the oracle and the parallel layer
+
+
+def rel_l2(a, b) -> float:
+    """l2-relative difference of two tensors in float64 (the norm of a when b is 0)."""
+    a, b = a.double(), b.double()
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb > 0 else float(a.norm())
+
+
+def oracle_phase(smi: str) -> list:
+    """The four scenes of ``tests/test_torch_oracle.py`` rendered on the card and
+    held to the port's oracle (``render/oracle.py``, numpy on the host) under that
+    test's bounds; returns the problems found."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_oracle as cases
+    from raytracer_tpu_torch.render.oracle import OracleRenderer
+    from raytracer_tpu_torch.scene.device import pack_scene
+
+    problems = []
+    for name, (make, cfg, min_hit) in cases.CASES.items():
+        packed = pack_scene(make(), cfg.width, cfg.height)
+        t0 = time.perf_counter()
+        img, counters = cases.render_port(packed, cfg, device="cuda")
+        t1 = time.perf_counter()
+        ref = OracleRenderer(packed, cfg).render()
+        t2 = time.perf_counter()
+        r = cases.compare(img, ref)
+        checks = cases.within_bounds(r, min_hit)
+        passed = all(checks.values()) and counters["num_dropped"] == 0 \
+            and counters["num_incomplete"] == 0
+        emit("oracle", scene=name, width=cfg.width, height=cfg.height,
+             bounces=cfg.num_bounces, filter=cfg.mipmap_filter.name, counters=counters,
+             **r, checks=checks, cpu_readings=cases.within_cpu_readings(r), passed=passed,
+             card_render_s=t1 - t0, oracle_s=t2 - t1,
+             tolerance=cases.BOUNDS_TEXT, nvidia_smi=smi)
+        if not passed:
+            problems.append(f"oracle {name}: {r}")
+    return problems
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(scene, cfg, image, counters, train_kernels, smi: str) -> list:
+    """World size 1 over NCCL on config3 at 1080p: the pixel-sharded frame (one
+    shard, so the permutation is the identity) against the unsharded one, one
+    sharded step against ``make_train_step``'s, both timed in turns beside the
+    unsharded ones, and ``parallel/scaling.measure`` (only 1 device runs on one
+    card); returns the problems found."""
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.diff import train
+    from raytracer_tpu_torch.parallel import collectives, distributed, scaling, shard
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.render import renderer
+
+    fwd_counts, counts = kernel_counters()
+    distributed.initialize(init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                           local_rank=0)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh((1, 1))
+        run = shard.make_sharded_renderer(cfg, mesh)
+        reset_kernel_counts(counts)
+        collectives.reset()
+        simg, sstats = run(scene)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in read_kernel_counts(counts).items() if k in fwd_counts}
+        coll = dict(collectives.counts)
+        scounters = {k: int(v) for k, v in sstats._asdict().items()}
+        # the frame's later generations add into the framebuffer with atomics,
+        # so two runs may differ in the last bits: identical bits expected,
+        # the largest difference printed and held to 1e-5
+        max_diff = float((simg - image).abs().max())
+        identical = bool(torch.equal(simg, image))
+
+        def unsharded():
+            with torch.no_grad():
+                renderer.render_with_stats(scene, cfg)
+
+        def timed(fn) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        frame = {"unsharded": [], "sharded": []}
+        for _ in range(3):  # in turns
+            frame["unsharded"].append(timed(unsharded))
+            frame["sharded"].append(timed(lambda: run(scene)))
+        frame_profile = profile_frame(lambda: run(scene))
+
+        # one step each from the same parameters and a zero target, under
+        # PyTorch's deterministic algorithms: the gathers' backward
+        # (``index_add_``) then adds in a fixed order; two of make_train_step's
+        # give what order is left to the kernels' atomics (K4 into tex_data)
+        target = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device="cuda")
+        init1, step1 = train.make_train_step(cfg)
+        init, step = train.make_sharded_train_step(cfg, mesh)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            p1, o1 = init1(scene)
+            _, _, loss1 = step1(p1, o1, scene, target)
+            grads1 = {k: p.grad.detach().clone() for k, p in p1.items() if p.grad is not None}
+            p2, o2 = init1(scene)
+            step1(p2, o2, scene, target)
+            spread = {k: rel_l2(p2[k].grad, g) for k, g in grads1.items()}
+            del p2, o2
+            p, o = init(scene)
+            reset_kernel_counts(counts)
+            collectives.reset()
+            _, _, loss = step(p, o, scene, target)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        step_launches = {k: n for k, n in read_kernel_counts(counts).items()
+                         if k in train_kernels}
+        step_coll = dict(collectives.counts)
+        grad_rel = {k: rel_l2(p[k].grad, g) for k, g in grads1.items()}
+        others = [k for k in p.keys() if k not in grads1]
+        grads_zero_elsewhere = all(not bool(p[k].grad.any()) for k in others)
+        loss_rel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+        steps = {"unsharded": [], "sharded": []}
+        for _ in range(2):  # in turns
+            steps["unsharded"].append(timed(lambda: step1(p1, o1, scene, target)))
+            steps["sharded"].append(timed(lambda: step(p, o, scene, target)))
+        scale = scaling.measure(scene, cfg, device_counts=(1, 2, 4, 8), iters=3)
+    finally:
+        dist.destroy_process_group()
+
+    med = {k: statistics.median(v) for k, v in frame.items()}
+    smed = {k: statistics.median(v) for k, v in steps.items()}
+    passed = max_diff <= 1e-5 and scounters == counters \
+        and all(n > 0 for n in launches.values()) and all(n > 0 for n in step_launches.values()) \
+        and all(v <= 1e-5 for v in grad_rel.values()) and grads_zero_elsewhere \
+        and loss_rel <= 1e-5 and coll == {"all_gather": 1, "all_reduce": 1} \
+        and step_coll == {"all_gather": 0, "all_reduce": 1}
+    emit("sharded", config="config3_sponza", width=cfg.width, height=cfg.height, world_size=1,
+         backend=str(backend), image_max_abs_diff=max_diff, image_identical=identical,
+         counters=scounters, counters_equal_unsharded=scounters == counters,
+         launches=launches, collectives_frame=coll,
+         frame_ms={"unsharded": med["unsharded"], "sharded": med["sharded"],
+                   "runs": frame}, profile=frame_profile,
+         step_loss=float(loss), step_loss_unsharded=float(loss1), step_loss_rel=loss_rel,
+         step_grad_l2_rel=grad_rel, unsharded_run_to_run_l2_rel=spread,
+         deterministic_algorithms_for_the_comparison=True,
+         step_launches=step_launches, collectives_step=step_coll,
+         step_ms={"unsharded": smed["unsharded"], "sharded": smed["sharded"], "runs": steps},
+         scaling=scale, passed=passed,
+         tolerance="image within 1e-5 (identical bits expected: one shard's permutation is "
+                   "the identity; the framebuffer's atomics may reorder sums); counters equal; "
+                   "every gradient within 1e-5 l2-relative of make_train_step's and the loss "
+                   "within 1e-5 (both steps under deterministic algorithms); one gather + one "
+                   "all-reduce a frame, one all-reduce a step",
+         nvidia_smi=smi)
+    return [] if passed else [f"sharded: see the 'sharded' line (max diff {max_diff}, "
+                              f"grads {grad_rel}, loss {loss_rel})"]
+
+
+SHARD_RANK_TIMEOUT_S = 600
+
+
+def gloo_cuda_probe() -> dict:
+    """Which collectives the installed gloo takes on CUDA tensors ("ok", or
+    the error it raised)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8, device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device="cuda"), x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    out = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the probe reports what gloo refuses
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def scene_shard_rank(rank: int, work: str) -> None:
+    """One of the two ranks of the scene_sharded phase (a spawned process, both
+    on the one card, over gloo): its shard's frame and one tensor-parallel step,
+    results written to ``work``."""
+    sys.path.insert(0, REPO)
+    import pickle
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.diff import train
+    from raytracer_tpu_torch.parallel import collectives, distributed
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.parallel.scene_shard import make_primitive_sharded_renderer
+    from raytracer_tpu_torch.render import renderer
+    from raytracer_tpu_torch.scene.tensors import scene_from_numpy
+
+    try:
+        distributed.initialize(init_method="file://" + os.path.join(work, "store"),
+                               world_size=2, rank=rank, local_rank=0, backend="gloo")
+        mesh = make_mesh((1, 2))
+        sp = mesh.get_local_rank("sp")
+        with open(os.path.join(work, "cfg.pkl"), "rb") as f:
+            cfg = pickle.load(f)
+        scene = scene_from_numpy(dict(np.load(os.path.join(work, f"shard{sp}.npz"))),
+                                 device="cuda")
+        fwd_counts, counts = kernel_counters()
+        train_kernels = (*fwd_counts, "hits_bwd", "texture_aniso_bwd", "sky_bwd")
+        traces = {"closest": 0}
+        trace_scene = renderer.trace_scene
+
+        def counted(*a, **kw):
+            traces["closest"] += 1
+            return trace_scene(*a, **kw)
+
+        renderer.trace_scene = counted
+        # lanes where both shards hit at the same t (triangles of the two halves
+        # meeting at an edge): the combine keeps shard 0's, the whole scene's
+        # walk whichever it met first, so these lanes alone may shade differently
+        ties = {"lanes": 0, "on": True}
+        gather = collectives.all_gather
+
+        def tie_counting(x, g):
+            got = gather(x, g)
+            if ties["on"] and x.dim() == 2 and x.shape[1] == 28:  # a hit-record combine
+                t = got[:, :-1, 0]
+                ties["lanes"] += int(((t[0] == t[1]) & torch.isfinite(t[0])).sum())
+            return got
+
+        collectives.all_gather = tie_counting
+        out = {"rank": rank, "sp": sp, "backend": str(dist.get_backend())}
+        run = make_primitive_sharded_renderer(cfg, mesh)
+        reset_kernel_counts(counts)
+        collectives.reset()
+        t0 = time.perf_counter()
+        img, stats = run(scene)
+        torch.cuda.synchronize()
+        out.update(first_frame_ms=(time.perf_counter() - t0) * 1e3,
+                   launches={k: n for k, n in read_kernel_counts(counts).items()
+                             if k in fwd_counts},
+                   collectives=dict(collectives.counts), host=dict(collectives.host),
+                   generations=traces["closest"], tie_lanes=ties["lanes"],
+                   counters={k: int(v) for k, v in stats._asdict().items()})
+        ties["on"] = False
+        if sp == 0:
+            np.save(os.path.join(work, "image.npy"), img.cpu().numpy())
+        frame_ms = []
+        for _ in range(2):
+            collectives.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(scene)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        out.update(frame_ms=frame_ms, host_per_frame=dict(collectives.host),
+                   profile=profile_frame(lambda: run(scene)))
+
+        # one tensor-parallel step over the 17 fields against a zero target
+        init, step = train.make_tensor_parallel_train_step(cfg, mesh)
+        params, opt = init(scene)
+        target = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device="cuda")
+        reset_kernel_counts(counts)
+        collectives.reset()
+        traces["closest"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss = step(params, opt, scene, target)
+        torch.cuda.synchronize()
+        out["step"] = dict(
+            loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
+            launches={k: n for k, n in read_kernel_counts(counts).items()
+                      if k in train_kernels},
+            collectives=dict(collectives.counts), host=dict(collectives.host),
+            generations=traces["closest"],
+            grads_finite=all(bool(torch.isfinite(p.grad).all()) for p in params.values()))
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        probe = gloo_cuda_probe()
+        with open(os.path.join(work, f"probe{rank}.json"), "w") as f:
+            json.dump(probe, f)
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def scene_sharded_phase(desc, cfg, image, counters, train_loss, smi: str) -> list:
+    """dp=1 x sp=2 on config3 at 1080p: the geometry split in two, each half's
+    scene rendered by its own process on the one card (``nccl`` refuses two
+    ranks on one device, so the group runs over gloo, its collectives staged
+    through the host by ``parallel/collectives.py``), the combined frame
+    against the unsharded one and one tensor-parallel step's loss against the
+    unsharded step's; returns the problems found."""
+    import multiprocessing as mp
+    import pickle
+
+    import numpy as np
+
+    from raytracer_tpu_torch.parallel.scene_shard import ShardedScenePacker
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    shards = ShardedScenePacker(desc, cfg, 2).frame()
+    pack_s = time.perf_counter() - t0
+    shard_triangles = [int(s.tr_p0.shape[0]) for s in shards]
+    for k, s in enumerate(shards):
+        np.savez(os.path.join(work, f"shard{k}.npz"), **s._asdict())
+    with open(os.path.join(work, "cfg.pkl"), "wb") as f:
+        pickle.dump(cfg, f)
+    del shards
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=scene_shard_rank, args=(r, work)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, SHARD_RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+    wall_s = time.perf_counter() - t0
+    errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+              if f.endswith(".err")]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        shutil.rmtree(work, ignore_errors=True)
+        return [f"scene_sharded: {len(hung)} rank(s) hung, exit codes "
+                f"{[p.exitcode for p in procs]}: " + "\n".join(errors)]
+    ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(2)]
+    probes = [json.load(open(os.path.join(work, f"probe{r}.json"))) for r in range(2)]
+    img = np.load(os.path.join(work, "image.npy"))
+    shutil.rmtree(work, ignore_errors=True)
+
+    ref = image.cpu().numpy()
+    mism_px = int((np.abs(img - ref) > 1e-5).any(axis=-1).sum())
+    mism = float((np.abs(img - ref) > 1e-5).mean())
+    ties = ranks[0]["tie_lanes"]
+    got = ranks[0]["counters"]
+    # a tie lane may take another triangle than the whole scene's walk: its
+    # pixel, its 3 lights' shadow rays and its 2 children may differ
+    slack = {"num_shadow": 3 * ties, "num_reflection": ties, "num_refraction": ties}
+    counter_diff = {k: got[k] - counters[k] for k in counters}
+    loss = ranks[0]["step"]["loss"]
+    loss_rel = abs(loss - train_loss) / abs(train_loss)
+    gens = ranks[0]["generations"]
+    host_frame = ranks[0]["host_per_frame"]
+    fwd_ok = all(all(n > 0 for n in r["launches"].values()) for r in ranks)
+    step_ok = all(all(n > 0 for n in r["step"]["launches"].values()) for r in ranks)
+    counters_equal = all(r["counters"] == counters for r in ranks)
+    counters_ok = all(abs(v) <= slack.get(k, 0) for k, v in counter_diff.items())
+    passed = (mism < 1e-3 and mism_px <= ties and counters_ok and fwd_ok and step_ok
+              and loss_rel <= 1e-5
+              and all(r["step"]["grads_finite"] for r in ranks)
+              and ranks[0]["counters"] == ranks[1]["counters"])
+    emit("scene_sharded", config="config3_sponza", width=cfg.width, height=cfg.height,
+         dp=1, sp=2, backend=ranks[0]["backend"], shard_triangles=shard_triangles,
+         pack_s=pack_s, ranks_wall_s=wall_s, mismatch_fraction=mism, mismatched_pixels=mism_px,
+         tie_lanes=ties, counters=got, counters_equal_unsharded=counters_equal,
+         counters_minus_unsharded=counter_diff,
+         launches=[r["launches"] for r in ranks],
+         step_launches=[r["step"]["launches"] for r in ranks],
+         generations=gens, collectives_frame=ranks[0]["collectives"],
+         first_frame_ms=[r["first_frame_ms"] for r in ranks],
+         frame_ms=[r["frame_ms"] for r in ranks],
+         host_copies_per_frame=host_frame,
+         host_bytes_per_generation=host_frame["bytes"] / max(gens, 1),
+         host_ms_per_generation=host_frame["ms"] / max(gens, 1),
+         profile=[r["profile"] for r in ranks],
+         step_loss=loss, step_loss_unsharded=train_loss, step_loss_rel=loss_rel,
+         step_ms=[r["step"]["ms"] for r in ranks], step_collectives=ranks[0]["step"]["collectives"],
+         step_host=ranks[0]["step"]["host"], step_generations=ranks[0]["step"]["generations"],
+         gloo_on_cuda_tensors=probes[0], passed=passed,
+         tolerance="mismatch fraction at 1e-5 < 1e-3 against the unsharded frame, and no "
+                   "more mismatched pixels than tie lanes (both shards hit at one t); the "
+                   "counters equal but for the tie lanes' (3 shadow rays and 2 children a "
+                   "lane); the step's loss within 1e-5 of the unsharded step's",
+         nvidia_smi=smi)
+    return [] if passed else [f"scene_sharded: mismatch {mism} ({mism_px} px, {ties} tie lanes),"
+                              f" counters {got} vs {counters}, loss rel {loss_rel}"]
+
+
 def main(argv=None) -> int:
     global LOG
     ap = argparse.ArgumentParser(description="Drive the PyTorch + CUDA port on one CUDA card.")
@@ -750,29 +1225,7 @@ def main(argv=None) -> int:
          exact_node_bytes=bvh3.node_rows * 72 * 4)
     del bvh3
 
-    # where each kernel's wrapper counts its launches: a module attribute, or
-    # the texture wrappers' per-mode dicts
-    fwd_counts = {
-        "traverse_closest": (traversal_wide, "closest_launches"),
-        "traverse_any": (traversal_wide, "any_launches"),
-        "hits": (hits, "launches"),
-        "texture_aniso": (texture_sample.launches, "aniso"),
-        "sky": (sky_sample, "launches"),
-        "compact": (compaction, "launches"),
-        "fb_scatter": (framebuffer, "launches"),
-    }
-    counts = {**fwd_counts,
-              "hits_bwd": (hits, "bwd_launches"),
-              "texture_aniso_bwd": (texture_sample.bwd_launches, "aniso"),
-              "sky_bwd": (sky_sample, "bwd_launches"),
-              "fxaa": (fxaa, "launches"),
-              "prim_closest": (intersect, "closest_launches"),
-              "prim_any": (intersect, "any_launches"),
-              "threaded_closest": (traversal, "closest_launches"),
-              "threaded_any": (traversal, "any_launches")}
-    for mode in FILTER_MODES:
-        counts[f"texture_{mode}"] = (texture_sample.launches, mode)
-        counts[f"texture_{mode}_bwd"] = (texture_sample.bwd_launches, mode)
+    fwd_counts, counts = kernel_counters()
     train_kernels = (*fwd_counts, "hits_bwd", "texture_aniso_bwd", "sky_bwd")
     # config4 through the app: every forward kernel, FXAA and the primitives
     app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any")
@@ -791,15 +1244,10 @@ def main(argv=None) -> int:
                    (sky_sample, "sample_backward", "sky_bwd")]
 
     def reset_counts():
-        for holder, key in counts.values():
-            if isinstance(holder, dict):
-                holder[key] = 0
-            else:
-                setattr(holder, key, 0)
+        reset_kernel_counts(counts)
 
     def read_counts():
-        return {name: holder[key] if isinstance(holder, dict) else getattr(holder, key)
-                for name, (holder, key) in counts.items()}
+        return read_kernel_counts(counts)
 
     # one frame with the counts at 0: the forward path's run
     reset_counts()
@@ -2298,6 +2746,13 @@ def main(argv=None) -> int:
         ok = small_forward(label, packed, scfg) and ok
         if with_grads:
             ok = small_grads(label, packed, scfg) and ok
+
+    # ----------------------------- 8b-8d. the oracle, pixel and scene sharding
+    problems = oracle_phase(smi)
+    problems += sharded_phase(scene, cfg, image, counters, train_kernels, smi)
+    problems += scene_sharded_phase(desc, cfg, image, counters, train_loss, smi)
+    if problems:
+        return fail("; ".join(problems))
 
     # ------------------------------------------------------------- 9. result lines
     print(json.dumps({"kernels": report}), flush=True)

@@ -143,16 +143,18 @@ def make_train_step(cfg: RenderConfig,
     return init, step
 
 
-def _reduced_grads(params, loss, group, divide: float, scale: float):
+def _reduced_grads(params, loss, group, divide: float = 1.0):
     """Sum ``loss`` and every parameter's gradient over ``group`` in ONE
-    all-reduce, divide by ``divide``, scale by ``scale``, and leave the result
-    in each ``.grad``; returns the reduced loss."""
+    all-reduce, divide by ``divide``, and leave the result in each ``.grad``;
+    returns the reduced loss."""
     from ..parallel import collectives
 
     leaves = list(params.values())
     flat = torch.cat([loss.detach().reshape(1)] + [
         (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1) for p in leaves])
-    flat = collectives.all_reduce_sum(flat, group) * (scale / divide)
+    flat = collectives.all_reduce_sum(flat, group)
+    if divide != 1.0:
+        flat = flat / divide
     off = 1
     for p in leaves:
         p.grad = flat[off:off + p.numel()].reshape(p.shape).clone()
@@ -160,22 +162,26 @@ def _reduced_grads(params, loss, group, divide: float, scale: float):
     return flat[0]
 
 
-def _local_sum_loss(params, scene, target_flat, cfg, pixel_idx):
-    """Sum (not mean) of the squared error over this rank's pixels, so the
-    sum over ranks is the whole frame's; padded lanes (-1) add nothing."""
+def _local_loss(params, scene, target_flat, cfg, pixel_idx):
+    """This rank's share of the frame's mean squared error: the sum over its
+    pixels (padded lanes, -1, add nothing) scaled by 1/(num_pixels*3), so that
+    the sum over the ranks is the whole frame's mean.  Scaling before the
+    backward pass gives every lane the cotangent ``image_loss``'s mean gives
+    it, so one rank reproduces ``make_train_step``'s gradients."""
     rgb, _ = renderer.render_pixels(apply_params(scene, params), cfg, pixel_idx)
     tgt = target_flat.index_select(0, torch.clamp_min(pixel_idx, 0))
     valid = (pixel_idx >= 0)[:, None]
-    return torch.sum(torch.where(valid, (rgb - tgt) ** 2, 0.0))
+    return torch.sum(torch.where(valid, (rgb - tgt) ** 2, 0.0)) * (1.0 / (cfg.num_pixels * 3))
 
 
 def make_sharded_train_step(cfg: RenderConfig, mesh, axes=None,
                             optimizer: Callable[..., torch.optim.Optimizer] | None = None,
                             fields=DIFFERENTIABLE_FIELDS):
     """Multi-rank fwd+bwd step: pixels sharded over ``axes`` of ``mesh`` (default
-    all), scene parameters replicated, the loss and every parameter gradient
-    summed over the ranks (the collective inventory of SURVEY.md 2.3/5.8; here
-    one all-reduce of them all), then scaled to the whole frame's mean.
+    all), scene parameters replicated, each rank's loss its pixels' share of
+    the frame's mean, the loss and every parameter gradient summed over the
+    ranks (the collective inventory of SURVEY.md 2.3/5.8; here one all-reduce
+    of them all).
 
     Returns ``(init, step)`` as ``make_train_step``: ``init(scene) -> (params,
     opt)``; ``step(params, opt, scene, target) -> (params, opt, loss)``, the loss
@@ -195,10 +201,9 @@ def make_sharded_train_step(cfg: RenderConfig, mesh, axes=None,
         if dev not in shards:
             shards[dev] = PixelShards(cfg, group, n_shards, dev)
         opt.zero_grad(set_to_none=True)
-        local = _local_sum_loss(params, scene, target.reshape(-1, 3), cfg,
-                                shards[dev].pixels)
+        local = _local_loss(params, scene, target.reshape(-1, 3), cfg, shards[dev].pixels)
         local.backward()
-        loss = _reduced_grads(params, local, group, 1.0, 1.0 / (cfg.num_pixels * 3))
+        loss = _reduced_grads(params, local, group)
         opt.step()
         return params, opt, loss
 
@@ -241,11 +246,10 @@ def make_tensor_parallel_train_step(cfg: RenderConfig, mesh, dp_axis="dp", sp_ax
         if dev not in shards:
             shards[dev] = PixelShards(cfg, mesh.get_group(dp_axis), dp, dev)
         opt.zero_grad(set_to_none=True)
-        local = _local_sum_loss(params, scene, target.reshape(-1, 3), cfg_sp,
-                                shards[dev].pixels)
+        local = _local_loss(params, scene, target.reshape(-1, 3), cfg_sp, shards[dev].pixels)
         local.backward()
         # psum over dp, then pmean over sp: the sum over every rank over sp
-        loss = _reduced_grads(params, local, every, float(sp), 1.0 / (cfg.num_pixels * 3))
+        loss = _reduced_grads(params, local, every, float(sp))
         opt.step()
         return params, opt, loss
 

@@ -29,7 +29,8 @@ def make_mesh(shape: tuple | None = None, axis_names: tuple = ("dp", "sp"),
     n = dist.get_world_size()
     if shape is None:
         shape = (n,) + (1,) * (len(axis_names) - 1)
-    assert int(np.prod(shape)) == n, f"mesh shape {shape} != {n} ranks"
+    if int(np.prod(shape)) != n:
+        raise ValueError(f"make_mesh: shape {shape} does not hold the group's {n} ranks")
     return DeviceMesh(device_type or "cuda", torch.arange(n).reshape(shape),
                       mesh_dim_names=tuple(axis_names))
 
@@ -54,15 +55,13 @@ def strided_pixel_permutation(num_pixels: int, num_shards: int) -> np.ndarray:
 
 def shard_slots(num_pixels: int, num_shards: int):
     """(slots [num_shards, m] int32, inverse [num_pixels] int64): row k holds the
-    pixels shard k renders, in ``strided_pixel_permutation``'s order, with its
-    padded slots set to -1 (lanes that trace nothing and add nothing: the
-    renderer's padding); ``inverse[p]`` is pixel p's slot in the flattened
-    rows."""
-    perm = strided_pixel_permutation(num_pixels, num_shards).astype(np.int64)
-    slots = np.arange(perm.shape[0])
-    # the permutation's own slot order, before padded slots were pointed at 0
-    raw = slots.reshape(-1, num_shards).T.reshape(-1)
-    perm = np.where(raw < num_pixels, perm, -1)
+    pixels shard k renders, as ``strided_pixel_permutation`` assigns them, with
+    the padded slots set to -1 (lanes that trace nothing and add nothing: the
+    renderer's padding) instead of pixel 0; ``inverse[p]`` is pixel p's slot in
+    the flattened rows."""
+    total = num_pixels + (-num_pixels) % num_shards
+    slots = np.arange(total).reshape(-1, num_shards).T.reshape(-1)
+    slots = np.where(slots < num_pixels, slots, -1)
     inverse = np.empty(num_pixels, np.int64)
-    inverse[perm[perm >= 0]] = slots[perm >= 0]
-    return perm.astype(np.int32).reshape(num_shards, -1), inverse
+    inverse[slots[slots >= 0]] = np.flatnonzero(slots >= 0)
+    return slots.astype(np.int32).reshape(num_shards, -1), inverse

@@ -23,6 +23,11 @@ scatter of each later generation (``ops/framebuffer``), K9 spheres and planes
 (``ops/intersect``); ``present`` runs K8 FXAA (``ops/fxaa``).  Everything else
 is elementwise torch.
 
+Under ``cfg.scene_shard_axis`` each rank holds part of the triangles
+(``parallel/scene_shard.py``): every closest-hit record is combined by least t
+and every shadow mask by OR over that mesh axis, through
+``parallel/collectives``, so shading runs alike on every rank.
+
 The render is differentiable (``diff/train.py``): the hit reconstruction, the
 texture and the sky carry their own backward kernels (K7 bwd, K4, K5 bwd), the
 rest is torch autograd, and the traversal is discrete, so its inputs are
@@ -44,6 +49,7 @@ from ..ops import (
 )
 from ..ops import hits as mesh_hits
 from ..ops.intersect import Hits, Rays
+from ..parallel import collectives
 from ..scene.tensors import scene_from_numpy
 from . import shading
 
@@ -183,8 +189,6 @@ def _combine_hits_over_shards(hits: Hits, incomplete, axis: str):
     fields' bits viewed as float, and this shard's ``incomplete`` in the extra
     row), gathered with autograd so that the gradient of each picked field
     flows back to the shard that won (``collectives.all_gather``)."""
-    from ..parallel import collectives
-
     n = hits.t.shape[0]
     floats = torch.cat([getattr(hits, f).reshape(n, -1) for f in _FLOAT_FIELDS], dim=1)
     ints = torch.stack([hits.hit.to(torch.int32), hits.material_id.to(torch.int32),
@@ -200,12 +204,13 @@ def _combine_hits_over_shards(hits: Hits, incomplete, axis: str):
     win = g[:, :n].gather(0, k[None, :, None].expand(1, n, g.shape[2]))[0]
     wints = win[:, floats.shape[1]:].detach().contiguous().view(torch.int32)
     out, col = {}, 0
-    for f in _FLOAT_FIELDS:
+    for f in _FLOAT_FIELDS:  # each field contiguous again: the kernels index flat memory
         ref = getattr(hits, f)
         width = 1 if ref.dim() == 1 else ref.shape[1]
-        out[f] = win[:, col:col + width].reshape(ref.shape)
+        out[f] = win[:, col:col + width].reshape(ref.shape).contiguous()
         col += width
-    out.update(hit=wints[:, 0] != 0, material_id=wints[:, 1], bvh_steps=wints[:, 2])
+    out.update(hit=wints[:, 0] != 0, material_id=wints[:, 1].contiguous(),
+               bvh_steps=wints[:, 2].contiguous())
     incomplete = g[:, n, floats.shape[1]:].detach().contiguous().view(torch.int32)[:, 0].sum(
         dtype=torch.int32)
     return Hits(**out), incomplete
@@ -229,8 +234,6 @@ def intersect_scene(scene, bvh, origin, direction, max_distance, active, cfg):
     if cfg.scene_shard_axis is not None:
         # a lane is shadowed if ANY scene shard's sub-geometry blocks it: one
         # all-reduce of the blocked lanes with this shard's incomplete count
-        from ..parallel import collectives
-
         summed = collectives.all_reduce_sum(
             torch.cat([blocked.to(torch.int32), incomplete.reshape(1).to(torch.int32)]),
             collectives.group(cfg.scene_shard_axis))

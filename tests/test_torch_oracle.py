@@ -34,9 +34,15 @@ from raytracer_tpu_torch.scene.description import (
 from raytracer_tpu_torch.scene.device import pack_scene
 from raytracer_tpu_torch.scene.sky import procedural_probe
 
-# the port's readings against its oracle (max over the four scenes): max abs
-# 5.4e-6, mean 9.4e-9, no pixel off by more than 1e-3.  Bounds: 10x each
+# tests/test_oracle.py's bounds (:119-121), which hold on the card as well
+REF_MEAN_ABS, REF_FRAC_BAD = 1e-3, 0.02
+# the port's readings on the CPU against its oracle (max over the four scenes):
+# max abs 5.4e-6, mean 9.4e-9, no pixel off by more than 1e-3.  Bounds: 10x each
 MAX_ABS, MEAN_ABS, FRAC_BAD = 5e-5, 1e-7, 0.0
+BOUNDS_TEXT = ("mean abs <= 1e-3, <= 2% of pixels off by more than 1e-3, and the share of "
+               "pixels that hit something above the scene's least (tests/test_oracle.py); "
+               "on the CPU also max abs <= 5e-5, mean <= 1e-7, no pixel off by more than "
+               "1e-3 ('cpu_readings')")
 
 
 def oracle_scene():
@@ -146,6 +152,16 @@ def compare(img, oracle_img) -> dict:
             "hit_frac": float((oracle_img.sum(-1) > 0).mean())}
 
 
+def within_bounds(r: dict, min_hit: float) -> dict:
+    """tests/test_oracle.py's three checks of a ``compare`` reading."""
+    return {"mean_abs": r["mean_abs"] <= REF_MEAN_ABS, "frac_bad": r["frac_bad"] <= REF_FRAC_BAD,
+            "hit_frac": r["hit_frac"] > min_hit}
+
+
+def within_cpu_readings(r: dict) -> bool:
+    return r["max_abs"] <= MAX_ABS and r["mean_abs"] <= MEAN_ABS and r["frac_bad"] <= FRAC_BAD
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_port_matches_oracle(case):
     make, cfg, min_hit = CASES[case]
@@ -153,9 +169,8 @@ def test_port_matches_oracle(case):
     img, counters = render_port(packed, cfg)
     assert counters["num_incomplete"] == 0 and counters["num_dropped"] == 0
     r = compare(img, OracleRenderer(packed, cfg).render())
-    assert r["mean_abs"] <= MEAN_ABS and r["max_abs"] <= MAX_ABS, r
-    assert r["frac_bad"] <= FRAC_BAD, r
-    assert r["hit_frac"] > min_hit, r
+    assert all(within_bounds(r, min_hit).values()), r
+    assert within_cpu_readings(r), r
 
 
 def test_object_space_flag_identity_invariant():

@@ -246,3 +246,25 @@ def test_scaling_measures_each_count_the_group_offers(pixel_group):
     assert sorted(rep["rays_per_s"]) == [1, 2]  # 4 > the group's 2 ranks: skipped
     assert all(v > 0 for v in rep["rays_per_s"].values())
     assert rep["efficiency"][1] == pytest.approx(1.0)
+
+
+def test_initialize_reads_torchrun_variables_or_stays_single(monkeypatch):
+    """No torchrun variables and no arguments: one process, rank 0, no group.
+    ``nccl`` without CUDA raises instead of switching to gloo."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel import distributed
+
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    assert distributed.initialize(device="cpu") == 0
+    assert not dist.is_initialized()
+    if not torch.cuda.is_available():
+        monkeypatch.setenv("MASTER_ADDR", "localhost")
+        monkeypatch.setenv("MASTER_PORT", "29500")
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(RuntimeError, match="nccl needs a CUDA device"):
+            distributed.initialize(backend="nccl", device="cpu")
+        assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no process group"):
+        pmesh.make_mesh((1, 1), device_type="cpu")

@@ -18,7 +18,6 @@ from raytracer_tpu_torch.accel.blas import build_blas
 from raytracer_tpu_torch.config import RenderConfig, TextureSampleMode
 from raytracer_tpu_torch.parallel.scene_shard import ShardedScenePacker, pad_blas, split_mesh
 from raytracer_tpu_torch.scene import meshgen
-from raytracer_tpu_torch.scene.description import PointLight, SceneDescription
 from raytracer_tpu_torch.scene.device import ScenePacker, quantised_fields
 from test_torch_parallel import seeded_target, spawn_group, stat_dict
 
@@ -27,7 +26,7 @@ CFG = RenderConfig(width=48, height=32, num_bounces=1,
 QUANTISED = ("wq_rec", "wtq_rec")
 
 
-def mesh_scene(scene_mod, desc_mod, meshgen_mod, blas_mod):
+def mesh_scene(desc_mod, meshgen_mod, blas_mod):
     """``tests/test_scene_shard.py:_mesh_scene`` from the given package's modules:
     an icosphere and a reflective torus over a plane, one point light."""
     desc = desc_mod.SceneDescription(camera_fov_deg=90.0)
@@ -51,13 +50,11 @@ def mesh_scene(scene_mod, desc_mod, meshgen_mod, blas_mod):
     return desc
 
 
-class _Port:
+def port_scene():
     from raytracer_tpu_torch.accel import blas
     from raytracer_tpu_torch.scene import description
 
-
-def port_scene():
-    return mesh_scene(None, _Port.description, meshgen, _Port.blas)
+    return mesh_scene(description, meshgen, blas)
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +92,16 @@ def _trace_counts(renderer):
         seen["queues"].append(gen.pixel.numpy().copy())
         return gen
 
+    def combine(*a, **kw):
+        hits, incomplete = combine_hits(*a, **kw)
+        # the CUDA kernels that read the combined record index flat memory
+        seen["contiguous"] &= all(x.is_contiguous() for x in hits)
+        return hits, incomplete
+
+    combine_hits = renderer._combine_hits_over_shards
+    seen["contiguous"] = True
     renderer.trace_scene, renderer.intersect_scene, renderer._compact = closest, any_hit, queue
+    renderer._combine_hits_over_shards = combine
     return seen
 
 
@@ -122,7 +128,8 @@ def _shard_rank(rank, whole_fields, shard_fields, cfg_fields):
         img, stats = make_primitive_sharded_renderer(wcfg, mesh)(scene)
         out[walk] = dict(image=img.numpy(), stats=stat_dict(stats),
                          counts=dict(collectives.counts), closest=seen["closest"],
-                         any=seen["any"], queues=list(seen["queues"]))
+                         any=seen["any"], queues=list(seen["queues"]),
+                         contiguous=seen["contiguous"])
         with torch.no_grad():
             single, sstats = renderer.render_with_stats(whole, wcfg)
         out[walk].update(single=single.numpy(), single_stats=stat_dict(sstats))
@@ -184,7 +191,7 @@ def test_shard_scenes_match_jax_packer(packed):
     from torch_parity import private_bvh_cache
 
     with private_bvh_cache():
-        desc = mesh_scene(None, jax_desc, jax_meshgen, jax_blas)
+        desc = mesh_scene(jax_desc, jax_meshgen, jax_blas)
         stack = JaxSharded(desc, JaxConfig(width=CFG.width, height=CFG.height), 2).frame()
     ref = {k: np.asarray(v) for k, v in stack._asdict().items()}
     _, shards = packed
@@ -233,6 +240,7 @@ def test_scene_sharded_render_matches_single(shard_group, walk):
         mism = np.abs(got["image"] - got["single"]) > 1e-5
         assert mism.mean() < 1e-3, mism.mean()
         assert got["stats"]["num_incomplete"] == 0
+        assert got["contiguous"]  # every field of every combined record
         for k in ("num_primary", "num_shadow", "num_reflection", "num_refraction"):
             assert got["stats"][k] == got["single_stats"][k], k
     assert np.array_equal(shard_group[0][walk]["image"], shard_group[1][walk]["image"])
