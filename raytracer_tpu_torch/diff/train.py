@@ -190,18 +190,15 @@ def make_sharded_train_step(cfg: RenderConfig, mesh, axes=None,
 
     make_opt = optimizer or (lambda ps: torch.optim.Adam(ps, lr=1e-2))
     group, n_shards = axes_group(mesh, axes if axes is not None else mesh.mesh_dim_names)
-    shards = {}
+    px = PixelShards(cfg, group, n_shards)
 
     def init(scene):
         params = extract_params(scene, fields)
         return params, make_opt(params.values())
 
     def step(params, opt, scene, target):
-        dev = target.device
-        if dev not in shards:
-            shards[dev] = PixelShards(cfg, group, n_shards, dev)
         opt.zero_grad(set_to_none=True)
-        local = _local_loss(params, scene, target.reshape(-1, 3), cfg, shards[dev].pixels)
+        local = _local_loss(params, scene, target.reshape(-1, 3), cfg, px.pixels(target.device))
         local.backward()
         loss = _reduced_grads(params, local, group)
         opt.step()
@@ -235,18 +232,16 @@ def make_tensor_parallel_train_step(cfg: RenderConfig, mesh, dp_axis="dp", sp_ax
     dp, sp = mesh.size(names.index(dp_axis)), mesh.size(names.index(sp_axis))
     every = collectives.whole_group(mesh)
     cfg_sp = cfg.replace(scene_shard_axis=sp_axis)
-    shards = {}
+    px = PixelShards(cfg, mesh.get_group(dp_axis), dp)
 
     def init(scene):
         params = extract_params(scene, fields)
         return params, make_opt(params.values())
 
     def step(params, opt, scene, target):
-        dev = target.device
-        if dev not in shards:
-            shards[dev] = PixelShards(cfg, mesh.get_group(dp_axis), dp, dev)
         opt.zero_grad(set_to_none=True)
-        local = _local_loss(params, scene, target.reshape(-1, 3), cfg_sp, shards[dev].pixels)
+        local = _local_loss(params, scene, target.reshape(-1, 3), cfg_sp,
+                            px.pixels(target.device))
         local.backward()
         # psum over dp, then pmean over sp: the sum over every rank over sp
         loss = _reduced_grads(params, local, every, float(sp))

@@ -101,7 +101,10 @@ def _gather(x: torch.Tensor, g) -> torch.Tensor:
 class _AllGather(torch.autograd.Function):
     """[S, ...] of every rank's ``x``; the backward sums each rank's cotangent
     for its own slice over the group (the transpose of an all-gather, as JAX's
-    ``psum_scatter``), so a gradient reaches the rank whose record won."""
+    ``psum_scatter``), so a gradient reaches the rank whose record won.
+    ``torch.distributed.nn.functional.all_gather`` computes the same
+    (tests/test_torch_parallel.py holds the two equal) but is deprecated, and
+    counts and stages nothing."""
 
     @staticmethod
     def forward(ctx, x, g):

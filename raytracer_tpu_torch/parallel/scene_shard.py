@@ -207,15 +207,11 @@ def make_primitive_sharded_renderer(cfg: RenderConfig, mesh,
     collectives.register_mesh(mesh)
     dp = mesh.size(tuple(mesh.mesh_dim_names).index(dp_axis))
     cfg_sp = cfg.replace(scene_shard_axis=sp_axis)
-    shards = {}
+    px = PixelShards(cfg, mesh.get_group(dp_axis), dp)
 
     def run(scene):
-        dev = scene.cam_pos.device
-        if dev not in shards:
-            shards[dev] = PixelShards(cfg, mesh.get_group(dp_axis), dp, dev)
-        px = shards[dev]
         with torch.no_grad():
-            rgb, stats = renderer.render_pixels(scene, cfg_sp, px.pixels)
+            rgb, stats = renderer.render_pixels(scene, cfg_sp, px.pixels(scene.cam_pos.device))
             # ray counters are identical across sp (shading is post-combine and
             # replicated), so summing over dp alone gives the global counts
             return px.image(rgb), px.sum_stats(stats)

@@ -40,17 +40,27 @@ class PixelShards:
     """This rank's pixels of a strided split over a group, and the image's
     assembly from every rank's slice."""
 
-    def __init__(self, cfg: RenderConfig, group, n_shards: int, device):
+    def __init__(self, cfg: RenderConfig, group, n_shards: int):
         self.cfg, self.group = cfg, group
         slots, inverse = shard_slots(cfg.num_pixels, n_shards)
-        self.pixels = torch.from_numpy(slots[dist.get_rank(group)]).to(device)
-        self.inverse = torch.from_numpy(inverse).to(device)
+        self._host = (slots[dist.get_rank(group)], inverse)
+        self._on = {}  # device -> (pixels, inverse) tensors
+
+    def _tensors(self, device):
+        if device not in self._on:
+            self._on[device] = tuple(torch.from_numpy(a).to(device) for a in self._host)
+        return self._on[device]
+
+    def pixels(self, device) -> torch.Tensor:
+        """[m] int32 global pixel indices this rank renders (-1: padding)."""
+        return self._tensors(device)[0]
 
     def image(self, rgb: torch.Tensor) -> torch.Tensor:
         """[H,W,3] from this rank's [m,3] slice: one all-gather; padded slots
         are never read."""
         every = collectives.all_gather(rgb, self.group).reshape(-1, 3)
-        return every.index_select(0, self.inverse).reshape(self.cfg.height, self.cfg.width, 3)
+        inverse = self._tensors(rgb.device)[1]
+        return every.index_select(0, inverse).reshape(self.cfg.height, self.cfg.width, 3)
 
     def sum_stats(self, stats):
         """The counters summed over the group: one all-reduce."""
@@ -62,16 +72,11 @@ def make_sharded_renderer(cfg: RenderConfig, mesh, axes=None):
     """Returns run(scene) -> ([H,W,3] image, RenderStats) with pixels sharded over
     ``axes`` of ``mesh`` (default: all of them); every rank of the mesh calls it
     with the same scene and gets the whole image and the summed counters."""
-    group, n_shards = axes_group(mesh, axes if axes is not None else mesh.mesh_dim_names)
-    shards = {}
+    px = PixelShards(cfg, *axes_group(mesh, axes if axes is not None else mesh.mesh_dim_names))
 
     def run(scene):
-        dev = scene.cam_pos.device
-        if dev not in shards:
-            shards[dev] = PixelShards(cfg, group, n_shards, dev)
-        px = shards[dev]
         with torch.no_grad():
-            rgb, stats = renderer.render_pixels(scene, cfg, px.pixels)
+            rgb, stats = renderer.render_pixels(scene, cfg, px.pixels(scene.cam_pos.device))
             return px.image(rgb), px.sum_stats(stats)
 
     return run

@@ -139,6 +139,25 @@ def _pixel_rank(rank, fields, cfg_fields):
         for k, p in params1.items()})
 
     out["scaling"] = scaling.measure(scene, cfg, device_counts=(1, 2, 4), iters=1)
+
+    # the port's differentiable all-gather against torch's own (deprecated) one:
+    # each rank weighs every rank's slice differently, so a slice's gradient
+    # is the sum of the ranks' weights for it
+    import warnings
+
+    import torch.distributed.nn.functional as dist_fn
+
+    group = mesh.get_group("dp")
+    weights = torch.arange(12, dtype=torch.float32).reshape(2, 2, 3) * (rank + 1)
+    grads = []
+    for gather in (lambda x: collectives.all_gather(x, group),
+                   lambda x: torch.stack(dist_fn.all_gather(x, group=group))):
+        x = torch.full((2, 3), float(rank + 1), requires_grad=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            (gather(x) * weights).sum().backward()
+        grads.append(x.grad.numpy().copy())
+    out["gather_grads"] = grads
     return out
 
 
@@ -268,3 +287,14 @@ def test_initialize_reads_torchrun_variables_or_stays_single(monkeypatch):
         assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="no process group"):
         pmesh.make_mesh((1, 1), device_type="cpu")
+
+
+def test_all_gather_backward_sums_like_torch(pixel_group):
+    """``collectives.all_gather``'s backward is torch.distributed's: each
+    rank's slice gets the sum over the ranks of their cotangents for it."""
+    _, _, ranks = pixel_group
+    for rank, r in enumerate(ranks):
+        ours, torchs = r["gather_grads"]
+        expect = sum(np.arange(12, dtype=np.float32).reshape(2, 2, 3)[rank] * (k + 1)
+                     for k in range(2))
+        assert np.array_equal(ours, torchs) and np.array_equal(ours, expect)
