@@ -52,9 +52,10 @@ def _rank_main(target, rank, world, store, out):
             dist.destroy_process_group()
 
 
-def spawn_group(target, world, out_dir, *args, timeout=GROUP_TIMEOUT_S):
+def spawn_group(target, world, out_dir, *args, timeout=GROUP_TIMEOUT_S, meanwhile=None):
     """Run ``target(rank, *args)`` in ``world`` spawned gloo ranks joined by a
-    FileStore in ``out_dir``; returns each rank's result.  A group that has not
+    FileStore in ``out_dir``; returns each rank's result.  ``meanwhile()``, if
+    given, runs in this process while the ranks work.  A group that has not
     finished within ``timeout`` seconds is killed and fails the caller."""
     ctx = mp.get_context("spawn")
     out_dir = str(out_dir)
@@ -69,6 +70,8 @@ def spawn_group(target, world, out_dir, *args, timeout=GROUP_TIMEOUT_S):
     for p in procs:
         p.start()
     try:
+        if meanwhile is not None:
+            meanwhile()
         for p in procs:
             p.join(timeout)
     finally:
@@ -163,13 +166,15 @@ def _pixel_rank(rank, fields, cfg_fields):
 
 @pytest.fixture(scope="module")
 def pixel_group(tmp_path_factory):
-    """(config1's JAX scene and config, both ranks' results)."""
-    from torch_parity import fields, jax_scene, torch_config
+    """(config1's JAX scene and config, both ranks' results); JAX's render of
+    the scene (memoised) is made while the ranks work."""
+    from torch_parity import fields, jax_render, jax_scene, torch_config
 
     scene, cfg = jax_scene("config1")
     tcfg = torch_config(cfg)
     ranks = spawn_group(_pixel_rank, 2, tmp_path_factory.mktemp("pixel_group"), fields(scene),
-                        {f: getattr(tcfg, f) for f in tcfg.__dataclass_fields__})
+                        {f: getattr(tcfg, f) for f in tcfg.__dataclass_fields__},
+                        meanwhile=lambda: jax_render("config1"))
     return scene, cfg, ranks
 
 
