@@ -23,8 +23,6 @@ from raytracer_tpu_torch.config import RenderConfig
 from raytracer_tpu_torch.parallel import mesh as pmesh
 
 GROUP_TIMEOUT_S = 120
-COUNTERS = ("num_primary", "num_shadow", "num_reflection", "num_refraction", "num_dropped",
-            "num_incomplete")
 
 
 # ------------------------------------------------------------ spawned groups
