@@ -120,8 +120,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8b. the oracle: the four scenes of ``tests/test_torch_oracle.py`` (the JAX
    package's ``tests/test_oracle.py`` scenes, built by the port) rendered on
    the card and held to the port's scalar oracle (``render/oracle.py``, numpy
-   on the host) under ``tests/test_oracle.py``'s bounds, the CPU readings'
-   tighter bounds reported beside them;
+   on the host) under ``tests/test_torch_oracle.py``'s bounds: those of
+   ``tests/test_oracle.py`` and the CPU readings' tighter ones;
 8c. pixel sharding: a process group of world size 1 over NCCL, config3 at
    1080p through ``parallel/shard.make_sharded_renderer`` (with the counts at
    0: every forward kernel launched) against the unsharded frame (max
@@ -135,10 +135,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    one card over gloo (NCCL refuses two ranks on one device), dp=1 x sp=2:
    the combined frame against the unsharded one (mismatch share at 1e-5 below
    1e-3, the six counters equal), each rank's kernel launches, the
-   collectives and the host copies a generation (``parallel/collectives``
-   stages gloo's CUDA tensors through the host), then one
-   ``make_tensor_parallel_train_step`` step (loss within 1e-5 of the unsharded
-   step's), and which collectives gloo takes on CUDA tensors;
+   collectives a frame and their time and copies from the profile (gloo takes
+   the CUDA tensors itself), then one ``make_tensor_parallel_train_step``
+   step (loss within 1e-5 of the unsharded step's) and its profile, and which
+   collectives gloo takes on CUDA tensors;
 9. the kernels line, the ``nvidia-smi`` line, and last the device line.
 
 ``--log PATH`` also writes every JSON line, in full, to PATH.
@@ -407,8 +407,9 @@ class Recorder:
 def profile_frame(render) -> dict:
     """Device time of one frame (or training step) by torch.profiler: the kernels
     and copies that ran on the card (device-side events only; an operator's own
-    row would count its kernel twice), their share of the wall time, and the
-    largest."""
+    row would count its kernel twice), their share of the wall time, the
+    largest, the copies apart, and the host's events of the collectives
+    (``c10d::``, ``gloo:``, ``nccl:``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -420,14 +421,18 @@ def profile_frame(render) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    by_name = {}
+    by_name, comm = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        into = by_name if e.device_type == DeviceType.CUDA else \
+            comm if e.name.startswith(("c10d::", "gloo:", "nccl:")) else None
+        if into is not None:
+            ms, n = into.get(e.name, (0.0, 0))
+            into[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    collectives = [{"name": k, "ms": ms, "count": n} for k, (ms, n) in sorted(comm.items())]
     busy_ms = sum(ms for ms, _ in by_name.values())
     if busy_ms == 0:
-        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured",
+                "collective_events": collectives}
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -435,6 +440,9 @@ def profile_frame(render) -> dict:
         "device_events": sum(n for _, n in by_name.values()),
         "top_device_kernels": [{"name": k[:90], "ms": ms, "count": n}
                                for k, (ms, n) in top],
+        "device_copies": [{"name": k, "ms": ms, "count": n}
+                          for k, (ms, n) in sorted(by_name.items()) if k.startswith("Memcpy")],
+        "collective_events": collectives,
     }
 
 
@@ -770,12 +778,13 @@ def oracle_phase(smi: str) -> list:
         ref = OracleRenderer(packed, cfg).render()
         t2 = time.perf_counter()
         r = cases.compare(img, ref)
-        checks = cases.within_bounds(r, min_hit)
+        checks = {**cases.within_bounds(r, min_hit),
+                  "cpu_readings": cases.within_cpu_readings(r)}
         passed = all(checks.values()) and counters["num_dropped"] == 0 \
             and counters["num_incomplete"] == 0
         emit("oracle", scene=name, width=cfg.width, height=cfg.height,
              bounces=cfg.num_bounces, filter=cfg.mipmap_filter.name, counters=counters,
-             **r, checks=checks, cpu_readings=cases.within_cpu_readings(r), passed=passed,
+             **r, checks=checks, passed=passed,
              card_render_s=t1 - t0, oracle_s=t2 - t1,
              tolerance=cases.BOUNDS_TEXT, nvidia_smi=smi)
         if not passed:
@@ -885,8 +894,8 @@ def sharded_phase(scene, cfg, image, counters, train_kernels, smi: str) -> list:
     passed = max_diff <= 1e-5 and scounters == counters \
         and all(n > 0 for n in launches.values()) and all(n > 0 for n in step_launches.values()) \
         and all(v <= 1e-5 for v in grad_rel.values()) and grads_zero_elsewhere \
-        and loss_rel <= 1e-5 and coll == {"all_gather": 1, "all_reduce": 1} \
-        and step_coll == {"all_gather": 0, "all_reduce": 1}
+        and loss_rel <= 1e-5 and coll == {"all_gather": 1, "all_reduce": 1, "reduce_scatter": 0} \
+        and step_coll == {"all_gather": 0, "all_reduce": 1, "reduce_scatter": 0}
     emit("sharded", config="config3_sponza", width=cfg.width, height=cfg.height, world_size=1,
          backend=str(backend), image_max_abs_diff=max_diff, image_identical=identical,
          counters=scounters, counters_equal_unsharded=scounters == counters,
@@ -979,7 +988,7 @@ def scene_shard_rank(rank: int, work: str) -> None:
         # lanes where both shards hit at the same t (triangles of the two halves
         # meeting at an edge): the combine keeps shard 0's, the whole scene's
         # walk whichever it met first, so these lanes alone may shade differently
-        ties = {"lanes": 0, "on": True}
+        ties = {"lanes": 0, "on": True, "bytes": 0}
         gather = collectives.all_gather
 
         def tie_counting(x, g):
@@ -987,6 +996,7 @@ def scene_shard_rank(rank: int, work: str) -> None:
             if ties["on"] and x.dim() == 2 and x.shape[1] == 28:  # a hit-record combine
                 t = got[:, :-1, 0]
                 ties["lanes"] += int(((t[0] == t[1]) & torch.isfinite(t[0])).sum())
+                ties["bytes"] += got.numel() * got.element_size()
             return got
 
         collectives.all_gather = tie_counting
@@ -1000,8 +1010,9 @@ def scene_shard_rank(rank: int, work: str) -> None:
         out.update(first_frame_ms=(time.perf_counter() - t0) * 1e3,
                    launches={k: n for k, n in read_kernel_counts(counts).items()
                              if k in fwd_counts},
-                   collectives=dict(collectives.counts), host=dict(collectives.host),
+                   collectives=dict(collectives.counts),
                    generations=traces["closest"], tie_lanes=ties["lanes"],
+                   combine_gathered_bytes=ties["bytes"],
                    counters={k: int(v) for k, v in stats._asdict().items()})
         ties["on"] = False
         if sp == 0:
@@ -1014,8 +1025,7 @@ def scene_shard_rank(rank: int, work: str) -> None:
             run(scene)
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
-        out.update(frame_ms=frame_ms, host_per_frame=dict(collectives.host),
-                   profile=profile_frame(lambda: run(scene)))
+        out.update(frame_ms=frame_ms, profile=profile_frame(lambda: run(scene)))
 
         # one tensor-parallel step over the 17 fields against a zero target
         init, step = train.make_tensor_parallel_train_step(cfg, mesh)
@@ -1032,9 +1042,9 @@ def scene_shard_rank(rank: int, work: str) -> None:
             loss=float(loss), ms=(time.perf_counter() - t0) * 1e3,
             launches={k: n for k, n in read_kernel_counts(counts).items()
                       if k in train_kernels},
-            collectives=dict(collectives.counts), host=dict(collectives.host),
-            generations=traces["closest"],
-            grads_finite=all(bool(torch.isfinite(p.grad).all()) for p in params.values()))
+            collectives=dict(collectives.counts), generations=traces["closest"],
+            grads_finite=all(bool(torch.isfinite(p.grad).all()) for p in params.values()),
+            profile=profile_frame(lambda: step(params, opt, scene, target)))
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         probe = gloo_cuda_probe()
@@ -1052,8 +1062,8 @@ def scene_shard_rank(rank: int, work: str) -> None:
 def scene_sharded_phase(desc, cfg, image, counters, train_loss, smi: str) -> list:
     """dp=1 x sp=2 on config3 at 1080p: the geometry split in two, each half's
     scene rendered by its own process on the one card (``nccl`` refuses two
-    ranks on one device, so the group runs over gloo, its collectives staged
-    through the host by ``parallel/collectives.py``), the combined frame
+    ranks on one device, so the group runs over gloo, which takes the CUDA
+    tensors itself), the combined frame
     against the unsharded one and one tensor-parallel step's loss against the
     unsharded step's; returns the problems found."""
     import multiprocessing as mp
@@ -1113,7 +1123,6 @@ def scene_sharded_phase(desc, cfg, image, counters, train_loss, smi: str) -> lis
     loss = ranks[0]["step"]["loss"]
     loss_rel = abs(loss - train_loss) / abs(train_loss)
     gens = ranks[0]["generations"]
-    host_frame = ranks[0]["host_per_frame"]
     fwd_ok = all(all(n > 0 for n in r["launches"].values()) for r in ranks)
     step_ok = all(all(n > 0 for n in r["step"]["launches"].values()) for r in ranks)
     counters_equal = all(r["counters"] == counters for r in ranks)
@@ -1130,15 +1139,14 @@ def scene_sharded_phase(desc, cfg, image, counters, train_loss, smi: str) -> lis
          launches=[r["launches"] for r in ranks],
          step_launches=[r["step"]["launches"] for r in ranks],
          generations=gens, collectives_frame=ranks[0]["collectives"],
+         combine_gathered_bytes_per_generation=ranks[0]["combine_gathered_bytes"] / max(gens, 1),
          first_frame_ms=[r["first_frame_ms"] for r in ranks],
          frame_ms=[r["frame_ms"] for r in ranks],
-         host_copies_per_frame=host_frame,
-         host_bytes_per_generation=host_frame["bytes"] / max(gens, 1),
-         host_ms_per_generation=host_frame["ms"] / max(gens, 1),
          profile=[r["profile"] for r in ranks],
          step_loss=loss, step_loss_unsharded=train_loss, step_loss_rel=loss_rel,
          step_ms=[r["step"]["ms"] for r in ranks], step_collectives=ranks[0]["step"]["collectives"],
-         step_host=ranks[0]["step"]["host"], step_generations=ranks[0]["step"]["generations"],
+         step_generations=ranks[0]["step"]["generations"],
+         step_profile=[r["step"]["profile"] for r in ranks],
          gloo_on_cuda_tensors=probes[0], passed=passed,
          tolerance="mismatch fraction at 1e-5 < 1e-3 against the unsharded frame, and no "
                    "more mismatched pixels than tie lanes (both shards hit at one t); the "

@@ -227,7 +227,6 @@ def make_tensor_parallel_train_step(cfg: RenderConfig, mesh, dp_axis="dp", sp_ax
     from ..parallel.shard import PixelShards
 
     make_opt = optimizer or (lambda ps: torch.optim.Adam(ps, lr=1e-2))
-    collectives.register_mesh(mesh)
     names = tuple(mesh.mesh_dim_names)
     dp, sp = mesh.size(names.index(dp_axis)), mesh.size(names.index(sp_axis))
     every = collectives.whole_group(mesh)
@@ -240,9 +239,10 @@ def make_tensor_parallel_train_step(cfg: RenderConfig, mesh, dp_axis="dp", sp_ax
 
     def step(params, opt, scene, target):
         opt.zero_grad(set_to_none=True)
-        local = _local_loss(params, scene, target.reshape(-1, 3), cfg_sp,
-                            px.pixels(target.device))
-        local.backward()
+        with collectives.mesh_axes(mesh):
+            local = _local_loss(params, scene, target.reshape(-1, 3), cfg_sp,
+                                px.pixels(target.device))
+            local.backward()
         # psum over dp, then pmean over sp: the sum over every rank over sp
         loss = _reduced_grads(params, local, every, float(sp))
         opt.step()

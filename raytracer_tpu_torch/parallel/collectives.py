@@ -1,48 +1,56 @@
-"""The parallel layer's collectives: counted, and staged through the host where
-the backend cannot take the tensor.
+"""The parallel layer's collectives, counted.
 
 Every collective of the port goes through here, so ``counts`` is its whole
 inventory (the JAX package audits its lowered programs for the same,
-``tests/test_collectives.py``).  A ``gloo`` group given CUDA tensors (several
-ranks sharing one card, where ``nccl`` refuses) is fed through explicit copies
-to the host and back; ``host`` adds up their bytes and wall time.
+``tests/test_collectives.py``).  Tensors go to the backend as they are: a
+``gloo`` group (several ranks sharing one card, where ``nccl`` refuses) takes
+CUDA tensors itself.
 
-Mesh axes are registered by name (``register_mesh``) so that the renderer can
-find the scene-shard group from ``RenderConfig.scene_shard_axis``, a string,
-which keeps the config hashable.
+The renderer finds the scene-shard group from ``RenderConfig.scene_shard_axis``,
+a string, which keeps the config hashable: ``mesh_axes(mesh)`` makes the named
+dimensions of one mesh the ones ``group`` returns, for the calls made inside
+it and nowhere else (the sharded renderer and train step enter it around
+each frame and step).
 """
 
 from __future__ import annotations
 
-import time
+import contextlib
+import contextvars
 
 import torch
 import torch.distributed as dist
 
-counts = {"all_gather": 0, "all_reduce": 0}
-host = {"copies": 0, "bytes": 0, "ms": 0.0}
-_groups: dict = {}
+counts = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0}
+_axes: contextvars.ContextVar = contextvars.ContextVar("mesh_axes", default=None)
 
 
 def reset() -> None:
     for k in counts:
         counts[k] = 0
-    host.update(copies=0, bytes=0, ms=0.0)
 
 
-def register_mesh(mesh) -> None:
-    """Make each named dimension of a ``DeviceMesh`` findable by ``group``."""
-    for name in mesh.mesh_dim_names:
-        _groups[name] = mesh.get_group(name)
+@contextlib.contextmanager
+def mesh_axes(mesh):
+    """Inside the block, ``group(name)`` is the group of ``mesh``'s dimension
+    ``name``; the mesh active before is restored on leaving."""
+    token = _axes.set({name: mesh.get_group(name) for name in mesh.mesh_dim_names})
+    try:
+        yield
+    finally:
+        _axes.reset(token)
 
 
 def group(axis: str):
-    """The process group of a registered mesh axis."""
+    """The process group of a named dimension of the active mesh."""
+    axes = _axes.get()
+    if axes is None:
+        raise RuntimeError(f"mesh axis {axis!r} is used outside a mesh; render through "
+                           "make_primitive_sharded_renderer or make_tensor_parallel_train_step")
     try:
-        return _groups[axis]
+        return axes[axis]
     except KeyError:
-        raise KeyError(f"mesh axis {axis!r} is not registered; build the renderer or "
-                       "train step with a mesh that names it") from None
+        raise KeyError(f"the active mesh has no axis {axis!r} (it has {sorted(axes)})") from None
 
 
 def whole_group(mesh):
@@ -52,36 +60,9 @@ def whole_group(mesh):
     return dist.group.WORLD
 
 
-def _through_host(x: torch.Tensor, g) -> bool:
-    return x.is_cuda and dist.get_backend(g) == dist.Backend.GLOO
-
-
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    t0 = time.perf_counter()
-    y = x.cpu()
-    host["ms"] += (time.perf_counter() - t0) * 1e3
-    host["copies"] += 1
-    host["bytes"] += y.numel() * y.element_size()
-    return y
-
-
-def _to_device(y: torch.Tensor, device) -> torch.Tensor:
-    t0 = time.perf_counter()
-    x = y.to(device)
-    torch.cuda.synchronize(device)
-    host["ms"] += (time.perf_counter() - t0) * 1e3
-    host["copies"] += 1
-    host["bytes"] += y.numel() * y.element_size()
-    return x
-
-
 def all_reduce_sum(x: torch.Tensor, g) -> torch.Tensor:
     """Sum of ``x`` over the group's ranks (a new tensor; no autograd)."""
     counts["all_reduce"] += 1
-    if _through_host(x, g):
-        y = _to_host(x).contiguous()
-        dist.all_reduce(y, group=g)
-        return _to_device(y, x.device)
     y = x.detach().clone().contiguous()
     dist.all_reduce(y, group=g)
     return y
@@ -89,22 +70,30 @@ def all_reduce_sum(x: torch.Tensor, g) -> torch.Tensor:
 
 def _gather(x: torch.Tensor, g) -> torch.Tensor:
     counts["all_gather"] += 1
-    staged = _through_host(x, g)
-    src = _to_host(x).contiguous() if staged else x.detach().contiguous()
+    src = x.detach().contiguous()
     n = dist.get_world_size(g)
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=g)
-    out = out.view((n,) + tuple(src.shape))
-    return _to_device(out, x.device) if staged else out
+    return out.view((n,) + tuple(src.shape))
+
+
+def _reduce_scatter_sum(x: torch.Tensor, g) -> torch.Tensor:
+    """This rank's slice along dim 0 of the sum of ``x`` [S, ...] over the
+    group's S ranks (JAX's ``psum_scatter``)."""
+    counts["reduce_scatter"] += 1
+    src = x.contiguous()
+    out = src.new_empty(tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src.view((-1,) + tuple(src.shape[2:])), group=g)
+    return out
 
 
 class _AllGather(torch.autograd.Function):
     """[S, ...] of every rank's ``x``; the backward sums each rank's cotangent
-    for its own slice over the group (the transpose of an all-gather, as JAX's
-    ``psum_scatter``), so a gradient reaches the rank whose record won.
+    for its own slice over the group (the transpose of an all-gather: one
+    reduce-scatter), so a gradient reaches the rank whose record won.
     ``torch.distributed.nn.functional.all_gather`` computes the same
-    (tests/test_torch_parallel.py holds the two equal) but is deprecated, and
-    counts and stages nothing."""
+    (tests/test_torch_parallel.py holds the two equal) but is deprecated and
+    counts nothing."""
 
     @staticmethod
     def forward(ctx, x, g):
@@ -113,8 +102,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        total = all_reduce_sum(grad.contiguous(), ctx.g)
-        return total[dist.get_rank(ctx.g)], None
+        return _reduce_scatter_sum(grad, ctx.g), None
 
 
 def all_gather(x: torch.Tensor, g) -> torch.Tensor:

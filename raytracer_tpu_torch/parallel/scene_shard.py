@@ -204,13 +204,12 @@ def make_primitive_sharded_renderer(cfg: RenderConfig, mesh,
     `dp_axis`, triangle geometry over `sp_axis`.  Every rank calls it with its
     own shard's scene (entry ``mesh.get_local_rank(sp_axis)`` of
     ``ShardedScenePacker.frame()``, uploaded) and gets the whole image."""
-    collectives.register_mesh(mesh)
     dp = mesh.size(tuple(mesh.mesh_dim_names).index(dp_axis))
     cfg_sp = cfg.replace(scene_shard_axis=sp_axis)
     px = PixelShards(cfg, mesh.get_group(dp_axis), dp)
 
     def run(scene):
-        with torch.no_grad():
+        with torch.no_grad(), collectives.mesh_axes(mesh):
             rgb, stats = renderer.render_pixels(scene, cfg_sp, px.pixels(scene.cam_pos.device))
             # ray counters are identical across sp (shading is post-combine and
             # replicated), so summing over dp alone gives the global counts

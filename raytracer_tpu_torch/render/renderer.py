@@ -25,8 +25,9 @@ is elementwise torch.
 
 Under ``cfg.scene_shard_axis`` each rank holds part of the triangles
 (``parallel/scene_shard.py``): every closest-hit record is combined by least t
-and every shadow mask by OR over that mesh axis, through
-``parallel/collectives``, so shading runs alike on every rank.
+and every shadow mask by OR over that axis of the mesh the sharded renderer
+or train step makes active (``parallel/collectives.mesh_axes``), so shading
+runs alike on every rank.
 
 The render is differentiable (``diff/train.py``): the hit reconstruction, the
 texture and the sky carry their own backward kernels (K7 bwd, K4, K5 bwd), the

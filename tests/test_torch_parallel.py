@@ -258,8 +258,36 @@ def test_dp_collectives(pixel_group):
     and no gather (``tests/test_collectives.py`` checks the same of JAX)."""
     _, _, ranks = pixel_group
     for r in ranks:
-        assert r["counts_frame"] == {"all_gather": 1, "all_reduce": 1}
-        assert r["counts_step"] == {"all_gather": 0, "all_reduce": 1}
+        assert r["counts_frame"] == {"all_gather": 1, "all_reduce": 1, "reduce_scatter": 0}
+        assert r["counts_step"] == {"all_gather": 0, "all_reduce": 1, "reduce_scatter": 0}
+
+
+def test_mesh_axes_are_scoped_to_the_call():
+    """``collectives.group`` answers from the innermost active ``mesh_axes``
+    block, restores the outer mesh on leaving it, and raises outside any, so
+    building a second mesh with the same axis names moves no one's group."""
+    from raytracer_tpu_torch.parallel import collectives
+
+    class Mesh:
+        mesh_dim_names = ("dp", "sp")
+
+        def __init__(self, tag):
+            self.tag = tag
+
+        def get_group(self, name):
+            return self.tag, name
+
+    with pytest.raises(RuntimeError, match="outside a mesh"):
+        collectives.group("sp")
+    with collectives.mesh_axes(Mesh("a")):
+        assert collectives.group("sp") == ("a", "sp")
+        with collectives.mesh_axes(Mesh("b")):
+            assert collectives.group("sp") == ("b", "sp")
+        assert collectives.group("dp") == ("a", "dp")
+        with pytest.raises(KeyError, match="no axis 'tp'"):
+            collectives.group("tp")
+    with pytest.raises(RuntimeError, match="outside a mesh"):
+        collectives.group("sp")
 
 
 def test_scaling_measures_each_count_the_group_offers(pixel_group):
@@ -293,8 +321,9 @@ def test_initialize_reads_torchrun_variables_or_stays_single(monkeypatch):
 
 
 def test_all_gather_backward_sums_like_torch(pixel_group):
-    """``collectives.all_gather``'s backward is torch.distributed's: each
-    rank's slice gets the sum over the ranks of their cotangents for it."""
+    """``collectives.all_gather``'s backward (one reduce-scatter) is
+    torch.distributed's: each rank's slice gets the sum over the ranks of
+    their cotangents for it."""
     _, _, ranks = pixel_group
     for rank, r in enumerate(ranks):
         ours, torchs = r["gather_grads"]

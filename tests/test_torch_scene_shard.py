@@ -274,15 +274,16 @@ def test_tensor_parallel_step_matches_single(shard_group):
 def test_collectives_per_generation_only(shard_group):
     """The scene-sharded frame gathers once a closest-hit trace (the hit-record
     combine) plus the image, and all-reduces once an any-hit trace plus the
-    counters; the tensor-parallel step adds, in its backward, one all-reduce a
-    gather (the gather's transpose) and one for the loss and gradients.
-    Nothing else communicates."""
+    counters; the tensor-parallel step adds, in its backward, one
+    reduce-scatter a gather (the gather's transpose) and one all-reduce for
+    the loss and gradients.  Nothing else communicates."""
     for r in shard_group:
         for walk in ("wide", "threaded"):
             got = r[walk]
             assert got["closest"] == 2 and got["any"] == 2  # two generations
             assert got["counts"] == {"all_gather": got["closest"] + 1,
-                                     "all_reduce": got["any"] + 1}
+                                     "all_reduce": got["any"] + 1, "reduce_scatter": 0}
         step = r["step"]
         assert step["counts"] == {"all_gather": step["closest"],
-                                  "all_reduce": step["any"] + step["closest"] + 1}
+                                  "all_reduce": step["any"] + 1,
+                                  "reduce_scatter": step["closest"]}
