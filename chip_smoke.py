@@ -447,49 +447,43 @@ def profile_frame(render) -> dict:
 
 
 def kernel_counters() -> tuple:
-    """(forward kernels, every kernel): {name: (holder, key)}, where each
-    kernel's wrapper counts its launches: a module attribute, or the texture
-    wrappers' per-mode dicts."""
-    from raytracer_tpu_torch.ops import (
-        compaction, framebuffer, fxaa, hits, intersect, sky_sample, texture_sample, traversal,
-        traversal_wide,
-    )
-
+    """(forward kernels, every kernel): {name: key}, where each kernel's
+    wrapper counts its launches under ``key`` of ``trace.counters``."""
     fwd_counts = {
-        "traverse_closest": (traversal_wide, "closest_launches"),
-        "traverse_any": (traversal_wide, "any_launches"),
-        "hits": (hits, "launches"),
-        "texture_aniso": (texture_sample.launches, "aniso"),
-        "sky": (sky_sample, "launches"),
-        "compact": (compaction, "launches"),
-        "fb_scatter": (framebuffer, "launches"),
+        "traverse_closest": "launch.k1",
+        "traverse_any": "launch.k2",
+        "hits": "launch.k7",
+        "texture_aniso": "launch.k3.aniso",
+        "sky": "launch.k5",
+        "compact": "launch.k6",
+        "fb_scatter": "launch.fb_scatter",
     }
     counts = {**fwd_counts,
-              "hits_bwd": (hits, "bwd_launches"),
-              "texture_aniso_bwd": (texture_sample.bwd_launches, "aniso"),
-              "sky_bwd": (sky_sample, "bwd_launches"),
-              "fxaa": (fxaa, "launches"),
-              "prim_closest": (intersect, "closest_launches"),
-              "prim_any": (intersect, "any_launches"),
-              "threaded_closest": (traversal, "closest_launches"),
-              "threaded_any": (traversal, "any_launches")}
+              "hits_bwd": "launch.k7.bwd",
+              "texture_aniso_bwd": "launch.k4.aniso",
+              "sky_bwd": "launch.k5.bwd",
+              "fxaa": "launch.k8",
+              "prim_closest": "launch.k9.closest",
+              "prim_any": "launch.k9.any",
+              "threaded_closest": "launch.k10.closest",
+              "threaded_any": "launch.k10.any"}
     for mode in FILTER_MODES:
-        counts[f"texture_{mode}"] = (texture_sample.launches, mode)
-        counts[f"texture_{mode}_bwd"] = (texture_sample.bwd_launches, mode)
+        counts[f"texture_{mode}"] = f"launch.k3.{mode}"
+        counts[f"texture_{mode}_bwd"] = f"launch.k4.{mode}"
     return fwd_counts, counts
 
 
 def reset_kernel_counts(counts: dict) -> None:
-    for holder, key in counts.values():
-        if isinstance(holder, dict):
-            holder[key] = 0
-        else:
-            setattr(holder, key, 0)
+    from raytracer_tpu_torch.utils import trace
+
+    for key in counts.values():
+        trace.counters.pop(key, None)
 
 
 def read_kernel_counts(counts: dict) -> dict:
-    return {name: holder[key] if isinstance(holder, dict) else getattr(holder, key)
-            for name, (holder, key) in counts.items()}
+    from raytracer_tpu_torch.utils import trace
+
+    return {name: trace.counters[key] for name, key in counts.items()}
 
 
 def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
@@ -509,19 +503,20 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     from raytracer_tpu_torch.microbench import table_rowsum as mb_table_rowsum
     from raytracer_tpu_torch.microbench import threaded as mb_threaded
     from raytracer_tpu_torch.ops import gather, traversal, traversal_wide
+    from raytracer_tpu_torch.utils import trace
 
     dev = scene.tr_p0.device
     t_gather = time.perf_counter()
     problems, runs, runs_first = [], {}, {}
     for label, bench in (("gather", mb_gather), ("chained", mb_chained),
                          ("table_gather", mb_table_gather), ("table_rowsum", mb_table_rowsum)):
-        for counts in (gather.launches, gather.first_launches):
-            for key in counts:
-                counts[key] = 0
+        for key in gather.LAUNCH.values():
+            trace.counters.pop(key, None)
+            trace.counters.pop(key + ".first", None)
         with contextlib.redirect_stdout(io.StringIO()):
             lines = bench.main([])
-        runs[label] = dict(gather.launches)
-        runs_first[label] = dict(gather.first_launches)
+        runs[label] = {k: trace.counters[v] for k, v in gather.LAUNCH.items()}
+        runs_first[label] = {k: trace.counters[v + ".first"] for k, v in gather.LAUNCH.items()}
         checks = {f"{line['name']}.{k}": v for line in lines for k, v in line.items()
                   if k in ("match", "exact", "j_equal", "per_call_equal")}
         emit("gather_bench", bench=label, module=f"raytracer_tpu_torch.microbench.{label}",

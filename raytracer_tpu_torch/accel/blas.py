@@ -114,7 +114,6 @@ def build_blas(
     mesh: MeshData,
     accelerator: MeshAccelerator = MeshAccelerator.SBVH,
     cache_dir: str | None = ".cache/bvh_torch",
-    verbose: bool = False,
 ) -> Blas:
     """Build (or load from cache) the accelerator for a triangle mesh."""
     key = _mesh_hash(mesh, accelerator)
@@ -131,15 +130,11 @@ def build_blas(
         _blas_memory_cache[key] = blas
         return blas
 
-    import time
-
-    t0 = time.time()
     if accelerator == MeshAccelerator.SBVH:
         bvh, order = _build_sbvh(mesh)
     else:
         bvh = _build_plain(mesh)
         order = bvh.prim_order
-    n_refs_built = len(order)
 
     # Merge small sibling subtrees into single <= 8-triangle leaves (dedupes SBVH
     # straddler copies; one fat-gather record per merged leaf — PERF.md lever #5).
@@ -147,13 +142,6 @@ def build_blas(
         bvh.node_min, bvh.node_max, bvh.node_left, bvh.node_count, bvh.node_axis,
         order,
     )
-
-    if verbose:
-        print(
-            f"Mesh {'S' if accelerator == MeshAccelerator.SBVH else ''}BVH construction: "
-            f"{mesh.triangle_count} tris -> {n_refs_built} refs -> "
-            f"{len(order)} merged, {(time.time() - t0) * 1e3:.1f} ms"
-        )
 
     from .links import BLAS_EXIT, compute_links
 

@@ -12,6 +12,10 @@ capacities (``RobustRenderer``).  The port's queues are exact and its walks run
 to the end, so a frame is lossless by construction: ``--no-lossless-retry`` is
 accepted and changes nothing, and ``lossless_retry`` is always false.
 
+``--trace-frames N`` runs ``torch.profiler`` over the first N frames and writes
+``<out>/trace.json`` (``export_chrome_trace``): the program's ``rt.*`` spans
+(``utils/trace.py``) beside the kernels, on one clock.
+
 Usage:  python -m raytracer_tpu_torch.app --scene config4 --frames 10 --fxaa --out out/
         (``--cpu`` runs the plain PyTorch versions of the kernels on the CPU)
 """
@@ -21,10 +25,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 
 def _rounded(metrics: dict) -> dict:
     return {k: round(v, 2) if isinstance(v, float) else v for k, v in metrics.items()}
+
+
+def _write_trace(prof, out: str, frames: int) -> None:
+    prof.stop()
+    path = os.path.join(out, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Wrote the trace of {frames} frame(s) to {path}")
 
 
 def main(argv=None):
@@ -47,6 +59,9 @@ def main(argv=None):
     ap.add_argument("--no-lossless-retry", action="store_true",
                     help="accepted for the JAX app's command lines; the port is "
                     "lossless by construction, so there is nothing to retry")
+    ap.add_argument("--trace-frames", type=int, default=0,
+                    help="profile the first N frames and write OUT/trace.json (Chrome "
+                    "trace format: the program's rt.* spans beside the kernels)")
     args = ap.parse_args(argv)
 
     import torch
@@ -82,6 +97,15 @@ def main(argv=None):
     # render them (render_frames), present the last; the clock ticks per chunk
     chunk = max(args.batch_frames, 1)
     frame = 0
+    prof = None
+    if args.trace_frames > 0:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if rend.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
     while frame < args.frames:
         n = min(chunk, args.frames - frame)
         frames = []
@@ -102,6 +126,12 @@ def main(argv=None):
             image_util.save_png(os.path.join(args.out, f"frame_{frame:04d}.png"),
                                 host(imgs[k]))
             frame += 1
+        if prof is not None and frame >= args.trace_frames:
+            _write_trace(prof, args.out, frame)
+            prof = None
+            timer.last = time.perf_counter()  # the export is no frame's time
+    if prof is not None:  # fewer frames than --trace-frames
+        _write_trace(prof, args.out, frame)
     # final frame also saved presented (gamma/FXAA applied)
     image_util.save_png(os.path.join(args.out, "final_presented.png"), host(shown),
                         gamma=False)

@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import trace
 
-launches = 0  # rt_compact launches (reset and read by chip_smoke.py)
 TILE = 8192  # flags a block of rt_compact takes (csrc/compact.cu kTile)
 # rt_compact's scratch, one for each (device, stream): the kernel leaves it zero
 _scratch: dict = {}
@@ -25,7 +25,10 @@ _scratch: dict = {}
 def compact_plain(flags: torch.Tensor) -> tuple:
     """(int32 [n_active] indices of the set flags in lane order, n_active)."""
     pos = torch.cumsum(flags.to(torch.int32), dim=0, dtype=torch.int32) - 1
-    n_active = int(pos[-1].item()) + 1 if flags.shape[0] else 0
+    n_active = 0
+    if flags.shape[0]:
+        with trace.span("rt.host_read"):
+            n_active = int(pos[-1].item()) + 1
     # unflagged lanes all write one spare slot past the end, which is cut off
     dest = torch.where(flags, pos, n_active).long()
     out = torch.empty((n_active + 1,), dtype=torch.int32, device=flags.device)
@@ -36,7 +39,6 @@ def compact_plain(flags: torch.Tensor) -> tuple:
 def _launch(flags: torch.Tensor) -> torch.Tensor:
     """One ``rt_compact`` launch on CUDA flags: [n + 1] int32, the indices and
     then the count (one allocation: a wrapper's host time is part of the call)."""
-    global launches
     kernels.require_contiguous("compact", flags)
     dev = flags.device
     n = flags.shape[0]
@@ -56,7 +58,7 @@ def _launch(flags: torch.Tensor) -> torch.Tensor:
     fn = kernels.entry("compact", "rt_compact", [P, I, I, P, P, P, P])
     ptr = buf.data_ptr()
     err = fn(flags.data_ptr(), n, tiles, scratch.data_ptr(), ptr, ptr + 4 * n, stream)
-    launches += 1
+    trace.count("launch.k6")
     kernels.check(err, "rt_compact")
     return buf
 
@@ -69,8 +71,8 @@ def _check(flags: torch.Tensor) -> None:
 def compact_launch(flags: torch.Tensor) -> tuple:
     """K6 without a read-back: (int32 [n] indices, int32 [1] count), both on the
     flags' device; the first ``count`` indices are the set flags in lane order
-    and the rest are unspecified.  CUDA tensors launch ``rt_compact`` (module
-    attribute ``launches`` counts them); CPU tensors take ``compact_plain``,
+    and the rest are unspecified.  CUDA tensors launch ``rt_compact`` (counted in
+    ``trace.counters["launch.k6"]``); CPU tensors take ``compact_plain``,
     the rest of the indices zero."""
     _check(flags)
     n = flags.shape[0]
@@ -92,5 +94,6 @@ def compact(flags: torch.Tensor) -> tuple:
         return compact_plain(flags)
     _check(flags)
     buf = _launch(flags)  # compact_launch's launch, without its two views
-    n_active = int(buf[flags.shape[0]].item())
+    with trace.span("rt.host_read"):
+        n_active = int(buf[flags.shape[0]].item())
     return buf[:n_active], n_active

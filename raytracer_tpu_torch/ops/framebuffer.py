@@ -4,9 +4,9 @@ its pixel (counterpart of ``fb.at[gen.pixel].add(contribution)``,
 
 ``accumulate`` adds in place: CPU tensors take ``accumulate_plain``
 (``index_add_``); CUDA tensors launch ``rt_scatter_add3`` (``csrc/framebuffer.cu``
-over ``csrc/scatter.cuh``, counted in ``launches``), through ``FramebufferAdd``
-when a gradient is wanted, whose backward gathers the frame's gradient at each
-lane's pixel.
+over ``csrc/scatter.cuh``, counted in ``trace.counters["launch.fb_scatter"]``),
+through ``FramebufferAdd`` when a gradient is wanted, whose backward gathers the
+frame's gradient at each lane's pixel.
 """
 
 from __future__ import annotations
@@ -14,8 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-
-launches = 0  # rt_scatter_add3 launches (reset and read by chip_smoke.py)
+from ..utils import trace
 
 
 def accumulate_plain(fb: torch.Tensor, pixel: torch.Tensor,
@@ -26,7 +25,6 @@ def accumulate_plain(fb: torch.Tensor, pixel: torch.Tensor,
 
 def scatter_add(fb: torch.Tensor, pixel: torch.Tensor, contribution: torch.Tensor) -> None:
     """One ``rt_scatter_add3`` launch: ``accumulate_plain`` on the card, in place."""
-    global launches
     n = pixel.shape[0]
     if (fb.dim() != 2 or fb.shape[1] != 3 or contribution.shape != (n, 3)
             or fb.dtype != torch.float32 or contribution.dtype != torch.float32
@@ -41,7 +39,7 @@ def scatter_add(fb: torch.Tensor, pixel: torch.Tensor, contribution: torch.Tenso
     fn = kernels.entry("framebuffer", "rt_scatter_add3", [P, P, I, P, P])
     err = fn(pixel.data_ptr(), contribution.data_ptr(), n, fb.data_ptr(),
              kernels.stream_ptr(fb.device))
-    launches += 1
+    trace.count("launch.fb_scatter")
     kernels.check(err, "rt_scatter_add3")
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import trace
 
 FXAA_REDUCE_MIN = 1.0 / 128.0
 FXAA_REDUCE_MUL = 1.0 / 8.0
@@ -32,8 +33,6 @@ FORMS = ("tile", "first")
 # [-1/2, 1/2] along it, so a tap starts at most 4 texels away, and its
 # bilinear's second texel is one further (fxaa.cu: kHaloLo, kHaloHi)
 HALO = (4, 5)
-launches = 0  # rt_fxaa launches of the tile form (reset and read by chip_smoke.py)
-first_launches = 0  # and of the first form
 
 
 def _luma(c):
@@ -157,7 +156,7 @@ def fxaa_plain(linear_image: torch.Tensor) -> torch.Tensor:
 
 def fxaa(linear_image: torch.Tensor) -> torch.Tensor:
     """K8.  CPU images take ``fxaa_plain``; CUDA images launch ``rt_fxaa``'s tile
-    form once (counted in ``launches``)."""
+    form once (counted in ``trace.counters["launch.k8"]``)."""
     if linear_image.device.type == "cpu":
         return fxaa_plain(linear_image)
     return fxaa_form("tile", linear_image)
@@ -165,8 +164,8 @@ def fxaa(linear_image: torch.Tensor) -> torch.Tensor:
 
 def fxaa_form(form: str, linear_image: torch.Tensor) -> torch.Tensor:
     """One ``rt_fxaa`` launch in ``form`` (one of ``FORMS``; the tile form counted
-    in ``launches``, the first in ``first_launches``) on a CUDA image."""
-    global launches, first_launches
+    in ``trace.counters["launch.k8"]``, the first in ``"launch.k8.first"``) on a
+    CUDA image."""
     if form not in FORMS:
         raise ValueError(f"fxaa: form must be one of {FORMS}")
     if linear_image.device.type != "cuda":
@@ -185,9 +184,6 @@ def fxaa_form(form: str, linear_image: torch.Tensor) -> torch.Tensor:
     # the kernel refuses a halo other than its own
     err = fn(linear_image.data_ptr(), h, w, FORMS.index(form), *HALO, out.data_ptr(),
              kernels.stream_ptr(linear_image.device))
-    if form == "tile":
-        launches += 1
-    else:
-        first_launches += 1
+    trace.count("launch.k8" if form == "tile" else "launch.k8.first")
     kernels.check(err, f"rt_fxaa ({form})")
     return out

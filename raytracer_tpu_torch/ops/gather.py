@@ -24,9 +24,10 @@ chained so that the next index depends on the row just read.
 
 CPU tensors take the ``*_plain`` versions (``form`` is checked and ignored).
 CUDA tensors launch ``csrc/gather.cu`` in the form named (both forms counted
-in ``launches``, the first also in ``first_launches``) or raise; no form stands in for another.  Indices must lie in
-the table; they do in every harness by construction, and the kernels do not
-clamp them.  The next index of a chain always does: see ``next_index``.
+in ``trace.counters[LAUNCH[kind]]``, the first also under that key's ``.first``)
+or raise; no form stands in for another.  Indices must lie in the table; they
+do in every harness by construction, and the kernels do not clamp them.  The
+next index of a chain always does: see ``next_index``.
 """
 
 from __future__ import annotations
@@ -34,12 +35,14 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import trace
 
-# csrc/gather.cu launches by kernel (reset and read by chip_smoke.py): K11
-# direct and staged, K12 chained and indep, K13 single and chained, every form;
-# first_launches: the share of K12's and K13's in the first form
-launches = dict.fromkeys(("direct", "staged", "chained", "indep", "rowsum", "rowsum_chain"), 0)
-first_launches = dict.fromkeys(("chained", "indep", "rowsum", "rowsum_chain"), 0)
+# the counter key of csrc/gather.cu's launches of each kind, every form: K11
+# direct and staged, K12 chained and indep, K13 single and chained; the share
+# of K12's and K13's in the first form counts under the key + ".first"
+LAUNCH = {"direct": "launch.k11.direct", "staged": "launch.k11.staged",
+          "chained": "launch.k12.chained", "indep": "launch.k12.indep",
+          "rowsum": "launch.k13.rowsum", "rowsum_chain": "launch.k13.rowsum_chain"}
 
 SCHEDULES = ("direct", "staged")
 K12_FORMS = ("warp", "first")
@@ -155,7 +158,7 @@ def _iters(what: str, iters: int, rows: int) -> int:
 def row_gather(table: torch.Tensor, idx: torch.Tensor, schedule: str = "direct") -> torch.Tensor:
     """K11: ``table[idx]``, [T, R] f32 and [N] int32 -> [N, R].  CPU tensors take
     ``row_gather_plain``; CUDA tensors launch ``rt_row_gather`` under
-    ``schedule`` (``"direct"`` or ``"staged"``, counted in ``launches``); the
+    ``schedule`` (``"direct"`` or ``"staged"``, counted under ``LAUNCH``); the
     staged ring holds rows of at most 452 floats."""
     _check("row_gather", table, idx, 1)
     if schedule not in SCHEDULES:
@@ -176,7 +179,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, schedule: str = "direct")
                         kernels.P])
     err = fn(int(schedule == "staged"), table.data_ptr(), r4, idx.data_ptr(), n,
              out.data_ptr(), kernels.stream_ptr(table.device))
-    launches[schedule] += 1
+    trace.count(LAUNCH[schedule])
     kernels.check(err, f"rt_row_gather ({schedule})")
     return out
 
@@ -197,9 +200,10 @@ def _launch_chain(indep: bool, form: int, table, idx, n, iters, acc, j_out) -> N
     err = fn(int(indep), form, table.data_ptr(), table.shape[0], r4, idx.data_ptr(), n, iters,
              acc.data_ptr(), None if j_out is None else j_out.data_ptr(),
              kernels.stream_ptr(table.device))
-    key = "indep" if indep else "chained"
-    launches[key] += 1
-    first_launches[key] += not form
+    key = LAUNCH["indep" if indep else "chained"]
+    trace.count(key)
+    if not form:
+        trace.count(key + ".first")
     kernels.check(err, "rt_chained_gather")
 
 
@@ -210,8 +214,8 @@ def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int,
     (``loads="vector"``: 16-byte loads of rows of whole 16-byte pieces, in
     ``form`` ``"warp"``, the default, or ``"first"``) or
     ``rt_chained_gather_scalar`` (``"scalar"``: 32-bit loads of rows of any
-    width, one thread a chain, its one form: ``form`` is not given), counted in
-    ``launches["chained"]``."""
+    width, one thread a chain, its one form: ``form`` is not given), counted
+    under ``LAUNCH["chained"]``."""
     _check("chained_gather", table, idx0, 1)
     iters = _iters("chained_gather", iters, table.shape[0])
     if loads not in ("vector", "scalar"):
@@ -231,7 +235,7 @@ def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int,
                             kernels.P, kernels.P, kernels.P])
         err = fn(table.data_ptr(), table.shape[0], table.shape[1], idx0.data_ptr(), n, iters,
                  acc.data_ptr(), j.data_ptr(), kernels.stream_ptr(table.device))
-        launches["chained"] += 1
+        trace.count(LAUNCH["chained"])
         kernels.check(err, "rt_chained_gather_scalar")
     elif n:
         _launch_chain(False, warp, table, idx0, n, iters, acc, j)
@@ -241,7 +245,7 @@ def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int,
 def indep_gather(table: torch.Tensor, idx_all: torch.Tensor, form: str = "warp") -> torch.Tensor:
     """K12's ``indep`` mode: ``indep_gather_plain``'s acc over ``idx_all
     [iters, N]``.  CUDA tensors launch ``rt_chained_gather`` in ``form``
-    (counted in ``launches["indep"]``)."""
+    (counted under ``LAUNCH["indep"]``)."""
     _check("indep_gather", table, idx_all, 2)
     warp = _form("indep_gather", form, K12_FORMS)
     if table.device.type == "cpu":
@@ -264,16 +268,17 @@ def _launch_rowsum(tab, idx, n, iters, acc, j_out, form: int) -> None:
                         kernels.I, kernels.P, kernels.P, kernels.P])
     err = fn(form, tab.data_ptr(), c, u, idx.data_ptr(), n, iters, acc.data_ptr(),
              None if j_out is None else j_out.data_ptr(), kernels.stream_ptr(tab.device))
-    key = "rowsum_chain" if j_out is not None else "rowsum"
-    launches[key] += 1
-    first_launches[key] += not form
+    key = LAUNCH["rowsum_chain" if j_out is not None else "rowsum"]
+    trace.count(key)
+    if not form:
+        trace.count(key + ".first")
     kernels.check(err, "rt_table_rowsum")
 
 
 def table_rowsum(tab: torch.Tensor, idx: torch.Tensor, form: str = "sm") -> torch.Tensor:
     """K13 single: ``table_rowsum_plain`` of a [C, U] f32 table (records in
     columns).  CUDA tensors launch ``rt_table_rowsum`` in ``form`` (``"sm"`` or
-    ``"first"``), counted in ``launches["rowsum"]``."""
+    ``"first"``), counted under ``LAUNCH["rowsum"]``."""
     _check("table_rowsum", tab, idx, 1)
     code = _form("table_rowsum", form, K13_FORMS)
     if tab.device.type == "cpu":
@@ -287,8 +292,8 @@ def table_rowsum(tab: torch.Tensor, idx: torch.Tensor, form: str = "sm") -> torc
 def table_rowsum_chain(tab: torch.Tensor, idx0: torch.Tensor, iters: int,
                        form: str = "sm") -> tuple:
     """K13 chained: (acc, j) of ``table_rowsum_chain_plain``.  CUDA tensors
-    launch ``rt_table_rowsum`` in ``form`` (as ``table_rowsum``), counted in
-    ``launches["rowsum_chain"]``."""
+    launch ``rt_table_rowsum`` in ``form`` (as ``table_rowsum``), counted under
+    ``LAUNCH["rowsum_chain"]``."""
     _check("table_rowsum_chain", tab, idx0, 1)
     iters = _iters("table_rowsum_chain", iters, tab.shape[1])
     code = _form("table_rowsum_chain", form, K13_FORMS)

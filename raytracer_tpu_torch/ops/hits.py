@@ -10,9 +10,10 @@ rays, the vertices and the instance transforms.
 
 ``mesh_hits`` runs ``mesh_hits_plain`` (torch, differentiated by autograd) for
 CPU tensors.  For CUDA tensors it goes through ``MeshHits``, whose forward
-launches ``rt_hits_fwd`` (``csrc/hits.cu``, counted in ``launches``) and whose
-backward launches ``rt_hits_bwd`` (counted in ``bwd_launches``): the chain
-rule by hand, recomputing each lane's forward from the saved inputs.
+launches ``rt_hits_fwd`` (``csrc/hits.cu``, counted in
+``trace.counters["launch.k7"]``) and whose backward launches ``rt_hits_bwd``
+(counted in ``"launch.k7.bwd"``): the chain rule by hand, recomputing each
+lane's forward from the saved inputs.
 """
 
 from __future__ import annotations
@@ -23,11 +24,8 @@ import torch
 
 from .. import kernels
 from ..core import vecmath as vm
+from ..utils import trace
 from .intersect import Hits, Rays, _nonzero
-
-# rt_hits_fwd and rt_hits_bwd launches (reset and read by chip_smoke.py)
-launches = 0
-bwd_launches = 0
 
 # the triangle tables a lane reads, in csrc/hits.cu's order; the first nine
 # take gradients
@@ -194,9 +192,9 @@ def _ptrs(tensors):
 
 def hits_forward(tri, inst, steps, rays: Rays, geom, material, inv, world, prior: Hits,
                  object_space: bool) -> Hits:
-    """K7 forward, one ``rt_hits_fwd`` launch (counted in ``launches``): the merged
-    record of ``mesh_hits_plain``.  ``geom`` holds the nine ``GEOMETRY`` tables."""
-    global launches
+    """K7 forward, one ``rt_hits_fwd`` launch (counted in ``"launch.k7"``): the
+    merged record of ``mesh_hits_plain``.  ``geom`` holds the nine ``GEOMETRY``
+    tables."""
     n = _check("rt_hits_fwd", tri, inst, rays, geom, material, inv, world, prior)
     if steps.shape != (n,) or steps.dtype != torch.int32 or prior.hit.dtype != torch.bool:
         raise TypeError("rt_hits_fwd: steps int32 [N] and a bool hit field expected")
@@ -207,14 +205,14 @@ def hits_forward(tri, inst, steps, rays: Rays, geom, material, inv, world, prior
     arr = _ptrs([tri, inst, steps, *rays, *geom, material, inv, world, *prior, *out])
     fn = kernels.entry("hits", "rt_hits_fwd", [kernels.P, kernels.I, kernels.I, kernels.P])
     err = fn(ctypes.addressof(arr), n, int(object_space), kernels.stream_ptr(tri.device))
-    launches += 1
+    trace.count("launch.k7")
     kernels.check(err, "rt_hits_fwd")
     return out
 
 
 def hits_backward(tri, inst, rays: Rays, geom, material, inv, world, cots,
                   object_space: bool, need_rays, need_prior, need_geom, need_inst):
-    """K7 backward, one ``rt_hits_bwd`` launch (counted in ``bwd_launches``).
+    """K7 backward, one ``rt_hits_bwd`` launch (counted in ``"launch.k7.bwd"``).
 
     ``cots``: the cotangents of the record's ``FLOAT_FIELDS``.  Returns (6 ray
     gradients, 13 prior-record gradients (``FLOAT_FIELDS``), 9 triangle-table
@@ -224,7 +222,6 @@ def hits_backward(tri, inst, rays: Rays, geom, material, inv, world, cots,
     atomics and the instances' summed in float64 (per block, then across
     blocks); each is rounded to float32 once, so the order of the sums, which
     changes from run to run, moves no result by more than that rounding."""
-    global bwd_launches
     n = _check("rt_hits_bwd", tri, inst, rays, geom, material, inv, world, cots)
     kernels.require_contiguous("rt_hits_bwd", *cots)
     dev = tri.device
@@ -250,7 +247,7 @@ def hits_backward(tri, inst, rays: Rays, geom, material, inv, world, cots,
                            [kernels.P, kernels.I, kernels.I, kernels.I, kernels.P])
         err = fn(ctypes.addressof(arr), n, inv.shape[0], int(object_space),
                  kernels.stream_ptr(dev))
-        bwd_launches += 1
+        trace.count("launch.k7.bwd")
         kernels.check(err, "rt_hits_bwd")
     g_geom = [None if g is None else g.to(torch.float32) for g in geom_sum]
     g_inst = [None if inst_sum is None or not k
@@ -310,8 +307,8 @@ class MeshHits(torch.autograd.Function):
 def mesh_hits(scene, rays: Rays, res, hits: Hits, object_space_diffs: bool = False) -> Hits:
     """K7, differentiable.  CPU tensors take ``mesh_hits_plain`` (differentiated by
     autograd); CUDA tensors go through ``MeshHits``, whose forward launches
-    ``rt_hits_fwd`` (counted in ``launches``) and whose backward launches
-    ``rt_hits_bwd`` (counted in ``bwd_launches``)."""
+    ``rt_hits_fwd`` (counted in ``trace.counters["launch.k7"]``) and whose
+    backward launches ``rt_hits_bwd`` (counted in ``"launch.k7.bwd"``)."""
     if rays.origin.device.type == "cpu":
         return mesh_hits_plain(scene, rays, res, hits, object_space_diffs)
     return Hits(*MeshHits.apply(

@@ -18,6 +18,7 @@ import torch
 from .. import kernels
 from ..config import RAY_EPSILON
 from ..core import vecmath as vm
+from ..utils import trace
 
 
 class Rays(NamedTuple):
@@ -124,10 +125,6 @@ def _select(mask, new: Hits, old: Hits) -> Hits:
 # ``pln_*`` fields.  Winner ids: -1 none, 0..S-1 sphere, S..S+P-1 plane.
 # ---------------------------------------------------------------------------
 
-# rt_prim_closest and rt_prim_any launches (reset and read by chip_smoke.py)
-closest_launches = 0
-any_launches = 0
-
 # spheres + planes the kernels stage in shared memory (4 floats each, 48 KB)
 MAX_PRIMITIVES = 3072
 
@@ -224,8 +221,7 @@ def _check_prims(what, prims, *rays):
 def pick_closest(prims, o, d):
     """K9 closest hit: (winner [N] int32, t [N] f32).  CPU tensors take
     ``pick_closest_plain``; CUDA tensors launch ``rt_prim_closest`` (counted
-    in ``closest_launches``)."""
-    global closest_launches
+    in ``trace.counters["launch.k9.closest"]``)."""
     if o.device.type == "cpu":
         return pick_closest_plain(prims, o, d)
     n = o.shape[0]
@@ -242,7 +238,7 @@ def pick_closest(prims, o, d):
              prims.pln_normal.data_ptr(), prims.pln_distance.data_ptr(), p,
              o.data_ptr(), d.data_ptr(), n, winner.data_ptr(), t.data_ptr(),
              kernels.stream_ptr(o.device))
-    closest_launches += 1
+    trace.count("launch.k9.closest")
     kernels.check(err, "rt_prim_closest")
     return winner, t
 
@@ -250,8 +246,7 @@ def pick_closest(prims, o, d):
 def pick_any(prims, o, d, max_distance, active):
     """K9 any hit: [N] bool, active lanes blocked by a sphere or plane.  CPU
     tensors take ``pick_any_plain``; CUDA tensors launch ``rt_prim_any``
-    (counted in ``any_launches``)."""
-    global any_launches
+    (counted in ``trace.counters["launch.k9.any"]``)."""
     if o.device.type == "cpu":
         return pick_any_plain(prims, o, d, max_distance, active)
     n = o.shape[0]
@@ -268,7 +263,7 @@ def pick_any(prims, o, d, max_distance, active):
              prims.pln_normal.data_ptr(), prims.pln_distance.data_ptr(), p,
              o.data_ptr(), d.data_ptr(), max_distance.data_ptr(), active.data_ptr(), n,
              blocked.data_ptr(), kernels.stream_ptr(o.device))
-    any_launches += 1
+    trace.count("launch.k9.any")
     kernels.check(err, "rt_prim_any")
     return blocked
 

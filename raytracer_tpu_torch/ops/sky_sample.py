@@ -18,10 +18,7 @@ import torch
 
 from .. import kernels
 from ..core import vecmath as vm
-
-# rt_sky_sample and rt_sky_sample_bwd launches (reset and read by chip_smoke.py)
-launches = 0
-bwd_launches = 0
+from ..utils import trace
 
 
 def probe_size(sky_data: torch.Tensor) -> int:
@@ -63,8 +60,8 @@ def _check(sky_data: torch.Tensor, direction: torch.Tensor) -> None:
 
 def sample_forward(sky_data: torch.Tensor, direction: torch.Tensor, want_index: bool):
     """One ``rt_sky_sample`` launch: ([N,3] radiance, [N] int32 texel index or None).
-    The index is written only when ``want_index`` (a gradient is needed)."""
-    global launches
+    The index is written only when ``want_index`` (a gradient is needed); counted
+    in ``trace.counters["launch.k5"]``."""
     _check(sky_data, direction)
     size = probe_size(sky_data)
     n = direction.shape[0]
@@ -77,7 +74,7 @@ def sample_forward(sky_data: torch.Tensor, direction: torch.Tensor, want_index: 
     fn = kernels.entry("sky", "rt_sky_sample", [P, I, P, I, P, P, P])
     err = fn(direction.data_ptr(), n, sky_data.data_ptr(), size, out.data_ptr(),
              None if index is None else index.data_ptr(), kernels.stream_ptr(direction.device))
-    launches += 1
+    trace.count("launch.k5")
     kernels.check(err, "rt_sky_sample")
     return out, index
 
@@ -93,9 +90,8 @@ def sample_backward_plain(index: torch.Tensor, cot: torch.Tensor, rows: int) -> 
 def sample_backward(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.Tensor:
     """K5 backward: the [rows,3] gradient of sky_data, cot / pi scattered to
     ``index``.  CPU tensors take ``sample_backward_plain``; CUDA tensors launch
-    ``rt_sky_sample_bwd`` once (counted in ``bwd_launches``), which sums into
-    float64 rows, rounded to float32 once."""
-    global bwd_launches
+    ``rt_sky_sample_bwd`` once (counted in ``trace.counters["launch.k5.bwd"]``),
+    which sums into float64 rows, rounded to float32 once."""
     n = index.shape[0]
     if (cot.shape != (n, 3) or cot.dtype != torch.float32 or index.dtype != torch.int32
             or index.device != cot.device):
@@ -111,7 +107,7 @@ def sample_backward(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.
     fn = kernels.entry("sky", "rt_sky_sample_bwd", [P, P, I, P, P])
     err = fn(index.data_ptr(), cot.data_ptr(), n, grad.data_ptr(),
              kernels.stream_ptr(cot.device))
-    bwd_launches += 1
+    trace.count("launch.k5.bwd")
     kernels.check(err, "rt_sky_sample_bwd")
     return grad.float()
 
@@ -141,8 +137,8 @@ class SkySample(torch.autograd.Function):
 def sample_sky(sky_data: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
     """K5.  CPU tensors take ``sample_sky_plain`` (differentiated by autograd);
     CUDA tensors go through ``SkySample``, whose forward launches
-    ``rt_sky_sample`` (counted in ``launches``) and whose backward launches
-    ``rt_sky_sample_bwd`` (counted in ``bwd_launches``)."""
+    ``rt_sky_sample`` (counted in ``trace.counters["launch.k5"]``) and whose
+    backward launches ``rt_sky_sample_bwd`` (counted in ``"launch.k5.bwd"``)."""
     if direction.device.type == "cpu":
         return sample_sky_plain(sky_data, direction)
     want_index = torch.is_grad_enabled() and sky_data.requires_grad

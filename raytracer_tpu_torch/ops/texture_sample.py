@@ -27,6 +27,7 @@ import torch
 from .. import kernels
 from ..config import MipmapFilter, RenderConfig, TextureSampleMode
 from ..core.vecmath import safe_sqrt
+from ..utils import trace
 
 _EWA_ALPHA = 2.0
 _EWA_TABLE_SIZE = 128  # Texture.h:52-62
@@ -39,11 +40,6 @@ MODES = ("nearest", "bilinear", "trilinear", "aniso", "ewa")
 # kept as the yardstick of chip_smoke.py's K3 rows and never picked by a render
 # or training path; both give the same bits
 FWD_FORMS = ("vector", "first")
-# K3 (rt_texture) and K4 (rt_texture_bwd) launches per mode (reset and read by
-# chip_smoke.py); K3's first form counts apart, in first_launches
-launches = dict.fromkeys(MODES, 0)
-first_launches = dict.fromkeys(MODES, 0)
-bwd_launches = dict.fromkeys(MODES, 0)
 # K4's ways of adding into the atlas gradients, in the order of texture_bwd.cu's
 # ``enum Form``: "lane" is the earlier design (one-float atomics from every lane, zero
 # cotangents too; kept as the yardstick of chip_smoke.py's K4 rows), "scan"
@@ -630,8 +626,8 @@ def _atlas_ptrs(tex, data4) -> list:
 
 def sample_forward(tex, lanes, filt: Filter, data4, form: str = "vector") -> torch.Tensor:
     """K3, one ``rt_texture`` launch in ``filt.mode`` and ``form`` (one of
-    ``FWD_FORMS``; counted in ``launches``, the first form in
-    ``first_launches``).  lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy),
+    ``FWD_FORMS``; counted in ``trace.counters["launch.k3.<mode>"]``, the first
+    form apart in ``"launch.k3.<mode>.first"``).  lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy),
     each [N]; data4 may be None under NEAREST."""
     _check_inputs(tex, lanes, data4, filt)
     if form not in FWD_FORMS:
@@ -649,7 +645,7 @@ def sample_forward(tex, lanes, filt: Filter, data4, form: str = "vector") -> tor
     err = fn(MODES.index(filt.mode), FWD_FORMS.index(form), *_atlas_ptrs(tex, data4),
              *(x.data_ptr() for x in lanes), n, filt.max_anisotropy, filt.ewa_span,
              out.data_ptr(), kernels.stream_ptr(dev))
-    (launches if form == "vector" else first_launches)[filt.mode] += 1
+    trace.count(f"launch.k3.{filt.mode}" + ("" if form == "vector" else ".first"))
     kernels.check(err, f"rt_texture ({filt.mode}, {form})")
     return out
 
@@ -657,7 +653,7 @@ def sample_forward(tex, lanes, filt: Filter, data4, form: str = "vector") -> tor
 def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
                     need_data4: bool, need_lanes: bool, form: str = "scan"):
     """K4, one ``rt_texture_bwd`` launch in ``filt.mode`` (counted in
-    ``bwd_launches``), adding into the atlas gradients in ``form`` (one of
+    ``trace.counters["launch.k4.<mode>"]``), adding into the atlas gradients in ``form`` (one of
     ``BWD_FORMS``).
 
     Returns (grad data [X,3] or None, grad data4 [X,12] or None, lane gradients
@@ -695,7 +691,7 @@ def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
              *(x.data_ptr() for x in lanes), cot.data_ptr(), n, filt.max_anisotropy,
              filt.ewa_span, _ptr(grad_data), _ptr(grad_data4), _ptr(grad_lanes),
              kernels.stream_ptr(dev))
-    bwd_launches[filt.mode] += 1
+    trace.count(f"launch.k4.{filt.mode}")
     kernels.check(err, f"rt_texture_bwd ({filt.mode})")
     return grad_data, grad_data4, grad_lanes
 
@@ -734,8 +730,8 @@ def sample(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg: RenderConfig,
            data4=None) -> torch.Tensor:
     """K3, differentiable.  CPU tensors take ``sample_plain`` (differentiated by
     autograd); CUDA tensors go through ``TextureSample``, whose forward launches
-    ``rt_texture`` (counted in ``launches[mode]``) and whose backward launches
-    ``rt_texture_bwd`` (counted in ``bwd_launches[mode]``).  ``data4`` is built
+    ``rt_texture`` (counted in ``trace.counters["launch.k3.<mode>"]``) and whose
+    backward launches ``rt_texture_bwd`` (``"launch.k4.<mode>"``).  ``data4`` is built
     here when not given, except under NEAREST, which does not read it."""
     if s.device.type == "cpu":
         return sample_plain(tex, tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy, cfg, data4)

@@ -35,19 +35,14 @@ import torch
 from .. import kernels
 from ..accel.links import BLAS_EXIT
 from ..config import RAY_EPSILON, RenderConfig, TraversalStrategy
+from ..utils import trace
 from . import compaction
 from .traversal_wide import TraceResult
-
-# rt_trace_threaded launches, closest and any hit (reset and read by chip_smoke.py)
-closest_launches = 0
-any_launches = 0
 
 # rt_trace_threaded's form argument: "octant" (the renderer's) reads one 32-byte
 # record a node visit and 80-byte pair rows with 16-byte loads, "split" the
 # first version's tables (box, node, links, tri) with 32-bit loads
 FORMS = {"split": 0, "octant": 1}
-# the split form's launches by trace_form (reset and read by chip_smoke.py)
-split_launches = {"closest": 0, "any": 0}
 REC_WORDS = 8  # a node record: 32 bytes
 PAIR_FLOATS = 20  # a pair row: its two triangles' 18 floats and 2 of padding, 80 bytes
 # the octant layout's leaf payload in the near word (csrc/traverse_threaded.cu):
@@ -143,7 +138,9 @@ def octant_records(box: torch.Tensor, node: torch.Tensor, links: torch.Tensor) -
                  | (count >> 1 >= 1 << BLAS_COUNT_BITS))).any(),
         (tlas & ((left < 0) | (left >= 1 << TLAS_INST_BITS) | (count < 0)
                  | (count >= 1 << TLAS_COUNT_BITS))).any(),
-        (internal[None] & (near < 0)).any()]).tolist()
+        (internal[None] & (near < 0)).any()])
+    with trace.span("rt.host_read"):
+        faults = faults.tolist()
     for fault, msg in zip(faults, (
             "node kinds are 0, 1 and 2",
             f"a BLAS leaf's left / 2 must lie in [0, 2^{BLAS_PAIR_BITS}) and its count / 2 "
@@ -326,7 +323,9 @@ def trace_plain(bvh: SceneBVH, o, d, t_max, active, ordered: bool, any_hit: bool
         alive = (cur >= 0) | (cur == BLAS_EXIT) | (rem > 0)
         if any_hit:
             alive = alive & ~found
-        if bool(alive.all()):
+        with trace.span("rt.host_read"):
+            all_alive = bool(alive.all())
+        if all_alive:
             continue
         dead = ~alive
         done = lane[dead]
@@ -380,7 +379,6 @@ def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig
     """One rt_trace_threaded launch of ``form``; the octant form's any hit over
     the active lanes listed by K6 (``compact_launch``, nothing read back).
     Returns (t, best, steps, found, incomplete)."""
-    global closest_launches, any_launches
     what = "threaded trace_any" if any_hit else "threaded trace_closest"
     _check_rays(what, bvh, o, d, t_max, active)
     if form == "octant":
@@ -416,12 +414,8 @@ def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig
              int(_ordered(cfg)), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
              active.data_ptr(), n, ptr(lane_list), ptr(lane_count), ptr(t), ptr(best),
              ptr(steps), ptr(found), incomplete.data_ptr(), kernels.stream_ptr(dev))
-    if form == "split":
-        split_launches["any" if any_hit else "closest"] += 1
-    elif any_hit:
-        any_launches += 1
-    else:
-        closest_launches += 1
+    trace.count("launch.k10." + ("split." if form == "split" else "")
+                + ("any" if any_hit else "closest"))
     kernels.check(err, what)
     return t, best, steps, found, incomplete[0]
 
@@ -432,7 +426,8 @@ def trace_form(form: str, any_hit: bool, bvh: SceneBVH, o, d, t_max, active,
     ``"split"`` the first version, the yardstick); returns (t, best, steps,
     found, incomplete) as the kernel writes them (t, best and steps None for
     any hit, found None for closest).  CUDA tensors only; the split form's
-    launches count in ``split_launches``."""
+    launches count in ``trace.counters["launch.k10.split.closest"]`` and
+    ``"launch.k10.split.any"``."""
     if form not in FORMS:
         raise ValueError(f"trace_form: form must be one of {tuple(FORMS)}")
     if o.device.type != "cuda":
@@ -447,7 +442,7 @@ def _ordered(cfg: RenderConfig) -> bool:
 def trace_closest(bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig) -> TraceResult:
     """K10: closest hit for a wavefront of world-space rays.  CPU tensors take
     ``trace_plain``; CUDA tensors launch ``rt_trace_threaded`` (counted in
-    ``closest_launches``)."""
+    ``trace.counters["launch.k10.closest"]``)."""
     if o.device.type == "cpu":
         w = trace_plain(bvh, o, d, t_max, active, _ordered(cfg), any_hit=False)
         t, best, steps, incomplete = w.t, w.best, w.steps, w.incomplete
@@ -462,8 +457,8 @@ def trace_any(bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig):
     """K10: any-hit (shadow) traversal; a ray retires at its first hit against
     ``t_max``.  Returns (found [N] bool, incomplete [] i32).  CPU tensors take
     ``trace_plain``; CUDA tensors launch ``rt_trace_threaded`` (counted in
-    ``any_launches``) over the active lanes, listed on the device by K6
-    (``compaction.compact_launch``, counted in its ``launches``)."""
+    ``trace.counters["launch.k10.any"]``) over the active lanes, listed on the
+    device by K6 (``compaction.compact_launch``, counted in ``"launch.k6"``)."""
     if o.device.type == "cpu":
         w = trace_plain(bvh, o, d, t_max, active, _ordered(cfg), any_hit=True)
         return w.found, w.incomplete

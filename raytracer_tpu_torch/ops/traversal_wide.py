@@ -31,18 +31,13 @@ from ..accel.wide import (
     KIND_EMPTY, KIND_INTERNAL, KIND_LEAF, PAYLOAD_BITS, Q_INWARD, Q_PLANES, QREC_WORDS,
 )
 from ..config import RAY_EPSILON, RenderConfig, TraversalStrategy
+from ..utils import trace
 
 POP = -1  # take the next deferred entry off the stack
 EXIT = -2  # traversal finished
 
 _PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
 _MAX_STACK = 64  # csrc/traverse.cu kMaxStack
-
-# rt_trace launches of the quantised form, closest and any hit (reset and read
-# by chip_smoke.py); of the exact-record form (trace_form), by kind
-closest_launches = 0
-any_launches = 0
-exact_launches = {"closest": 0, "any": 0}
 
 FORMS = {"exact": 0, "quantised": 1}  # rt_trace's form argument
 _COUNTING = 2  # rt_trace's form: quantised, adding its counters (walk_stats)
@@ -234,7 +229,9 @@ def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int,
         live = cur >= 0
         if any_hit:
             live = live & ~found
-        if not bool(live.any()):
+        with trace.span("rt.host_read"):
+            any_live = bool(live.any())
+        if not any_live:
             break
 
         # ---- decode + ray into current instance space ----
@@ -392,7 +389,6 @@ def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderCo
             form: int = FORMS["quantised"], stats=None):
     """One rt_trace launch of ``form`` (``FORMS``, or ``_COUNTING``, which adds
     the counters to ``stats``); returns (t, best, steps, found, incomplete)."""
-    global closest_launches, any_launches
     what = "trace_any" if any_hit else "trace_closest"
     _check_rays(what, bvh, o, d, t_max, active, cfg.wide_stack_size)
     if form != FORMS["exact"]:
@@ -427,12 +423,8 @@ def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderCo
              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
              ptr(t), ptr(best), ptr(steps), ptr(found), incomplete.data_ptr(), ptr(stats),
              kernels.stream_ptr(dev))
-    if form == FORMS["exact"]:
-        exact_launches["any" if any_hit else "closest"] += 1
-    elif any_hit:
-        any_launches += 1
-    else:
-        closest_launches += 1
+    trace.count(("launch.k2" if any_hit else "launch.k1")
+                + (".exact" if form == FORMS["exact"] else ""))
     kernels.check(err, what)
     return t, best, steps, found, incomplete[0]
 
@@ -444,7 +436,7 @@ def trace_form(form: str, any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
     exact records, kept to time and hold the quantised one against; t, best
     and steps are None for any hit, found for closest).  CPU tensors take
     ``trace_plain``; CUDA tensors launch ``rt_trace`` (the exact form counted in
-    ``exact_launches``)."""
+    ``trace.counters["launch.k1.exact"]`` and ``"launch.k2.exact"``)."""
     if form not in FORMS:
         raise ValueError(f"trace_form: form must be one of {tuple(FORMS)}")
     if o.device.type != "cpu":
@@ -473,7 +465,8 @@ def walk_stats(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
 
 def trace_closest(bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig) -> TraceResult:
     """K1: closest hit for a wavefront of world-space rays.  CPU tensors take
-    ``trace_plain``; CUDA tensors launch ``rt_trace`` (counted in ``closest_launches``)."""
+    ``trace_plain``; CUDA tensors launch ``rt_trace`` (counted in
+    ``trace.counters["launch.k1"]``)."""
     if o.device.type == "cpu":
         w = trace_plain(bvh, o, d, t_max, active, cfg.wide_stack_size,
                         cfg.traversal_strategy == TraversalStrategy.ORDERED, any_hit=False)
@@ -489,7 +482,7 @@ def trace_any(bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig):
     """K2: any-hit (shadow) traversal; a ray retires at its first hit
     (BottomLevelBVH.cpp:398-437).  Returns (found [N] bool, incomplete [] i32).
     CPU tensors take ``trace_plain``; CUDA tensors launch ``rt_trace``
-    (counted in ``any_launches``)."""
+    (counted in ``trace.counters["launch.k2"]``)."""
     if o.device.type == "cpu":
         w = trace_plain(bvh, o, d, t_max, active, cfg.wide_stack_size,
                         cfg.traversal_strategy == TraversalStrategy.ORDERED, any_hit=True)

@@ -14,6 +14,7 @@ import numpy as np
 from ..core import aabb as aabb_np
 from ..core import matrix as mat4
 from ..core import quaternion as quat
+from ..utils import trace
 from .camera import Camera
 
 
@@ -216,7 +217,10 @@ class SceneDescription:
     # -- per-frame animation hook (overridden by concrete scenes) ------------
 
     def update(self, delta: float) -> None:
-        self.time += delta
+        """Advance the scene by ``delta`` seconds; every override runs in the
+        span ``rt.app.update``."""
+        with trace.span("rt.app.update"):
+            self.time += delta
 
     @property
     def triangle_count(self) -> int:

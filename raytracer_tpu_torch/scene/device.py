@@ -16,6 +16,7 @@ import numpy as np
 
 from ..accel.bvh import build_bvh
 from ..core import matrix as mat4
+from ..utils import trace
 from . import textures as tex_mod
 from .description import SceneDescription
 
@@ -272,12 +273,17 @@ class ScenePacker:
     # -- per-frame dynamic state --------------------------------------------
 
     def frame(self) -> DeviceScene:
-        """Build the DeviceScene for the current host scene state.
+        """Build the DeviceScene for the current host scene state (span
+        ``rt.app.pack``).
 
         Re-derives world matrices, rebuilds the TLAS (TopLevelBVH::build_bvh every
         frame, Scene.cpp:170), and refreshes camera/lights — all host-side numpy,
         then flat numpy arrays.
         """
+        with trace.span("rt.app.pack"):
+            return self._frame()
+
+    def _frame(self) -> DeviceScene:
         desc = self.desc
         keys_order = sorted(desc.blas_registry.keys())  # noqa: F841
 

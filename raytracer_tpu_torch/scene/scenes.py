@@ -17,6 +17,7 @@ import numpy as np
 from ..accel.blas import build_blas
 from ..config import MeshAccelerator, RenderConfig
 from ..core import quaternion as quat
+from ..utils import trace
 from . import meshgen, objloader, sky
 from .description import (
     DirectionalLight,
@@ -180,19 +181,20 @@ class SponzaScene(SceneDescription):
         self._spline = None
 
     def update(self, delta: float) -> None:
-        self.time += delta
-        if self.spline_playback:
-            from ..core.spline import CatmullRomSpline
+        with trace.span("rt.app.update"):
+            self.time += delta
+            if self.spline_playback:
+                from ..core.spline import CatmullRomSpline
 
-            if self._spline is None:
-                self._spline = CatmullRomSpline(
-                    SPONZA_SPLINE_TIMES, np.array(SPONZA_SPLINE_POINTS)
-                )
-            prev = self.camera.position.copy()
-            self.camera.position = self._spline.get_point(delta)
-            forward = self.camera.position - prev
-            if np.linalg.norm(forward) > 1e-9:
-                self.camera.rotation = quat.look_rotation(forward, [0.0, 1.0, 0.0])
+                if self._spline is None:
+                    self._spline = CatmullRomSpline(
+                        SPONZA_SPLINE_TIMES, np.array(SPONZA_SPLINE_POINTS)
+                    )
+                prev = self.camera.position.copy()
+                self.camera.position = self._spline.get_point(delta)
+                forward = self.camera.position - prev
+                if np.linalg.norm(forward) > 1e-9:
+                    self.camera.rotation = quat.look_rotation(forward, [0.0, 1.0, 0.0])
 
 
 def sponza_spline_poses(n: int = 8, fit_standin: bool | None = None):
@@ -357,33 +359,34 @@ class DynamicScene(SceneDescription):
     instances (2 tori share one BLAS), point+spot+directional lights."""
 
     def update(self, delta: float) -> None:
-        self.time += delta
-        inst = self.instances
-        # diamond spins around Y
-        inst[0].transform.rotation = quat.multiply(
-            quat.axis_angle([0.0, 1.0, 0.0], delta), inst[0].transform.rotation
-        )
-        # monkey bobs
-        inst[1].transform.position[1] = 1.0 + 2.0 * np.sin(self.time)
-        # icosphere drifts in -x
-        inst[2].transform.position[0] -= delta * 0.5
-        # rock orbits
-        inst[3].transform.position = np.array(
-            [6.0, 4.0 + 2.0 * np.sin(self.time * 0.5), 4.0 + 2.0 * np.cos(self.time * 0.5)]
-        )
-        inst[3].transform.rotation = quat.multiply(
-            quat.axis_angle([0.0, 1.0, 0.0], delta * 0.5), inst[3].transform.rotation
-        )
-        # torus 1 rolls around X
-        inst[4].transform.rotation = quat.multiply(
-            quat.axis_angle([1.0, 0.0, 0.0], delta), inst[4].transform.rotation
-        )
-        # torus 2 nlerps
-        inst[5].transform.rotation = quat.nlerp(
-            quat.IDENTITY,
-            quat.axis_angle([1.0, 0.0, 0.0], np.deg2rad(-90.0)),
-            0.5 + 0.5 * np.sin(self.time),
-        )
+        with trace.span("rt.app.update"):
+            self.time += delta
+            inst = self.instances
+            # diamond spins around Y
+            inst[0].transform.rotation = quat.multiply(
+                quat.axis_angle([0.0, 1.0, 0.0], delta), inst[0].transform.rotation
+            )
+            # monkey bobs
+            inst[1].transform.position[1] = 1.0 + 2.0 * np.sin(self.time)
+            # icosphere drifts in -x
+            inst[2].transform.position[0] -= delta * 0.5
+            # rock orbits
+            inst[3].transform.position = np.array(
+                [6.0, 4.0 + 2.0 * np.sin(self.time * 0.5), 4.0 + 2.0 * np.cos(self.time * 0.5)]
+            )
+            inst[3].transform.rotation = quat.multiply(
+                quat.axis_angle([0.0, 1.0, 0.0], delta * 0.5), inst[3].transform.rotation
+            )
+            # torus 1 rolls around X
+            inst[4].transform.rotation = quat.multiply(
+                quat.axis_angle([1.0, 0.0, 0.0], delta), inst[4].transform.rotation
+            )
+            # torus 2 nlerps
+            inst[5].transform.rotation = quat.nlerp(
+                quat.IDENTITY,
+                quat.axis_angle([1.0, 0.0, 0.0], np.deg2rad(-90.0)),
+                0.5 + 0.5 * np.sin(self.time),
+            )
 
 
 def config4_dynamic(width: int = 900, height: int = 600,

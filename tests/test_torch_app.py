@@ -1,9 +1,11 @@
 """The port's frame loop (``raytracer_tpu_torch.app``) on the CPU: config4 with
 FXAA writes the JAX app's files and per-frame JSON keys, its PNGs (written
 without PIL) decode to the same pixels as the JAX package's PIL-written PNGs of
-the same arrays; and the gradients of the image loss over config4-tiny's 17
-fields against the JAX package's."""
+the same arrays; ``--trace-frames`` writes the program's spans; and the
+gradients of the image loss over config4-tiny's 17 fields against the JAX
+package's."""
 
+import collections
 import json
 import os
 import sys
@@ -77,6 +79,24 @@ def test_app_config4_fxaa(tmp_path, monkeypatch, capsys, batch):
         assert ours.shape == (32, 48, 3)
         np.testing.assert_array_equal(ours, _pil_pixels(tmp_path / name))
         np.testing.assert_array_equal(image.load_png(str(out / name)), ours / np.float32(255))
+
+
+def test_app_trace_frames_writes_the_spans(tmp_path):
+    """``--trace-frames 1`` profiles the first frame alone and writes
+    ``<out>/trace.json`` in the Chrome trace format, holding the app layer's
+    spans and the frame's own."""
+    out = tmp_path / "out"
+    argv = ["--cpu", "--scene", "config4", "--frames", "2", "--width", "16", "--height", "12",
+            "--bounces", "1", "--fxaa", "--trace-frames", "1", "--out", str(out)]
+    with private_bvh_cache():
+        app.main(argv)
+    with open(out / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    spans = collections.Counter(e["name"] for e in events if e.get("name", "").startswith("rt."))
+    for name in ("rt.app.update", "rt.app.pack", "rt.app.upload", "rt.render", "rt.tables",
+                 "rt.primary", "rt.present"):
+        assert spans[name] == 1, (name, spans)
+    assert spans["rt.gen"] == 2 and spans["rt.trace"] == 2 and spans["rt.compact"] == 1
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (37, 53)])

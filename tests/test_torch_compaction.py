@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from raytracer_tpu.ops.compaction import compact_indices
-from raytracer_tpu_torch.ops import compaction, framebuffer, sky_sample, texture_sample
+from raytracer_tpu_torch.ops import compaction, framebuffer, sky_sample
+from raytracer_tpu_torch.utils import trace
 
 
 SIZES = [(1, 0.5), (1000, 0.3), (4096, 0.0), (4096, 1.0), (100_003, 0.05), (65_536, 0.6)]
@@ -30,9 +31,9 @@ def test_compact_launch_matches_jax(n, density):
     flags = np.random.default_rng(n).random(n) < density
     n_active = int(flags.sum())
     ref = np.asarray(compact_indices(jnp.asarray(flags), n))[:n_active]
-    before = compaction.launches
+    before = dict(trace.counters)
     out, count = compaction.compact_launch(torch.from_numpy(flags))
-    assert compaction.launches == before
+    assert trace.counters == before
     assert out.shape == (n,) and out.dtype == torch.int32
     assert count.shape == (1,) and count.dtype == torch.int32 and int(count) == n_active
     np.testing.assert_array_equal(out[:n_active].numpy(), ref)
@@ -42,8 +43,7 @@ def test_compact_launch_matches_jax(n, density):
 
 def test_cpu_tensors_take_the_plain_versions():
     """A wrapper given CPU tensors runs its plain version and launches nothing."""
-    before = (compaction.launches, sky_sample.launches, sky_sample.bwd_launches,
-              framebuffer.launches, dict(texture_sample.launches))
+    before = dict(trace.counters)
     flags = torch.tensor([True, False, True])
     assert compaction.compact(flags)[1] == compaction.compact_plain(flags)[1]
     sky = torch.rand(16, 3)
@@ -56,8 +56,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert framebuffer.accumulate(fb, torch.tensor([1, 1], dtype=torch.int32),
                                   torch.ones(2, 3)) is fb
     assert fb[1].tolist() == [2.0, 2.0, 2.0] and not fb[[0, 2, 3]].any()
-    assert (compaction.launches, sky_sample.launches, sky_sample.bwd_launches,
-            framebuffer.launches, texture_sample.launches) == before
+    assert trace.counters == before
 
 
 def test_scatter_microbench_runs_on_cpu():

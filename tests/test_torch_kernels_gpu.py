@@ -25,6 +25,7 @@ from raytracer_tpu_torch.ops.intersect import Hits, Rays
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import scenes, textures
 from raytracer_tpu_torch.scene.device import ScenePacker
+from raytracer_tpu_torch.utils import trace
 from torch_quant_rays import made_up_rays
 
 pytestmark = pytest.mark.gpu
@@ -68,10 +69,10 @@ def test_compact_kernel_matches_plain(cuda, n, density, view):
     base = torch.from_numpy(rng.random(n + 1) < density).to(cuda)
     flags = base[:n] if view == "aligned" else base[1:]
     assert flags.data_ptr() % 16 == (0 if view == "aligned" else 1)
-    before = compaction.launches
+    before = trace.counters["launch.k6"]
     k_idx, k_n = compaction.compact(flags)
     out, count = compaction.compact_launch(flags)
-    assert compaction.launches == before + 2
+    assert trace.counters["launch.k6"] == before + 2
     p_idx, p_n = compaction.compact_plain(flags)
     assert k_n == p_n == int(count.item())
     assert torch.equal(k_idx, p_idx)
@@ -101,15 +102,15 @@ def _random_texture_inputs(cuda, seed=1, n=50_000):
 def _forward(form, tex, lanes, cfg, data4):
     """K3 in ``form``: the renderer's form through ``sample``, the first through
     ``sample_forward``; each launches once, on its own count."""
-    counts = texture_sample.launches if form == "vector" else texture_sample.first_launches
     mode = texture_sample.filter_of(cfg).mode
-    before = counts[mode]
+    key = f"launch.k3.{mode}" + ("" if form == "vector" else ".first")
+    before = trace.counters[key]
     if form == "vector":
         k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
     else:
         k = texture_sample.sample_forward(tex, lanes, texture_sample.filter_of(cfg), data4,
                                           form)
-    assert counts[mode] == before + 1
+    assert trace.counters[key] == before + 1
     return k
 
 
@@ -150,7 +151,7 @@ def _check_texture_backward(tex, lanes, cot, cfg):
     within 1e-5 l2-relative, each lane gradient within 1e-5 of its max on >= 99.9%
     of lanes; a gradient the mode does not produce is 0 in both."""
     mode = texture_sample.filter_of(cfg).mode
-    before = texture_sample.bwd_launches[mode]
+    before = trace.counters[f"launch.k4.{mode}"]
     k_out, _ = _texture_grads(texture_sample.sample, tex, lanes, cot, cfg)
     p_out, _ = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
     same = (k_out - p_out).abs().amax(dim=1) <= 1e-5
@@ -158,7 +159,7 @@ def _check_texture_backward(tex, lanes, cot, cfg):
     cot = cot * same[:, None]
     _, kg = _texture_grads(texture_sample.sample, tex, lanes, cot, cfg)
     _, pg = _texture_grads(texture_sample.sample_plain, tex, lanes, cot, cfg)
-    assert texture_sample.bwd_launches[mode] == before + 2
+    assert trace.counters[f"launch.k4.{mode}"] == before + 2
     for name, a, b in zip(("data", "data4"), kg[:2], pg[:2]):
         nb = float(b.norm())
         assert float((a - b).norm()) <= 1e-5 * nb if nb else not a.any(), name
@@ -296,10 +297,10 @@ def test_texture_vector_form_refuses_a_misaligned_quad_atlas(cuda):
     off.copy_(data4)
     assert off.data_ptr() % 16 == 4
     filt = texture_sample.filter_of(RenderConfig())
-    before = dict(texture_sample.launches)
+    before = dict(trace.counters)
     with pytest.raises(ValueError, match="16-byte aligned"):
         texture_sample.sample_forward(tex, lanes, filt, off)
-    assert texture_sample.launches == before
+    assert trace.counters == before
     first = texture_sample.sample_forward(tex, lanes, filt, off, "first")
     assert torch.equal(_bits(first), _bits(texture_sample.sample_forward(tex, lanes, filt,
                                                                           data4)))
@@ -351,10 +352,10 @@ def test_texture_backward_kernel_patterns(cuda, mode, pattern, n):
             - texture_sample.sample_plain(tex, *lanes, cfg, data4)).abs().amax(dim=1) <= 1e-5
     assert float(same.float().mean()) >= 0.999 or n < 1000
     cot = torch.where(same[:, None] | cot.isnan(), cot, 0.0)
-    before = texture_sample.bwd_launches[mode]
+    before = trace.counters[f"launch.k4.{mode}"]
     kd, kd4, kl = texture_sample.sample_backward(tex, lanes, filt, data4, cot, True,
                                                  data4 is not None, True)
-    assert texture_sample.bwd_launches[mode] == before + 1
+    assert trace.counters[f"launch.k4.{mode}"] == before + 1
     wd, wd4 = texture_sample.scatter_sums_plain(
         texture_sample.tap_slots_plain(tex, lanes, cfg, cot), tex[0].shape[0])
     for name, k, w in (("data", kd, wd), ("data4", kd4, wd4)):
@@ -395,12 +396,12 @@ def test_sky_backward_kernel_matches_plain(cuda):
     cot = torch.from_numpy(rng.normal(size=(65536, 3)).astype(np.float32)).to(cuda)
     same = (sky_sample.sample_sky(sky, d) == sky_sample.sample_sky_plain(sky, d)).all(dim=1)
     cot = cot * same[:, None]
-    before = sky_sample.bwd_launches
+    before = trace.counters["launch.k5.bwd"]
     grads = []
     for fn in (sky_sample.sample_sky, sky_sample.sample_sky_plain):
         leaf = sky.clone().requires_grad_()
         grads.append(torch.autograd.grad(fn(leaf, d), [leaf], cot)[0])
-    assert sky_sample.bwd_launches == before + 1
+    assert trace.counters["launch.k5.bwd"] == before + 1
     k, p = grads
     assert float((k - p).norm() / p.norm()) <= 1e-5
 
@@ -459,10 +460,10 @@ def test_sky_backward_kernel_patterns(cuda, pattern, n):
     assert torch.equal(index.cpu(), torch.from_numpy(texels))
     same = (sky_sample.sample_sky(sky, d) == sky_sample.sample_sky_plain(sky, d)).all(dim=1)
     assert bool(same.all())
-    before = sky_sample.bwd_launches
+    before = trace.counters["launch.k5.bwd"]
     leaf = sky.clone().requires_grad_()
     (k,) = torch.autograd.grad(sky_sample.sample_sky(leaf, d), [leaf], cot)
-    assert sky_sample.bwd_launches == before + 1
+    assert trace.counters["launch.k5.bwd"] == before + 1
     leaf = sky.double().requires_grad_()
     (p,) = torch.autograd.grad(sky_sample.sample_sky_plain(leaf, d), [leaf], cot.double())
     k = k.double()
@@ -502,9 +503,9 @@ def test_framebuffer_scatter_kernel_matches_plain(cuda, pattern, n):
     pixel = torch.from_numpy(pixel.astype(np.int32)).to(cuda)
     c = torch.from_numpy(c).to(cuda)
     want = fb.double().index_add_(0, pixel, c.double())
-    before = framebuffer.launches
+    before = trace.counters["launch.fb_scatter"]
     got = framebuffer.accumulate(fb.clone(), pixel, c)
-    assert framebuffer.launches == before + 1
+    assert trace.counters["launch.fb_scatter"] == before + 1
     assert float((got.double() - want).norm() / want.norm()) <= 1e-5
     untouched = torch.ones(pixels, dtype=torch.bool, device=cuda)
     untouched[pixel[(c != 0).any(dim=1)]] = False
@@ -608,10 +609,10 @@ def test_render_grads_on_card_match_cpu(cuda):
 def _fxaa_form(form, img):
     """K8 in ``form``: the renderer's through ``fxaa``, the first through
     ``fxaa_form``; each launches once, on its own count."""
-    count = "launches" if form == "tile" else "first_launches"
-    before = getattr(fxaa, count)
+    key = "launch.k8" if form == "tile" else "launch.k8.first"
+    before = trace.counters[key]
     k = fxaa.fxaa(img) if form == "tile" else fxaa.fxaa_form(form, img)
-    assert getattr(fxaa, count) == before + 1
+    assert trace.counters[key] == before + 1
     return k
 
 
@@ -683,13 +684,13 @@ def test_primitive_kernels_match_plain(cuda):
     """K9 closest and any hit against their plain versions: identical winners, t
     and blocked flags on every lane."""
     prims, o, d, tmax, active = _primitive_inputs(cuda)
-    before = (intersect.closest_launches, intersect.any_launches)
+    keys = ("launch.k9.closest", "launch.k9.any")
+    before = [trace.counters[k] for k in keys]
     kw, kt = intersect.pick_closest(prims, o, d)
     pw, pt = intersect.pick_closest_plain(prims, o, d)
     kb = intersect.pick_any(prims, o, d, tmax, active)
     pb = intersect.pick_any_plain(prims, o, d, tmax, active)
-    assert (intersect.closest_launches, intersect.any_launches) == (before[0] + 1,
-                                                                    before[1] + 1)
+    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1]
     assert torch.equal(kw, pw) and torch.equal(kt, pt) and torch.equal(kb, pb)
     assert int((kw == 1).sum()) == 0 and int((kw == 0).sum()) > 0  # ties to sphere 0
     assert bool(kb.any()) and not bool(kb.all())
@@ -760,11 +761,11 @@ def test_hits_kernel_matches_plain(cuda, object_space):
     every lane (ids, material, steps, t and every float field), the prior kept
     where no triangle was hit, and the clamped lanes finite."""
     scene, rays, res, prior = _hit_inputs(cuda)
-    before = hits.launches
+    before = trace.counters["launch.k7"]
     with torch.no_grad():
         k = hits.mesh_hits(scene, rays, res, prior, object_space)
         p = hits.mesh_hits_plain(scene, rays, res, prior, object_space)
-    assert hits.launches == before + 1
+    assert trace.counters["launch.k7"] == before + 1
     for name, a, b in zip(Hits._fields, k, p):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert torch.equal(a, b), (name, float((a.float() - b.float()).abs().nan_to_num().max()))
@@ -862,17 +863,16 @@ def test_threaded_traversal_kernels_match_plain(cuda, name, strategy, form):
     w = _threaded_form_matches_plain(form, bvh, cfg, prim, any_hit=False)
     wa = _threaded_form_matches_plain(form, bvh, cfg, shadow, any_hit=True)
     assert int(wa.found.sum()) > 0 and int(w.steps.sum()) > 0
-    before = (traversal.closest_launches, traversal.any_launches,
-              dict(traversal.split_launches))
+    keys = ("launch.k10.closest", "launch.k10.any", "launch.k10.split.closest",
+            "launch.k10.split.any")
+    before = [trace.counters[k] for k in keys]
     k = traversal.trace_closest(bvh, *prim, cfg)
     found, inc = traversal.trace_any(bvh, *shadow, cfg)
     best = torch.where(k.tri >= 0, (k.tri << 8) | (k.inst + 1), -1)
     assert torch.equal(best, w.best) and torch.equal(k.steps, w.steps)
     assert torch.equal(k.t, w.t) and int(k.incomplete) == 0
     assert torch.equal(found, wa.found) and int(inc) == 0
-    assert (traversal.closest_launches, traversal.any_launches) == (before[0] + 1,
-                                                                    before[1] + 1)
-    assert traversal.split_launches == before[2]
+    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1, *before[2:]]
 
 
 def _box_rays(bvh, n, seed):
@@ -979,9 +979,9 @@ def test_row_gather_staged_ring(cuda, width, n):
     ragged last stage and fewer stages than blocks among them."""
     table = _gather_table(cuda, 70_000, width, 8, wild=True)
     idx = _gather_idx(cuda, 70_000, n, 9)
-    before = gather.launches["staged"]
+    before = trace.counters["launch.k11.staged"]
     got = gather.row_gather(table, idx, "staged")
-    assert gather.launches["staged"] == before + 1
+    assert trace.counters["launch.k11.staged"] == before + 1
     want = gather.row_gather_plain(table, idx)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -1003,9 +1003,9 @@ def test_row_gather_kernel_matches_plain(cuda, schedule, width, n):
     """K11 in both schedules against ``table[idx]``: the same bits (NaNs among them)."""
     table = _gather_table(cuda, 400_000, width, 1, wild=True)
     idx = _gather_idx(cuda, 400_000, n, 2)
-    before = gather.launches[schedule]
+    before = trace.counters[f"launch.k11.{schedule}"]
     got = gather.row_gather(table, idx, schedule)
-    assert gather.launches[schedule] == before + 1
+    assert trace.counters[f"launch.k11.{schedule}"] == before + 1
     want = gather.row_gather_plain(table, idx)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -1019,7 +1019,8 @@ def test_chained_gather_kernel_matches_plain(cuda, width, wild):
     table = _gather_table(cuda, 5000, width, 3, wild)
     idx = _gather_idx(cuda, 5000, 65536, 4)
     idx_all = _gather_idx(cuda, 5000, (8, 65536), 5)
-    before = (gather.launches["chained"], gather.launches["indep"])
+    keys = ("launch.k12.chained", "launch.k12.indep")
+    before = [trace.counters[k] for k in keys]
     acc, j = gather.chained_gather(table, idx, 32)
     pacc, pj = gather.chained_gather_plain(table, idx, 32)
     assert torch.equal(j, pj)
@@ -1028,8 +1029,7 @@ def test_chained_gather_kernel_matches_plain(cuda, width, wild):
     got = gather.indep_gather(table, idx_all)
     want = gather.indep_gather_plain(table, idx_all)
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
-    assert (gather.launches["chained"], gather.launches["indep"]) == (before[0] + 1,
-                                                                    before[1] + 1)
+    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1]
 
 
 @pytest.mark.parametrize("wild", [False, True])
@@ -1040,10 +1040,10 @@ def test_chained_gather_scalar_loads_match_plain(cuda, width, wild):
     and j equal on every lane; width 6 takes the unrolled row."""
     table = _gather_table(cuda, 5001, width, 8, wild)[1:]
     idx = _gather_idx(cuda, 5000, 65536, 9)
-    before = gather.launches["chained"]
+    before = trace.counters["launch.k12.chained"]
     acc, j = gather.chained_gather(table, idx, 54, loads="scalar")
     pacc, pj = gather.chained_gather_plain(table, idx, 54)
-    assert gather.launches["chained"] == before + 1
+    assert trace.counters["launch.k12.chained"] == before + 1
     assert torch.equal(j, pj)
     assert torch.equal(acc.nan_to_num(), pacc.nan_to_num())
     assert torch.equal(acc.isnan(), pacc.isnan())
@@ -1055,13 +1055,13 @@ def test_table_rowsum_kernel_matches_plain(cuda, c):
     (the chain's next index depends on the float sum)."""
     tab = _gather_table(cuda, c, 128, 6)
     idx = _gather_idx(cuda, 128, 131072, 7)
-    before = (gather.launches["rowsum"], gather.launches["rowsum_chain"])
+    keys = ("launch.k13.rowsum", "launch.k13.rowsum_chain")
+    before = [trace.counters[k] for k in keys]
     assert torch.equal(gather.table_rowsum(tab, idx), gather.table_rowsum_plain(tab, idx))
     acc, j = gather.table_rowsum_chain(tab, idx, 32)
     pacc, pj = gather.table_rowsum_chain_plain(tab, idx, 32)
     assert torch.equal(acc, pacc) and torch.equal(j, pj)
-    assert (gather.launches["rowsum"], gather.launches["rowsum_chain"]) == (before[0] + 1,
-                                                                            before[1] + 1)
+    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1]
 
 
 def _equal_nan(got, want) -> bool:
@@ -1089,15 +1089,15 @@ def test_chained_gather_warp_form_matches_plain_and_first(cuda, width, n, iters)
     table = _gather_table(cuda, 5000, width, 10, wild=True)
     idx = _gather_idx(cuda, 5000, n, 11)
     idx_all = _gather_idx(cuda, 5000, (iters, n), 12)
-    before = (gather.launches["chained"], gather.launches["indep"])
+    keys = ("launch.k12.chained", "launch.k12.indep")
+    before = [trace.counters[k] for k in keys]
     got = gather.chained_gather(table, idx, iters)
     assert _equal_nan(got, gather.chained_gather_plain(table, idx, iters))
     assert _same_bits(got, gather.chained_gather(table, idx, iters, form="first"))
     got = gather.indep_gather(table, idx_all)
     assert _equal_nan(got, gather.indep_gather_plain(table, idx_all))
     assert _same_bits(got, gather.indep_gather(table, idx_all, form="first"))
-    assert (gather.launches["chained"], gather.launches["indep"]) == (before[0] + 2,
-                                                                    before[1] + 2)
+    assert [trace.counters[k] for k in keys] == [before[0] + 2, before[1] + 2]
 
 
 def test_chained_gather_warp_form_on_the_harness_table(cuda):
@@ -1169,8 +1169,8 @@ def _launched(fn) -> list:
 
 def test_each_gather_form_launches_the_kernel_it_names(cuda):
     """Each form of K12 and K13 launches its own kernel (by name, in the
-    profiler's trace) and counts one launch under its mode's key, the first form
-    also in ``first_launches``."""
+    profiler's trace) and counts one launch under its kind's key, the first form
+    also under that key's ``.first``."""
     table, idx = _gather_table(cuda, 5000, 128, 18), _gather_idx(cuda, 5000, 4096, 19)
     idx_all = _gather_idx(cuda, 5000, (4, 4096), 20)
     tab, ridx = _gather_table(cuda, 72, 128, 21), _gather_idx(cuda, 128, 4096, 22)
@@ -1189,11 +1189,11 @@ def test_each_gather_form_launches_the_kernel_it_names(cuda):
     kernels = {"chain_warp_kernel", "chain_kernel", "rowsum_sm_kernel", "rowsum_kernel"}
     for key, kernel, fn in cases:
         fn()  # built and loaded outside the trace
-        before = (gather.launches[key], gather.first_launches[key])
+        count = (gather.LAUNCH[key], gather.LAUNCH[key] + ".first")
+        before = [trace.counters[k] for k in count]
         names = _launched(fn)
         first = kernel in ("chain_kernel", "rowsum_kernel")
-        assert (gather.launches[key], gather.first_launches[key]) == (before[0] + 1,
-                                                                    before[1] + first)
+        assert [trace.counters[k] for k in count] == [before[0] + 1, before[1] + first]
         # demangled ("::chain_kernel<") or mangled ("12chain_kernelI")
         ran = {k for k in kernels for nm in names if re.search(rf"(::|\d){k}[<I]", nm)}
         assert ran == {kernel}, (key, kernel, names)
@@ -1262,15 +1262,13 @@ def test_quantised_walks_match_plain(cuda, name, strategy):
     bvh, cfg, prim, shadow = _walk_scene(cuda, name, strategy)
     _forms_match_plain(bvh, cfg, prim, any_hit=False)
     _forms_match_plain(bvh, cfg, shadow, any_hit=True)
-    before = (traversal_wide.closest_launches, traversal_wide.any_launches,
-              dict(traversal_wide.exact_launches))
+    keys = ("launch.k1", "launch.k2", "launch.k1.exact", "launch.k2.exact")
+    before = [trace.counters[k] for k in keys]
     res = traversal_wide.trace_closest(bvh, *prim, cfg)
     found, _ = traversal_wide.trace_any(bvh, *shadow, cfg)
     traversal_wide.trace_form("exact", False, bvh, *prim, cfg)
     traversal_wide.trace_form("exact", True, bvh, *shadow, cfg)
-    assert (traversal_wide.closest_launches, traversal_wide.any_launches) == (before[0] + 1,
-                                                                              before[1] + 1)
-    assert traversal_wide.exact_launches == {k: v + 1 for k, v in before[2].items()}
+    assert [trace.counters[k] for k in keys] == [b + 1 for b in before]
     w = traversal_wide.trace_plain(bvh, *prim, cfg.wide_stack_size,
                                    strategy == TraversalStrategy.ORDERED, any_hit=False)
     assert torch.equal(res.steps, w.steps)
