@@ -92,7 +92,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (K3's vector form, K8's tile form) held bit for bit to the first
    (the yardstick), each with its device time (in turns), K3 with its taps'
    spread a lane and a warp, and EWA's set-up share (the window cut to one
-   texel); K5, K7 and K9 with their device time;
+   texel); K5, K7 and K9 with their device time; the two shading kernels of
+   the no-grad path (``csrc/shade.cu``, row ``shade``) on config3's
+   generation 0 against the torch glue they replace (every output bit for
+   bit, the frame's dense add within 1e-6 relative), with their device time
+   behind a wait kernel, the stage's with K5 and K3, and the glue's;
 7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
    through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
    ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
@@ -198,6 +202,15 @@ OPS_MODE = {  # mode: (fwd per lane, fwd per filter tap, bwd per lane, bwd per f
     "ewa": (80, 11, 83, 22),
 }
 OPS_EWA_TEXEL, OPS_EWABWD_TEXEL = 27, 34
+# csrc/shade.cu, float32 operations a lane counted from the source: the
+# surface's Beer's law, sky term, albedo, w * albedo and direction to the
+# camera (37) and the lights' sum's ambient, product, sky and frame adds (12);
+# per light its direction, distance and Blinn-Phong term (the seven
+# squarings), its colour and falloff, its mask (~55), and its add (3)
+OPS_SHADE_LANE, OPS_SHADE_LIGHT = 37 + 12, 55 + 3
+# the shading kernels' launch counters, ``launch.shade.<suffix>``: the no-grad
+# path's two a generation, and the texture ids K3 reads on a textured scene
+SHADE_KERNELS = ("shade_surface", "shade_lights", "shade_tex_id")
 # the modes the filters phase drives, besides the main path's ANISOTROPIC
 FILTER_MODES = ("trilinear", "ewa", "bilinear", "nearest")
 # csrc/fxaa.cu, what a pixel needs (a powf counted as one operation): its
@@ -466,7 +479,8 @@ def kernel_counters() -> tuple:
               "prim_closest": "launch.k9.closest",
               "prim_any": "launch.k9.any",
               "threaded_closest": "launch.k10.closest",
-              "threaded_any": "launch.k10.any"}
+              "threaded_any": "launch.k10.any",
+              **{k: f"launch.shade.{k[6:]}" for k in SHADE_KERNELS}}
     for mode in FILTER_MODES:
         counts[f"texture_{mode}"] = f"launch.k3.{mode}"
         counts[f"texture_{mode}_bwd"] = f"launch.k4.{mode}"
@@ -1179,8 +1193,8 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.microbench import scatter
     from raytracer_tpu_torch.microbench import threaded as mb_threaded
     from raytracer_tpu_torch.ops import (
-        compaction, framebuffer, fxaa, gather, hits, intersect, sky_sample, texture_sample, traversal,
-        traversal_wide,
+        compaction, framebuffer, fxaa, gather, hits, intersect, shade, sky_sample, texture_sample,
+        traversal, traversal_wide,
     )
     from raytracer_tpu_torch.render import renderer
     from raytracer_tpu_torch.scene import scenes
@@ -1231,17 +1245,18 @@ def main(argv=None) -> int:
     fwd_counts, counts = kernel_counters()
     train_kernels = (*fwd_counts, "hits_bwd", "texture_aniso_bwd", "sky_bwd")
     # config4 through the app: every forward kernel, FXAA and the primitives
-    app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any")
+    app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any", *SHADE_KERNELS[:2])
     # the threaded walk: K10 in place of K1/K2
     threaded_kernels = ("threaded_closest", "threaded_any", "hits", "texture_aniso", "sky",
-                        "compact", "fb_scatter")
+                        "compact", "fb_scatter", *SHADE_KERNELS)
     targets = [(traversal_wide, "trace_closest", "traverse_closest"),
                (traversal_wide, "trace_any", "traverse_any"),
                (hits, "mesh_hits", "hits"),
                (texture_sample, "sample", "texture_aniso"),
                (sky_sample, "sample_sky", "sky"),
                (compaction, "compact", "compact"),
-               (framebuffer, "accumulate", "fb_scatter")]
+               (framebuffer, "accumulate", "fb_scatter"),
+               (shade, "surface", "shade")]
     bwd_targets = [(hits, "hits_backward", "hits_bwd"),
                    (texture_sample, "sample_backward", "texture_aniso_bwd"),
                    (sky_sample, "sample_backward", "sky_bwd")]
@@ -1260,7 +1275,7 @@ def main(argv=None) -> int:
         image, stats = rend(scene)
         torch.cuda.synchronize()
         rec.capture = False
-    launches = {k: n for k, n in read_counts().items() if k in fwd_counts}
+    launches = {k: n for k, n in read_counts().items() if k in (*fwd_counts, *SHADE_KERNELS)}
     counters = {k: int(v) for k, v in stats._asdict().items()}
     img_mean = float(image.mean())
     finite = bool(torch.isfinite(image).all())
@@ -2250,6 +2265,98 @@ def main(argv=None) -> int:
            library="fb.index_add_(0, pixel, contribution), the plain version itself",
            tolerance="within 1e-5 l2-relative of index_add_ in float64")
     del fb1, fbw, got, again, want
+
+    # the shading kernels (csrc/shade.cu) on config3's generation 0 against
+    # the torch glue they replace on the same trace: bits, and the frame's
+    # dense add within 1e-6; ms of the two launches, and of the stage with K5
+    # and K3 beside the glue's (the plain column: its ~200 torch ops)
+    (s_scene, s_hits, s_dir, s_weight, s_sigma, s_active, s_cfg, s_tex4), _ = inputs["shade"]
+    n = s_dir.shape[0]
+    # only the direction of the rays is read by the glue
+    s_gen = renderer._Generation(rays=intersect.Rays(*(s_dir,) * 6), weight=s_weight,
+                                 sigma=s_sigma, pixel=None, active=s_active)
+    s_bvh = traversal_wide.build_scene_bvh(s_scene)
+    s_zero = torch.zeros((), dtype=torch.int32, device=dev)
+    s_stats = renderer.RenderStats(s_zero, s_zero, s_zero, s_zero, s_zero, s_zero)
+    with torch.no_grad():
+        s_sky = sky_sample.sample_sky(s_scene.sky_data, s_dir)
+        s_tex = texture_sample.sample(renderer._tex_tuple(s_scene),
+                                      shade.tex_ids(s_scene, s_hits), s_hits.u, s_hits.v,
+                                      s_hits.ds_dx, s_hits.ds_dy, s_hits.dt_dx, s_hits.dt_dy,
+                                      s_cfg, data4=s_tex4)
+        surf = shade.surface_launch(s_scene, s_hits, s_weight, s_sigma, s_active, s_sky, s_tex,
+                                    s_cfg)
+        glue = renderer._surface_glue(s_scene, s_gen, s_hits, s_cfg, s_tex4)
+        s_blocked, s_inc = renderer.intersect_scene(s_scene, s_bvh, *surf.shadow, s_cfg)
+        s_fb = torch.zeros((n, 3), device=dev)
+        fb_k, s_shadow, _ = shade.lights_launch(s_scene.ambient, surf, s_blocked, s_fb.clone(),
+                                                s_zero, s_zero, s_zero, s_inc)
+        contribution, s_want = renderer._lights_glue(s_scene, glue, s_blocked, s_stats, s_zero,
+                                                     s_inc)
+        fb_g = s_fb + contribution
+        fields = ["w", "refl_c", "trans_c", "ior", "miss", "w_albedo", "shadow_active"]
+        pairs = {f: (getattr(surf, f), getattr(glue, f)) for f in fields}
+        pairs["contribs"] = (surf.contribs, torch.stack(glue.contribs))
+        pairs.update({f"shadow[{k}]": ab for k, ab in enumerate(zip(surf.shadow, glue.shadow))})
+
+        def bits(x):
+            return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+        differ = [f for f, (a, b) in pairs.items() if not torch.equal(bits(a), bits(b))]
+        s_rel = float(((fb_k - fb_g).abs() / fb_g.abs().clamp_min(1e-30)).max())
+        n_lights = surf.contribs.shape[0]
+
+        def two_kernels():
+            sf = shade.surface_launch(s_scene, s_hits, s_weight, s_sigma, s_active, s_sky, s_tex,
+                                      s_cfg)
+            shade.lights_launch(s_scene.ambient, sf, s_blocked, s_fb, s_zero, s_zero, s_zero,
+                                s_inc)
+
+        def stage():
+            sf = shade.surface(s_scene, s_hits, s_dir, s_weight, s_sigma, s_active, s_cfg, s_tex4)
+            shade.lights_launch(s_scene.ambient, sf, s_blocked, s_fb, s_zero, s_zero, s_zero,
+                                s_inc)
+
+        def glue_stage():
+            gl = renderer._surface_glue(s_scene, s_gen, s_hits, s_cfg, s_tex4)
+            renderer._lights_glue(s_scene, gl, s_blocked, s_stats, s_zero, s_inc)
+
+        surface_reads = nbytes(s_hits.hit, s_hits.t, s_hits.material_id, s_hits.point,
+                               s_hits.normal, s_active, s_weight, s_sigma, s_sky, s_tex,
+                               *(getattr(s_scene, f) for f in shade.SURFACE_TABLES))
+        surface_writes = nbytes(*(getattr(surf, f) for f in fields), surf.contribs,
+                                *surf.shadow, surf.num_shadow)
+        lights_bytes = nbytes(surf.miss, surf.w_albedo, surf.shadow_active, surf.contribs,
+                              s_blocked, surf.num_shadow) + 2 * nbytes(s_fb)
+        launches["shade"] = launches["shade_surface"] + launches["shade_lights"]
+        record("shade", "raytracer_tpu_torch/csrc/shade.cu",
+               "none (the glue of raytracer_tpu/render/renderer.py:_shade_generation, "
+               "fused by XLA on the TPU)", s_rel, cuda_ms(two_kernels, 20),
+               cuda_ms(glue_stage, 5),
+               bound_ms(surface_reads + surface_writes + lights_bytes,
+                        n * (OPS_SHADE_LANE + OPS_SHADE_LIGHT * n_lights)),
+               None, not differ and s_rel <= 1e-6
+               and int(s_shadow) == int(s_want.num_shadow),
+               device_ms=microbench.device_ms(two_kernels, dev),
+               surface_device_ms=microbench.device_ms(
+                   lambda: shade.surface_launch(s_scene, s_hits, s_weight, s_sigma, s_active,
+                                                s_sky, s_tex, s_cfg), dev),
+               lights_device_ms=microbench.device_ms(
+                   lambda: shade.lights_launch(s_scene.ambient, surf, s_blocked, s_fb, s_zero,
+                                               s_zero, s_zero, s_inc), dev),
+               stage_ms=cuda_ms(stage, 20), stage_device_ms=microbench.device_ms(stage, dev),
+               # ~20 ms of the host's issue a call: 2 fit behind the wait kernel
+               glue_device_ms=microbench.device_ms(glue_stage, dev, reps=2),
+               differ=differ, frame_max_rel=s_rel, lanes=n, lights=n_lights,
+               shadow_rays=int(s_shadow), bytes={"surface_reads": surface_reads,
+                                                 "surface_writes": surface_writes,
+                                                 "lights": lights_bytes},
+               launches_of={k: launches[k] for k in SHADE_KERNELS},
+               library="none: no one PyTorch call computes the shading",
+               tolerance="every surface output and shadow operand bit for bit; the dense "
+                         "frame add within 1e-6 relative")
+    del s_scene, s_hits, s_dir, s_weight, s_sigma, s_active, s_tex4, s_gen, s_bvh, surf, glue
+    del s_sky, s_tex, s_blocked, s_fb, fb_k, fb_g, contribution
 
     # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow
     # rays; each in the renderer's quantised form and in the exact-record form

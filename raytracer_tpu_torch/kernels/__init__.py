@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("traverse", "traverse_threaded", "hits", "texture", "texture_bwd", "sky", "compact",
-           "framebuffer", "fxaa", "primitives", "gather")
+           "framebuffer", "fxaa", "primitives", "gather", "shade")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

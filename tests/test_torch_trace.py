@@ -14,7 +14,9 @@ import torch
 from raytracer_tpu_torch import kernels
 from raytracer_tpu_torch.accel.blas import build_blas
 from raytracer_tpu_torch.config import MeshAccelerator, RenderConfig
-from raytracer_tpu_torch.ops import compaction, framebuffer, sky_sample, traversal, traversal_wide
+from raytracer_tpu_torch.ops import (
+    compaction, framebuffer, intersect, shade, sky_sample, traversal, traversal_wide,
+)
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import meshgen
 from raytracer_tpu_torch.scene.description import PointLight, SceneDescription
@@ -159,6 +161,57 @@ def test_a_frame_on_the_cpu_counts_no_launch(scene):
     assert dict(trace.counters) == before
 
 
+SHADE_KEYS = ("launch.shade.surface", "launch.shade.lights", "launch.shade.tex_id")
+
+
+def test_the_cpu_and_a_gradient_take_the_glue(scene):
+    """The shading kernels run only on the card and only where autograd records
+    nothing: a render that asks gradients of the materials and the lights
+    dispatches to the glue (``_wants_grad``), launches no shading kernel, and
+    its loss backpropagates into ``mat_diffuse`` and the lights."""
+    _, s = scene
+    gen = renderer._Generation(
+        rays=renderer.generate_primary_rays(s, CFG), weight=torch.ones((CFG.num_pixels, 3)),
+        sigma=torch.zeros((CFG.num_pixels, 3)),
+        pixel=torch.arange(CFG.num_pixels, dtype=torch.int32),
+        active=torch.ones((CFG.num_pixels,), dtype=torch.bool))
+    hits = intersect.make_miss_hits(CFG.num_pixels, "cpu")
+    fb = torch.zeros((CFG.num_pixels, 3))
+    with torch.no_grad():
+        assert not renderer._wants_grad(s, gen, hits, fb, None)
+    assert not renderer._wants_grad(s, gen, hits, fb, None)
+    for field in ("mat_diffuse", "pl_colour", "ambient", "sky_data"):
+        asked = s._replace(**{field: getattr(s, field).clone().requires_grad_()})
+        assert renderer._wants_grad(asked, gen, hits, fb, None), field
+    lit = hits._replace(point=hits.point.clone().requires_grad_())
+    assert renderer._wants_grad(s, gen, lit, fb, None)
+
+    params = {f: getattr(s, f).clone().requires_grad_() for f in ("mat_diffuse", "pl_colour")}
+    before = {k: trace.counters[k] for k in SHADE_KEYS}
+    rgb, _ = renderer.render_wavefront(s._replace(**params), CFG)
+    rgb.square().sum().backward()
+    assert {k: trace.counters[k] for k in SHADE_KEYS} == before
+    for f, p in params.items():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), f
+        assert float(p.grad.abs().sum()) > 0, f
+
+
+def _surface(s, n=4):
+    """A generation's surface terms of n lanes under the tiny scene's one light."""
+    z3 = torch.zeros((n, 3))
+    return shade.Surface(w=z3, refl_c=z3, trans_c=z3, ior=torch.zeros(n), miss=z3, w_albedo=z3,
+                         shadow_active=torch.ones(n, dtype=torch.bool),
+                         contribs=torch.zeros((1, n, 3)),
+                         shadow=(z3, z3, torch.zeros(n), torch.ones(n, dtype=torch.bool)),
+                         num_shadow=torch.ones(1, dtype=torch.int32))
+
+
+def _shade_lights(s, fb):
+    i0 = torch.zeros((), dtype=torch.int32)
+    return shade.lights_launch(s.ambient, _surface(s), torch.zeros(4, dtype=torch.bool), fb,
+                               i0, i0, i0, i0)
+
+
 def _wide(s):
     bvh = traversal_wide.build_scene_bvh(s)
     o = torch.zeros((4, 3))
@@ -185,6 +238,11 @@ LAUNCHES = {
     "launch.k2": lambda s: traversal_wide._launch(True, *_wide(s), CFG),
     "launch.k2.exact": lambda s: traversal_wide._launch(True, *_wide(s), CFG,
                                                         traversal_wide.FORMS["exact"]),
+    "launch.shade.tex_id": lambda s: shade.tex_ids(s, intersect.make_miss_hits(4, "cpu")),
+    "launch.shade.surface": lambda s: shade.surface_launch(
+        s, intersect.make_miss_hits(4, "cpu"), torch.ones((4, 3)), torch.zeros((4, 3)),
+        torch.ones(4, dtype=torch.bool), torch.zeros((4, 3)), None, CFG),
+    "launch.shade.lights": lambda s: _shade_lights(s, torch.zeros((4, 3))),
 }
 
 
