@@ -1219,7 +1219,6 @@ def main(argv=None) -> int:
     # ------------------------------------------------------------ 3. the main path
     t0 = time.perf_counter()
     desc, cfg = scenes.config3_sponza(WIDTH, HEIGHT, target_triangles=TRIANGLES)
-    cfg = cfg.replace(wide_stack_size=max(cfg.wide_stack_size, 24))  # lossless profile
     packed = ScenePacker(desc, WIDTH, HEIGHT).frame()
     rend = renderer.Renderer(cfg, device="cuda")
     scene = rend.upload(packed)
@@ -1236,6 +1235,7 @@ def main(argv=None) -> int:
     bvh3 = traversal_wide.build_scene_bvh(scene)
     emit("scene", name="config3_sponza", width=WIDTH, height=HEIGHT,
          triangles=int(packed.tr_p0.shape[0]), instances=int(packed.inst_inv.shape[0]),
+         stack_bound=packed.stack_bound,
          wide_records=list(packed.wd_rec.shape), texels=int(packed.tex_data.shape[0]),
          seconds=seconds, quantise_blas_ms=(t1 - t0) * 1e3, quantise_tlas_ms=(t2 - t1) * 1e3,
          table_bytes=nbytes(bvh3.table), quantised_node_bytes=nbytes(bvh3.qrec),
@@ -2385,6 +2385,14 @@ def main(argv=None) -> int:
             bvh, o, d, t_max, active, kcfg.wide_stack_size, ordered(kcfg), any_hit), 1)
         k_ms = cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5)
         k_dev = microbench.device_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), dev, reps=20)
+        # the same launch with the 16-entry stack that was the default before
+        # the walk took the scene's bound
+        k16 = kcfg.replace(wide_stack_size=16)
+        k16_dev = microbench.device_ms(lambda: fn(bvh, o, d, t_max, active, k16), dev, reps=20)
+        k16_out = fn(bvh, o, d, t_max, active, k16)
+        stack = {"entries": traversal_wide.walk_stack(bvh, kcfg.wide_stack_size),
+                 "device_ms_at_16": k16_dev, "at_bound_over_at_16": k_dev / k16_dev,
+                 "incomplete_at_16": int(k16_out[1] if any_hit else k16_out.incomplete)}
         x_dev = microbench.device_ms(exact_fn, dev, reps=20)
         got["exact_form"].update(ms=cuda_ms(exact_fn, 5), device_ms=x_dev,
                                  bytes_as_issued=exact_issued)
@@ -2394,7 +2402,7 @@ def main(argv=None) -> int:
                         (nodes + leaves_) * OPS_ITER + nodes * OPS_NODE
                         + leaves_ * OPS_LEAF), None,
                got.pop("passed") and on4[name]["passed"], **got, device_ms=k_dev,
-               speedup_over_exact_form=x_dev / k_dev, bytes_as_issued=issued,
+               speedup_over_exact_form=x_dev / k_dev, bytes_as_issued=issued, stack=stack,
                undecided_share=st["undecided_children"]
                / max(8 * st["quantised_node_visits"], 1),
                exact_lane_share=st["exact_lanes"] / max(int(active.sum()), 1),

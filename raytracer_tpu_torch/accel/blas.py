@@ -56,6 +56,7 @@ class Blas:
     wide_child_fb: np.ndarray = None  # [W,8]
     wide_order: np.ndarray = None  # [8,W,8]
     wide_depth: np.ndarray = None  # [] int
+    wide_stack_bound: np.ndarray = None  # [] int: the walk's stack bound (wide.stack_bound)
     materials: list = None  # local material table (not cached; reattached by caller)
     source_triangle_count: int = 0
 
@@ -72,6 +73,10 @@ class Blas:
             order=self.wide_order,
             depth=int(self.wide_depth),
         )
+
+    @property
+    def stack_bound(self) -> int:
+        return int(self.wide_stack_bound)
 
     @property
     def triangle_count(self) -> int:
@@ -127,6 +132,8 @@ def build_blas(
         blas = Blas(**{k: data[k] for k in data.files if k != "source_triangle_count"},
                     materials=mesh.materials,
                     source_triangle_count=int(data["source_triangle_count"]))
+        if blas.wide_stack_bound is None:  # a file written before the bound was kept
+            blas.wide_stack_bound = _stack_bound(blas.wide)
         _blas_memory_cache[key] = blas
         return blas
 
@@ -159,6 +166,7 @@ def build_blas(
     from .wide import collapse_blas
 
     wideb = collapse_blas(node_min, node_max, node_left, node_count)
+    wide_stack_bound = _stack_bound(wideb)
 
     # flatten(): copy triangles into leaf order, dropping the index indirection
     # (BottomLevelBVH.cpp:196-212); SBVH reference duplication falls out naturally.
@@ -187,6 +195,7 @@ def build_blas(
         wide_child_fb=wideb.child_fb,
         wide_order=wideb.order,
         wide_depth=np.int64(wideb.depth),
+        wide_stack_bound=wide_stack_bound,
         materials=mesh.materials,
         source_triangle_count=mesh.triangle_count,
     )
@@ -202,6 +211,15 @@ def build_blas(
         )
     _blas_memory_cache[key] = blas
     return blas
+
+
+def _stack_bound(wideb) -> np.ndarray:
+    """The BLAS walk's stack bound (span ``rt.stack_bound``), kept as ``wide_depth`` is."""
+    from ..utils import trace
+    from .wide import stack_bound
+
+    with trace.span("rt.stack_bound"):
+        return np.int64(stack_bound(wideb))
 
 
 def merge_small_leaves(

@@ -346,6 +346,74 @@ def build_wide_tlas(
     )
 
 
+# ---------------------------------------------------------------------------
+# The walk's stack bound.
+#
+# The walk (csrc/traverse.cu, ops/traversal_wide.py:trace_plain) takes the
+# nearest hit child of a node and pushes its other hit children; a child can be
+# hit only if it is not empty.  So at a node visit the stack holds at most the
+# sum of (children - 1) over the nodes above it, and after the visit's pushes
+# that sum including the node itself.  The largest such sum over root-to-node
+# paths bounds every ray's stack, whatever its origin, direction or order.
+# ---------------------------------------------------------------------------
+
+STACK_CAPACITY = 128  # csrc/traverse.cu kMaxStack: the walk's largest stack
+
+
+def _path_bound(kind, payload, fb, enter) -> np.ndarray:
+    """[W] the bound of the walk from each node: its (children - 1) plus the
+    largest of 0, ``enter`` [W,8] (a bound given for a child) and the bound
+    of each internal child whose ``fb`` [W,8] is 0 (``payload`` [W,8] indexes
+    it).  Computed in rounds over every node at once; a round fixes one more
+    level, so they stop after the tree's depth."""
+    w = kind.shape[0]
+    own = np.maximum((kind != KIND_EMPTY).sum(axis=1) - 1, 0).astype(np.int64)
+    follow = (kind == KIND_INTERNAL) & (fb == 0)
+    child = np.where(follow, payload, 0)
+    if (child >= w).any() or (child < 0).any():
+        raise ValueError("stack bound: a child entry points outside the tree")
+    bound = own.copy()
+    for _ in range(w + 1):
+        below = np.maximum(np.where(follow, bound[child], 0), enter).max(axis=1, initial=0)
+        nxt = own + below
+        if np.array_equal(nxt, bound):
+            return bound
+        bound = nxt
+    raise ValueError("stack bound: the tree has a cycle")
+
+
+def stack_bound(wide: WideBVH, entry_bound=None) -> int:
+    """The most stack entries a walk of ``wide`` from its root can hold.
+    Instance entries (``child_fb`` > 0, a TLAS's children) add the bound of the
+    BLAS they enter: ``entry_bound`` [I], by instance id (``child_fb`` - 1)."""
+    entry = (wide.child_kind == KIND_INTERNAL) & (wide.child_fb > 0)
+    enter = np.zeros(wide.child_kind.shape, np.int64)
+    if entry.any():
+        if entry_bound is None:
+            raise ValueError("stack_bound: instance entries need their BLASes' bounds")
+        enter = np.where(entry, np.asarray(entry_bound, np.int64)[
+            np.where(entry, wide.child_fb - 1, 0)], 0)
+    bound = _path_bound(wide.child_kind, wide.child_payload, wide.child_fb, enter)
+    return int(bound[0])
+
+
+def records_stack_bound(wd_rec, wt_rec) -> int:
+    """The stack bound of a packed scene's walk, from its exact records
+    ([8,Wb,72] BLAS block and [8,Wt,72] TLAS, global payloads; the TLAS root is
+    row Wb): for scenes packed without it, such as the JAX package's.  0 when
+    the scene has no TLAS."""
+    wd_rec, wt_rec = np.asarray(wd_rec), np.asarray(wt_rec)
+    if wt_rec.shape[1] == 0:
+        return 0
+    rows = np.concatenate([wd_rec[0], wt_rec[0]], axis=0)
+    f_a = rows[:, 48:56].astype(np.int64)  # exact float values
+    kind = f_a >> PAYLOAD_BITS
+    # an instance entry's payload is already its BLAS root's global row
+    bound = _path_bound(kind, f_a & (PAYLOAD_MAX - 1), np.zeros_like(kind),
+                        np.zeros(kind.shape, np.int64))
+    return int(bound[wd_rec.shape[1]])
+
+
 def octant_records(
     wide: WideBVH, internal_offset: int = 0, leaf_offset: int = 0
 ) -> np.ndarray:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 
@@ -123,6 +124,12 @@ def main(argv=None):
                     else {"fps_avg": round(timer.fps, 2), "lossless_retry": False})
             print(json.dumps({"frame": frame, "ms": round(delta * 1e3, 2), **keys,
                               **_rounded(mrays_per_second(stats, delta))}))
+            # the line's keys are the JAX app's, which has no key for rays a
+            # walk could not finish: a loss is told on stderr
+            lost = int(stats.num_incomplete)
+            if lost:
+                print(f"frame {frame}: {lost} rays lost (num_incomplete: the wide walk's "
+                      "stack overflowed the wide_stack_size set)", file=sys.stderr)
             image_util.save_png(os.path.join(args.out, f"frame_{frame:04d}.png"),
                                 host(imgs[k]))
             frame += 1

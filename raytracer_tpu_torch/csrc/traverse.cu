@@ -18,7 +18,10 @@
 //   - node: slab test of the 8 children with NaN-propagating min/max (0 * inf is
 //     NaN when a direction component is 0); the nearest hit child is taken now,
 //     the rest pushed far to near; a push beyond the stack is dropped (the
-//     NEAREST ones are lost) and sets the overflow flag that `incomplete` counts;
+//     NEAREST ones are lost) and sets the overflow flag that `incomplete` counts.
+//     The renderer launches with the scene's proven bound
+//     (accel/wide.py:stack_bound), which no walk exceeds, unless the caller
+//     sets a size;
 //   - `steps` counts node visits.
 // Built with --fmad=false: the ray transform, slab and triangle arithmetic are
 // the plain version's sequence of float32 operations, so ids and steps are
@@ -73,7 +76,9 @@ constexpr int kKindInternal = 0;
 constexpr int kKindLeaf = 1;
 constexpr int kKindEmpty = 7;
 constexpr int kPop = -1;
-constexpr int kMaxStack = 64;
+// The stack's capacity (accel/wide.py STACK_CAPACITY): a dynamically indexed
+// local array, so an entry costs only when a ray pushes it.
+constexpr int kMaxStack = 128;
 constexpr float kRayEpsilon = 0.005f;
 // Guard against a malformed table: a walk of a valid table visits each
 // (node, instance) pair at most once, far below this.  A walk that reaches it

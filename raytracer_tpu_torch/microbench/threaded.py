@@ -56,7 +56,7 @@ def frame_walks(width: int, height: int, triangles: int, device):
     from ..scene.device import ScenePacker
 
     desc, cfg = scenes.config3_sponza(width, height, target_triangles=triangles)
-    cfg = cfg.replace(wide_stack_size=max(cfg.wide_stack_size, 24), traversal_kernel="threaded")
+    cfg = cfg.replace(traversal_kernel="threaded")
     rend = renderer.Renderer(cfg, device=device)
     scene = rend.upload(ScenePacker(desc, width, height).frame())
     kept = {}

@@ -4,8 +4,10 @@ kernels K1 (closest hit) and K2 (any hit).
 The TLAS and every BLAS share one unified record table; entering an instance is
 following a child entry whose instance bits switch the ray into object space, and
 every stack entry carries its instance id (see ``accel/wide.py``).  A ray walks
-until it is done: there is no iteration ladder, and ``incomplete`` counts only
-rays whose short stack overflowed.
+until it is done: there is no iteration ladder.  The stack holds the scene's
+proven bound (``accel/wide.py:stack_bound``, ``WideSceneBVH.stack_bound``)
+unless ``RenderConfig.wide_stack_size`` sets a size, and ``incomplete`` counts
+only rays whose stack overflowed a size so set.
 
 ``trace_closest`` / ``trace_any`` launch ``csrc/traverse.cu`` for CUDA tensors and
 run ``trace_plain`` for CPU tensors.  ``trace_plain`` is the JAX package's ``_step``
@@ -29,6 +31,7 @@ import torch
 from .. import kernels
 from ..accel.wide import (
     KIND_EMPTY, KIND_INTERNAL, KIND_LEAF, PAYLOAD_BITS, Q_INWARD, Q_PLANES, QREC_WORDS,
+    STACK_CAPACITY,
 )
 from ..config import RAY_EPSILON, RenderConfig, TraversalStrategy
 from ..utils import trace
@@ -37,7 +40,6 @@ POP = -1  # take the next deferred entry off the stack
 EXIT = -2  # traversal finished
 
 _PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
-_MAX_STACK = 64  # csrc/traverse.cu kMaxStack
 
 FORMS = {"exact": 0, "quantised": 1}  # rt_trace's form argument
 _COUNTING = 2  # rt_trace's form: quantised, adding its counters (walk_stats)
@@ -55,6 +57,7 @@ class WideSceneBVH(NamedTuple):
     inst_mat: torch.Tensor  # [I+1,12] f32 inverse instance matrices (slot 0 identity)
     root: int  # global index of the TLAS wide root
     node_rows: int  # 8*W (first triangle-record row)
+    stack_bound: int  # the most stack entries any ray's walk can push
 
     @property
     def n_nodes(self) -> int:
@@ -93,6 +96,7 @@ def build_scene_bvh(scene) -> WideSceneBVH:
         inst_mat=inst_mat.contiguous(),
         root=wb,
         node_rows=rec.shape[0],
+        stack_bound=int(scene.stack_bound),
     )
 
 
@@ -188,18 +192,25 @@ def leaf_live_plain(rec):
     return torch.where(differs, j, 0).amax(dim=1) + 1
 
 
-def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int,
+def walk_stack(bvh: WideSceneBVH, size: int | None) -> int:
+    """The walk's stack: ``size`` where it is set (``RenderConfig.wide_stack_size``),
+    else the scene's bound (at least 1)."""
+    return max(bvh.stack_bound, 1) if size is None else size
+
+
+def trace_plain(bvh: WideSceneBVH, o, d, t_max, active, stack_size: int | None,
                 ordered: bool, any_hit: bool, quantised: bool = False) -> Walk:
-    """Plain walk of all lanes, one ``_step`` per iteration, until none is alive.
-    Besides the kernel's outputs it counts each lane's leaf visits, from which a
-    caller can compute the work of a walk.  With ``quantised``, every node visit
+    """Plain walk of all lanes, one ``_step`` per iteration, until none is alive,
+    with a stack of ``stack_size`` entries (None: the scene's bound).  Besides
+    the kernel's outputs it counts each lane's leaf visits, from which a caller
+    can compute the work of a walk.  With ``quantised``, every node visit
     also runs ``node_bits_quantised_plain`` beside the exact test, which still
     drives the walk: ``Walk.quant`` counts the visits where the two differ
     (``bits_differ``) and the quantised kernel's counters (``STATS``)."""
     n = o.shape[0]
     dev = o.device
     i32 = torch.int32
-    s = stack_size
+    s = walk_stack(bvh, stack_size)
     lanes = torch.arange(n, device=dev)
     root_entry = (KIND_INTERNAL << PAYLOAD_BITS | bvh.root) << 8
     cur = torch.where(active, root_entry, EXIT).to(i32)
@@ -379,8 +390,9 @@ def _check_rays(what, bvh, o, d, t_max, active, stack_size):
         raise TypeError(f"{what}: active must be bool")
     if any(x.device != o.device for x in (d, t_max, active, bvh.table, bvh.inst_mat)):
         raise ValueError(f"{what}: inputs on different devices")
-    if not 1 <= stack_size <= _MAX_STACK:
-        raise ValueError(f"{what}: wide_stack_size must be in 1..{_MAX_STACK}")
+    if not 1 <= stack_size <= STACK_CAPACITY:
+        raise ValueError(f"{what}: a stack of {stack_size} entries; the walk holds 1.."
+                         f"{STACK_CAPACITY}")
     kernels.require_contiguous(what, o, d, t_max, active, bvh.table, bvh.inst_mat)
     kernels.require_no_grad(what, o, d, t_max, bvh.table, bvh.inst_mat)
 
@@ -390,7 +402,8 @@ def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderCo
     """One rt_trace launch of ``form`` (``FORMS``, or ``_COUNTING``, which adds
     the counters to ``stats``); returns (t, best, steps, found, incomplete)."""
     what = "trace_any" if any_hit else "trace_closest"
-    _check_rays(what, bvh, o, d, t_max, active, cfg.wide_stack_size)
+    size = walk_stack(bvh, cfg.wide_stack_size)
+    _check_rays(what, bvh, o, d, t_max, active, size)
     if form != FORMS["exact"]:
         if (bvh.qrec.dtype != torch.int32 or bvh.qrec.shape != (bvh.node_rows, QREC_WORDS)
                 or bvh.qrec.device != o.device or bvh.qrec.data_ptr() % 16):
@@ -418,7 +431,7 @@ def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderCo
         return None if x is None else x.data_ptr()
 
     err = fn(int(any_hit), form, bvh.table.data_ptr(), bvh.qrec.data_ptr(), bvh.node_rows,
-             bvh.root, bvh.inst_mat.data_ptr(), cfg.wide_stack_size,
+             bvh.root, bvh.inst_mat.data_ptr(), size,
              int(cfg.traversal_strategy == TraversalStrategy.ORDERED),
              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
              ptr(t), ptr(best), ptr(steps), ptr(found), incomplete.data_ptr(), ptr(stats),

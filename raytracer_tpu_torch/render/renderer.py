@@ -9,10 +9,11 @@ Fresnel weights, Beer's law) are re-associated into per-ray throughput state
 
 Semantics are the JAX package's lossless profile (``lossless_fallback_config``): the
 frame is one wavefront, every ray walks its BVH until it is done, and each queue
-holds exactly the active candidates, so ``num_dropped`` is 0 by construction and
-``num_incomplete`` counts stack overflow only.  The TPU workarounds (iteration
-ladders, static queue capacities, scanned bounces, chunking and checkpointing,
-one-hot matmul gathers) are not rebuilt.
+holds exactly the active candidates, so ``num_dropped`` is 0 by construction.  The
+wide walk's stack holds the scene's proven bound unless ``wide_stack_size`` sets
+a size, and ``num_incomplete`` counts only the overflow of a size so set.  The
+TPU workarounds (iteration ladders, static queue capacities, scanned bounces,
+chunking and checkpointing, one-hot matmul gathers) are not rebuilt.
 
 Kernels on this path: the mesh walk, K1/K2 (``ops/traversal_wide``) or, under
 ``traversal_kernel="threaded"``, K10 (``ops/traversal``); K7 hit reconstruction

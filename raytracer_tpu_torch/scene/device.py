@@ -101,6 +101,8 @@ class DeviceScene(NamedTuple):
     cam_x: object
     cam_y: object
     ambient: object  # [] float32
+    # the wide walk's stack bound (accel/wide.py:stack_bound), a Python int
+    stack_bound: object
 
     @property
     def n_spheres(self) -> int:
@@ -158,6 +160,7 @@ class ScenePacker:
         keys = sorted(desc.blas_registry.keys())
         self.node_base: dict = {}
         self.wide_node_base: dict = {}
+        self.blas_stack_bound: dict = {}
         nd, tr, links, wrecs = [], [], [], []
         node_off = 0
         wide_off = 0
@@ -166,6 +169,7 @@ class ScenePacker:
             b = desc.blas_registry[k]
             self.node_base[k] = node_off
             self.wide_node_base[k] = wide_off
+            self.blas_stack_bound[k] = b.stack_bound
             is_leaf = b.node_count > 0
             left = np.where(is_leaf, b.node_left + tri_off, b.node_left + node_off)
             nd.append(
@@ -293,6 +297,8 @@ class ScenePacker:
         inst_inv = np.zeros((n_inst, 3, 4), np.float32)
         inst_root = np.zeros((n_inst,), np.int32)
         inst_wide_root = np.zeros((n_inst,), np.int32)
+        inst_bound = np.zeros((n_inst,), np.int64)
+        stack_bound = 0
         wt_rec = np.zeros((8, 0, 72), np.float32)
         wtq_rec = np.zeros((8, 0, 32), np.int32)
         if n_inst:
@@ -304,6 +310,7 @@ class ScenePacker:
                 inst_inv[i] = mat4.to_rows34(mat4.invert(m))
                 inst_root[i] = self.node_base[inst.blas_key]
                 inst_wide_root[i] = self.wide_node_base[inst.blas_key]
+                inst_bound[i] = self.blas_stack_bound[inst.blas_key]
                 box = inst.world_aabb(desc.blas_registry[inst.blas_key].root_aabb)
                 mins[i], maxs[i] = box[0], box[1]
             from ..accel import wide as wide_mod
@@ -316,6 +323,12 @@ class ScenePacker:
                 wtlas, internal_offset=self.wide_node_count
             )
             wtq_rec = wide_mod.quantised_records(wt_rec)  # instance entries: no leaf
+            with trace.span("rt.stack_bound"):
+                stack_bound = wide_mod.stack_bound(wtlas, inst_bound)
+            if stack_bound > wide_mod.STACK_CAPACITY:
+                raise ValueError(
+                    f"the scene's wide walk can push {stack_bound} stack entries; the walk "
+                    f"holds at most {wide_mod.STACK_CAPACITY}")
             tlas = build_bvh(mins, maxs, force_split=True)
             # bake leaf 'first' -> instance id (single-instance leaves)
             is_leaf = tlas.node_count > 0
@@ -472,6 +485,7 @@ class ScenePacker:
             cam_x=_canonical(cam["cam_x_axis"]),
             cam_y=_canonical(cam["cam_y_axis"]),
             ambient=_canonical(np.float32(desc.ambient)),
+            stack_bound=stack_bound,
         )
 
 

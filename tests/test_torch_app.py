@@ -93,8 +93,8 @@ def test_app_trace_frames_writes_the_spans(tmp_path):
     with open(out / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     spans = collections.Counter(e["name"] for e in events if e.get("name", "").startswith("rt."))
-    for name in ("rt.app.update", "rt.app.pack", "rt.app.upload", "rt.render", "rt.tables",
-                 "rt.primary", "rt.present"):
+    for name in ("rt.app.update", "rt.app.pack", "rt.stack_bound", "rt.app.upload",
+                 "rt.render", "rt.tables", "rt.primary", "rt.present"):
         assert spans[name] == 1, (name, spans)
     assert spans["rt.gen"] == 2 and spans["rt.trace"] == 2 and spans["rt.compact"] == 1
 

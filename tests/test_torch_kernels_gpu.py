@@ -26,6 +26,8 @@ from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import scenes, textures
 from raytracer_tpu_torch.scene.device import ScenePacker
 from raytracer_tpu_torch.utils import trace
+from test_torch_wide_stack import SIZE as DEEP_SIZE
+from test_torch_wide_stack import deep_scene
 from torch_quant_rays import made_up_rays
 
 pytestmark = pytest.mark.gpu
@@ -1287,6 +1289,25 @@ def test_quantised_walks_made_up_rays(cuda, name):
         rays = (*rays, torch.ones((o.shape[0],), dtype=torch.bool, device=cuda))
         _forms_match_plain(bvh, cfg, rays, any_hit=False)
         _forms_match_plain(bvh, cfg, rays, any_hit=True)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walks_at_the_stack_bound_lose_no_ray(cuda, any_hit):
+    """K1 / K2 in both forms on the deep scene (its stack bound above 16): at the
+    default stack, the scene's bound, bit-equal to trace_plain with no ray lost;
+    at a set 16 entries they lose the rays the plain walk loses."""
+    scene, o, d = deep_scene(cuda)
+    bvh = traversal_wide.build_scene_bvh(scene)
+    assert bvh.stack_bound > 16
+    n = o.shape[0]
+    t_max = (torch.linspace(2.0, 12.0, n, device=cuda) if any_hit
+             else torch.full((n,), float("inf"), device=cuda))
+    rays = (o, d, t_max, torch.ones((n,), dtype=torch.bool, device=cuda))
+    cfg = RenderConfig(width=DEEP_SIZE, height=DEEP_SIZE)
+    _forms_match_plain(bvh, cfg, rays, any_hit)
+    assert int(traversal_wide.trace_plain(bvh, *rays, None, True, any_hit).incomplete) == 0
+    _forms_match_plain(bvh, cfg.replace(wide_stack_size=16), rays, any_hit)
+    assert int(traversal_wide.trace_plain(bvh, *rays, 16, True, any_hit).incomplete) > 0
 
 
 def test_quantised_walk_refuses_a_misaligned_record_table(cuda):

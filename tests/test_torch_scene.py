@@ -7,6 +7,7 @@ import pytest
 
 from raytracer_tpu.scene import scenes as jax_scenes
 from raytracer_tpu.scene.device import ScenePacker as JaxPacker
+from raytracer_tpu_torch.accel.wide import records_stack_bound
 from raytracer_tpu_torch.scene import scenes as torch_scenes
 from raytracer_tpu_torch.scene.device import ScenePacker as TorchPacker
 from raytracer_tpu_torch.scene.device import quantised_fields
@@ -14,6 +15,7 @@ from raytracer_tpu_torch.scene.tensors import scene_from_numpy
 from torch_parity import CONFIG1_TINY, CONFIG3_TINY, private_bvh_cache
 
 QUANTISED = ("wq_rec", "wtq_rec")
+PORT_ONLY = (*QUANTISED, "stack_bound")
 
 
 def _pack(scenes_mod, packer, name):
@@ -38,12 +40,14 @@ def test_packer_matches_jax(name, monkeypatch):
     monkeypatch.setattr(torch_scenes, "REFERENCE_DATA", jax_scenes.REFERENCE_DATA)
     ref = {k: np.asarray(v) for k, v in _pack(jax_scenes, JaxPacker, name)._asdict().items()}
     ours = _pack(torch_scenes, TorchPacker, name)._asdict()
-    # the port also packs quantised copies of the wide records, which the JAX
-    # package does not: the same as it derives from the JAX package's arrays
-    assert [k for k in ours if k not in QUANTISED] == list(ref)
+    # the port also packs quantised copies of the wide records and the walk's
+    # stack bound, which the JAX package does not: the same as it derives from
+    # the JAX package's arrays
+    assert [k for k in ours if k not in PORT_ONLY] == list(ref)
     derived = quantised_fields(ref)
     for k in QUANTISED:
         assert np.array_equal(ours[k], derived[k]), k
+    assert ours["stack_bound"] == records_stack_bound(ref["wd_rec"], ref["wt_rec"])
     for k, v in ref.items():
         got = np.asarray(ours[k])
         assert got.dtype == v.dtype, (k, got.dtype, v.dtype)

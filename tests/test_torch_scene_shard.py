@@ -24,6 +24,7 @@ from test_torch_parallel import seeded_target, spawn_group, stat_dict
 CFG = RenderConfig(width=48, height=32, num_bounces=1,
                    texture_sample_mode=TextureSampleMode.BILINEAR)
 QUANTISED = ("wq_rec", "wtq_rec")
+PORT_ONLY = (*QUANTISED, "stack_bound")  # packed by the port alone
 
 
 def mesh_scene(desc_mod, meshgen_mod, blas_mod):
@@ -197,13 +198,15 @@ def test_shard_scenes_match_jax_packer(packed):
     _, shards = packed
     for s, shard in enumerate(shards):
         ours = shard._asdict()
-        assert [k for k in ours if k not in QUANTISED] == list(ref)
+        assert [k for k in ours if k not in PORT_ONLY] == list(ref)
         for k, v in ref.items():
             got = np.asarray(ours[k])
             assert got.dtype == v.dtype and np.array_equal(got, v[s]), (s, k)
         derived = quantised_fields({k: v[s] for k, v in ref.items()})
         for k in QUANTISED:
             assert np.array_equal(ours[k], derived[k]), (s, k)
+        assert ours["stack_bound"] == wide.records_stack_bound(ref["wd_rec"][s],
+                                                               ref["wt_rec"][s]), s
     # congruent: every field has one shape across the shards
     for k in shards[0]._fields:
         assert np.shape(getattr(shards[0], k)) == np.shape(getattr(shards[1], k)), k
