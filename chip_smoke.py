@@ -11,7 +11,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. the main path: ``config3_sponza`` at 1920x1080 with the 260k-triangle
    procedural Sponza stand-in, built by the port's own host code, rendered
    forward through ``Renderer`` — the launch counts of every kernel in one frame
-   (each must be > 0), the six ray counters (dropped and incomplete must be 0),
+   (each must be > 0, the two children kernels one each a spawning
+   generation), the six ray counters (dropped and incomplete must be 0),
    the median frame time of 3 frames after a warm-up, forward MRays/s, the time
    of each kernel inside a frame by CUDA events, peak device memory, and one
    frame under torch.profiler (device busy share, top operators by device time);
@@ -96,7 +97,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the no-grad path (``csrc/shade.cu``, row ``shade``) on config3's
    generation 0 against the torch glue they replace (every output bit for
    bit, the frame's dense add within 1e-6 relative), with their device time
-   behind a wait kernel, the stage's with K5 and K3, and the glue's;
+   behind a wait kernel, the stage's with K5 and K3, and the glue's; the two
+   children kernels of the no-grad path (``csrc/spawn.cu``, row ``spawn``)
+   on the same generation against ``_compact(_spawn(...))`` (the next
+   queue's ten fields bit for bit, the counts equal), with the stage's ms
+   (K6 and its read among it) beside the glue's, each launch's device time
+   and the glue's;
 7b. the gather microbenchmarks: the four row-gather harnesses of ``scratch/``
    through ``raytracer_tpu_torch.microbench`` (``gather``, ``chained``,
    ``table_gather``, ``table_rowsum``) at the harnesses' shapes, each with the
@@ -211,6 +217,15 @@ OPS_SHADE_LANE, OPS_SHADE_LIGHT = 37 + 12, 55 + 3
 # the shading kernels' launch counters, ``launch.shade.<suffix>``: the no-grad
 # path's two a generation, and the texture ids K3 reads on a textured scene
 SHADE_KERNELS = ("shade_surface", "shade_lights", "shade_tex_id")
+# the children kernels' launch counters, ``launch.spawn.<suffix>``: the no-grad
+# path's two a spawning generation
+SPAWN_KERNELS = ("spawn_flags", "spawn_write")
+# csrc/spawn.cu, float32 operations counted from the source: a flagged lane's
+# two squared lengths and, refracting, its Snell terms (~20); a child's Snell
+# terms, the two differentials' dot products and its own direction,
+# throughput, differentials and absorption (~90, the reflection's Fresnel term
+# where its parent refracts included)
+OPS_SPAWN_LANE, OPS_SPAWN_CHILD = 20, 90
 # the modes the filters phase drives, besides the main path's ANISOTROPIC
 FILTER_MODES = ("trilinear", "ewa", "bilinear", "nearest")
 # csrc/fxaa.cu, what a pixel needs (a powf counted as one operation): its
@@ -480,7 +495,8 @@ def kernel_counters() -> tuple:
               "prim_any": "launch.k9.any",
               "threaded_closest": "launch.k10.closest",
               "threaded_any": "launch.k10.any",
-              **{k: f"launch.shade.{k[6:]}" for k in SHADE_KERNELS}}
+              **{k: f"launch.shade.{k[6:]}" for k in SHADE_KERNELS},
+              **{k: f"launch.spawn.{k[6:]}" for k in SPAWN_KERNELS}}
     for mode in FILTER_MODES:
         counts[f"texture_{mode}"] = f"launch.k3.{mode}"
         counts[f"texture_{mode}_bwd"] = f"launch.k4.{mode}"
@@ -1193,8 +1209,8 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.microbench import scatter
     from raytracer_tpu_torch.microbench import threaded as mb_threaded
     from raytracer_tpu_torch.ops import (
-        compaction, framebuffer, fxaa, gather, hits, intersect, shade, sky_sample, texture_sample,
-        traversal, traversal_wide,
+        compaction, framebuffer, fxaa, gather, hits, intersect, shade, sky_sample, spawn,
+        texture_sample, traversal, traversal_wide,
     )
     from raytracer_tpu_torch.render import renderer
     from raytracer_tpu_torch.scene import scenes
@@ -1245,10 +1261,11 @@ def main(argv=None) -> int:
     fwd_counts, counts = kernel_counters()
     train_kernels = (*fwd_counts, "hits_bwd", "texture_aniso_bwd", "sky_bwd")
     # config4 through the app: every forward kernel, FXAA and the primitives
-    app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any", *SHADE_KERNELS[:2])
+    app_kernels = (*fwd_counts, "fxaa", "prim_closest", "prim_any", *SHADE_KERNELS[:2],
+                   *SPAWN_KERNELS)
     # the threaded walk: K10 in place of K1/K2
     threaded_kernels = ("threaded_closest", "threaded_any", "hits", "texture_aniso", "sky",
-                        "compact", "fb_scatter", *SHADE_KERNELS)
+                        "compact", "fb_scatter", *SHADE_KERNELS, *SPAWN_KERNELS)
     targets = [(traversal_wide, "trace_closest", "traverse_closest"),
                (traversal_wide, "trace_any", "traverse_any"),
                (hits, "mesh_hits", "hits"),
@@ -1256,7 +1273,8 @@ def main(argv=None) -> int:
                (sky_sample, "sample_sky", "sky"),
                (compaction, "compact", "compact"),
                (framebuffer, "accumulate", "fb_scatter"),
-               (shade, "surface", "shade")]
+               (shade, "surface", "shade"),
+               (spawn, "flags", "spawn")]
     bwd_targets = [(hits, "hits_backward", "hits_bwd"),
                    (texture_sample, "sample_backward", "texture_aniso_bwd"),
                    (sky_sample, "sample_backward", "sky_bwd")]
@@ -1275,7 +1293,8 @@ def main(argv=None) -> int:
         image, stats = rend(scene)
         torch.cuda.synchronize()
         rec.capture = False
-    launches = {k: n for k, n in read_counts().items() if k in (*fwd_counts, *SHADE_KERNELS)}
+    launches = {k: n for k, n in read_counts().items()
+                if k in (*fwd_counts, *SHADE_KERNELS, *SPAWN_KERNELS)}
     counters = {k: int(v) for k, v in stats._asdict().items()}
     img_mean = float(image.mean())
     finite = bool(torch.isfinite(image).all())
@@ -1306,6 +1325,8 @@ def main(argv=None) -> int:
          max_memory_allocated_bytes=peak_mem, nvidia_smi=smi)
     problems = [f"{k} launched {n} times in the main path" for k, n in launches.items()
                 if n <= 0]
+    problems += [f"{k} launched {launches[k]} times in a frame of {cfg.num_bounces} bounces"
+                 for k in SPAWN_KERNELS if launches[k] != cfg.num_bounces]
     if counters["num_dropped"] or counters["num_incomplete"]:
         problems.append(f"loss counters not 0: {counters}")
     if not finite or tuple(image.shape) != (HEIGHT, WIDTH, 3):
@@ -2357,6 +2378,84 @@ def main(argv=None) -> int:
                          "frame add within 1e-6 relative")
     del s_scene, s_hits, s_dir, s_weight, s_sigma, s_active, s_tex4, s_gen, s_bvh, surf, glue
     del s_sky, s_tex, s_blocked, s_fb, fb_k, fb_g, contribution
+
+    # the children kernels (csrc/spawn.cu) on config3's generation 0 against
+    # the glue they replace (_compact of _spawn): the next queue's ten fields
+    # bit for bit and the counts; ms of the stage (both launches, K6 and its
+    # read) beside the glue's, device time of each launch and of the stage
+    # without the read, and the glue's without it
+    (p_rays, p_pixel, p_hits, p_w, p_refl, p_trans, p_ior), _ = inputs["spawn"]
+    p_zero = torch.zeros((), dtype=torch.int32, device=dev)
+    p_stats = renderer.RenderStats(*(p_zero,) * 6)
+    # _spawn reads the generation's rays and pixels alone
+    p_gen = renderer._Generation(rays=p_rays, weight=None, sigma=None, pixel=p_pixel,
+                                 active=None)
+    p_args = (p_rays, p_pixel, p_hits, p_w, p_refl, p_trans, p_ior)
+    with torch.no_grad():
+        cand, want_stats = renderer._spawn(p_gen, p_hits, p_w, p_refl, p_trans, p_ior, p_stats)
+        want = renderer._compact(cand)
+        parents = spawn.flags(*p_args)
+        got, got_stats = renderer._next_queue(parents, p_stats)
+        p_fields = {**dict(zip(intersect.Rays._fields, zip(got.rays, want.rays))),
+                    **{f: (getattr(got, f), getattr(want, f))
+                       for f in ("weight", "sigma", "pixel", "active")}}
+        differ = [f for f, (a, b) in p_fields.items() if a.shape != b.shape or not torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)]
+        counts_equal = all(int(getattr(got_stats, f)) == int(getattr(want_stats, f))
+                           for f in ("num_reflection", "num_refraction"))
+        n = p_pixel.shape[0]
+        n_active = got.pixel.shape[0]
+        sel, _ = compaction.compact(parents.flags)
+        parent_rows = int(torch.unique(sel % n).numel())
+        refracting = int((p_hits.hit & ((p_trans * p_trans).sum(1) > 0)).sum())
+
+        def stage():
+            spawn.children(spawn.flags(*p_args), p_zero, p_zero)
+
+        def stage_no_read():
+            pa = spawn.flags(*p_args)
+            spawn.write(pa, compaction.compact_launch(pa.flags)[0][:n_active], p_zero, p_zero)
+
+        def glue_stage():
+            renderer._compact(renderer._spawn(p_gen, p_hits, p_w, p_refl, p_trans, p_ior,
+                                              p_stats)[0])
+
+        def glue_no_read():
+            c, _ = renderer._spawn(p_gen, p_hits, p_w, p_refl, p_trans, p_ior, p_stats)
+            idx = compaction.compact_launch(c["active"])[0][:n_active]
+            for v in c.values():
+                v.index_select(0, idx)
+
+        # the flags read hit and both material rows of every lane, direction,
+        # normal and ior of a refracting one, and write 2 flags a lane and 2
+        # counts a block; a child reads its index and its parent's rows (152
+        # B, each parent's once) and writes 101 B
+        flag_bytes = n * (1 + 12 + 12 + 2) + refracting * (12 + 12 + 4) + parents.counts.numel() * 4
+        write_bytes = n_active * (4 + spawn.QUEUE_SLOT_BYTES) + parent_rows * 152
+        launches["spawn"] = launches["spawn_flags"] + launches["spawn_write"]
+        p_err = max((float((a - b).abs().max()) for a, b in p_fields.values()
+                     if a.dtype == torch.float32 and a.shape == b.shape and a.numel()),
+                    default=0.0)
+        record("spawn", "raytracer_tpu_torch/csrc/spawn.cu",
+               "none (the glue of raytracer_tpu/render/renderer.py:_spawn and _compact, "
+               "fused by XLA on the TPU)", p_err, cuda_ms(stage, 20),
+               cuda_ms(glue_stage, 5),
+               bound_ms(flag_bytes + write_bytes, n * OPS_SPAWN_LANE + n_active * OPS_SPAWN_CHILD),
+               None, not differ and counts_equal,
+               device_ms=microbench.device_ms(stage_no_read, dev),
+               flags_device_ms=microbench.device_ms(lambda: spawn.flags(*p_args), dev),
+               write_device_ms=microbench.device_ms(
+                   lambda: spawn.write(parents, sel, p_zero, p_zero), dev),
+               glue_device_ms=microbench.device_ms(glue_no_read, dev, reps=2),
+               differ=differ, counts_equal=counts_equal, lanes=n, children=n_active,
+               parent_rows=parent_rows, refracting_lanes=refracting,
+               bytes={"flags": flag_bytes, "write": write_bytes},
+               launches_of={k: launches[k] for k in SPAWN_KERNELS},
+               library="none: no one PyTorch call computes the children",
+               tolerance="the next queue's ten fields bit for bit, the counts equal")
+    del p_rays, p_pixel, p_hits, p_w, p_refl, p_trans, p_ior, p_gen, p_args, cand, want, got
+    del parents, sel
 
     # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow
     # rays; each in the renderer's quantised form and in the exact-record form

@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("traverse", "traverse_threaded", "hits", "texture", "texture_bwd", "sky", "compact",
-           "framebuffer", "fxaa", "primitives", "gather", "shade")
+           "framebuffer", "fxaa", "primitives", "gather", "shade", "spawn")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -150,6 +150,26 @@ def require_contiguous(what: str, *tensors) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
+
+
+def require_lanes(what: str, n: int, lane: dict, table: dict, device) -> None:
+    """Checked by the no-grad path's wrappers (``ops/shade``, ``ops/spawn``):
+    every tensor of ``lane`` and ``table`` ({name: (tensor, dtype)}) on
+    ``device``, contiguous and of its dtype; the per-lane ones [n, ...]."""
+    tensors = {**lane, **table}
+    for name, (x, dtype) in tensors.items():
+        if x.device != device or x.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {dtype} on {device}")
+    if any(x.shape[0] != n for x, _ in lane.values()):
+        raise ValueError(f"{what}: per-lane inputs [N, ...] expected")
+    require_contiguous(what, *(x for x, _ in tensors.values()))
+
+
+def pointers(tensors):
+    """A C array of the tensors' device pointers (null for None), kept alive by
+    the caller for the call."""
+    return (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr()
+                                             for x in tensors))
 
 
 def require_no_grad(what: str, *tensors) -> None:

@@ -61,33 +61,15 @@ def _blocks(n: int) -> int:
     return (n + BLOCK - 1) // BLOCK
 
 
-def _check(what: str, n: int, lane: dict, table: dict, dev) -> None:
-    """Every tensor on ``dev``, contiguous, of its dtype; the per-lane ones
-    [n, ...]."""
-    tensors = {**lane, **table}
-    for name, (x, dtype) in tensors.items():
-        if x.device != dev or x.dtype != dtype:
-            raise ValueError(f"{what}: {name} must be {dtype} on {dev}")
-    if any(x.shape[0] != n for x, _ in lane.values()):
-        raise ValueError(f"{what}: per-lane inputs [N, ...] expected")
-    kernels.require_contiguous(what, *(x for x, _ in tensors.values()))
-
-
-def _ptrs(tensors):
-    """A C array of the tensors' device pointers (null for None), kept alive by
-    the caller for the call."""
-    return (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr()
-                                             for x in tensors))
-
-
 def tex_ids(scene, hits: Hits) -> torch.Tensor:
     """[N] int32 texture id of each lane's material (material 0 where it
     missed): one ``rt_shade_tex_id`` launch (``"launch.shade.tex_id"``)."""
     n = hits.hit.shape[0]
     dev = hits.hit.device
-    _check("rt_shade_tex_id", n, {"hit": (hits.hit, torch.bool),
-                                  "material_id": (hits.material_id, torch.int32)},
-           {"mat_texture": (scene.mat_texture, torch.int32)}, dev)
+    kernels.require_lanes("rt_shade_tex_id", n,
+                          {"hit": (hits.hit, torch.bool),
+                           "material_id": (hits.material_id, torch.int32)},
+                          {"mat_texture": (scene.mat_texture, torch.int32)}, dev)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out
@@ -115,8 +97,8 @@ def surface_launch(scene, hits: Hits, weight, sigma, active, sky_rgb, tex,
     if tex is not None:
         lane["tex"] = (tex, f32)
     tables = [getattr(scene, f) for f in SURFACE_TABLES]
-    _check("rt_shade_surface", n, lane, {f: (x, f32) for f, x in zip(SURFACE_TABLES, tables)},
-           dev)
+    kernels.require_lanes("rt_shade_surface", n, lane,
+                          {f: (x, f32) for f, x in zip(SURFACE_TABLES, tables)}, dev)
     n_point, n_spot = scene.n_point_lights, scene.n_spot_lights
     n_dir = scene.n_directional_lights
     n_lights = n_point + n_spot + n_dir
@@ -135,10 +117,11 @@ def surface_launch(scene, hits: Hits, weight, sigma, active, sky_rgb, tex,
                    num_shadow=empty(_blocks(n), dtype=torch.int32) if n_lights else None)
     if n == 0:
         return surf
-    arr = _ptrs([active, weight, sigma, hits.hit, hits.t, hits.material_id, hits.point,
-                 hits.normal, sky_rgb, tex, *tables,
-                 surf.w, surf.refl_c, surf.trans_c, surf.ior, surf.miss, surf.w_albedo,
-                 surf.shadow_active, surf.contribs, *(shadow or (None,) * 4), surf.num_shadow])
+    arr = kernels.pointers([
+        active, weight, sigma, hits.hit, hits.t, hits.material_id, hits.point, hits.normal,
+        sky_rgb, tex, *tables, surf.w, surf.refl_c, surf.trans_c, surf.ior, surf.miss,
+        surf.w_albedo, surf.shadow_active, surf.contribs, *(shadow or (None,) * 4),
+        surf.num_shadow])
     P, I = kernels.P, kernels.I
     fn = kernels.entry("shade", "rt_shade_surface", [P, I, I, I, I, I, kernels.F, P])
     offset = cfg.shadow_normal_offset
@@ -189,14 +172,15 @@ def lights_launch(ambient, surf: Surface, blocked, fb, num_shadow, num_incomplet
             raise ValueError("rt_shade_lights: blocked [L*N] and contribs [L,N,3] expected")
         table.update(contribs=(surf.contribs, f32), blocked=(blocked, torch.bool),
                      counts=(surf.num_shadow, i32), shadow_incomplete=(shadow_incomplete, i32))
-    _check("rt_shade_lights", n, lane, table, dev)
+    kernels.require_lanes("rt_shade_lights", n, lane, table, dev)
     out = torch.empty((n, 3), dtype=f32, device=dev) if fb is None else None
     num_shadow_out = torch.empty((), dtype=i32, device=dev) if n_lights else num_shadow
     num_incomplete_out = torch.empty((), dtype=i32, device=dev)
     # the kernel reads and writes the light slots only where there is a light
-    arr = _ptrs([surf.miss, surf.w_albedo, surf.shadow_active, surf.contribs, blocked, ambient,
-                 surf.num_shadow, num_shadow, num_incomplete, incomplete, shadow_incomplete, fb,
-                 out, num_shadow_out, num_incomplete_out])
+    arr = kernels.pointers([
+        surf.miss, surf.w_albedo, surf.shadow_active, surf.contribs, blocked, ambient,
+        surf.num_shadow, num_shadow, num_incomplete, incomplete, shadow_incomplete, fb, out,
+        num_shadow_out, num_incomplete_out])
     P, I = kernels.P, kernels.I
     fn = kernels.entry("shade", "rt_shade_lights", [P, I, I, I, P])
     err = fn(ctypes.addressof(arr), n, n_lights, _blocks(n), kernels.stream_ptr(dev))

@@ -23,8 +23,9 @@ with the TRILINEAR, ANISOTROPIC or EWA filter; ``ops/texture_sample``), K5 sky
 scatter of each later generation (``ops/framebuffer``), K9 spheres and planes
 (``ops/intersect``); ``present`` runs K8 FXAA (``ops/fxaa``).  On the card,
 where no gradient is asked for, a generation's shading is two kernels of
-``ops/shade``; under autograd and on the CPU it is elementwise torch, as is
-the spawning of the children.
+``ops/shade``, and its children two kernels of ``ops/spawn`` around K6; under
+autograd and on the CPU both are elementwise torch (``_surface_glue``,
+``_lights_glue``, ``_spawn``, ``_compact``).
 
 Under ``cfg.scene_shard_axis`` each rank holds part of the triangles
 (``parallel/scene_shard.py``): every closest-hit record is combined by least t
@@ -52,6 +53,7 @@ from ..ops import (
     traversal_wide,
 )
 from ..ops import hits as mesh_hits
+from ..ops import spawn as child_rays
 from ..ops.intersect import Hits, Rays
 from ..parallel import collectives
 from ..scene.tensors import scene_from_numpy
@@ -284,11 +286,11 @@ _SHADING_FIELDS = ("mat_diffuse", "mat_reflection", "mat_transmittance", "mat_io
 
 
 def _wants_grad(scene, gen: _Generation, hits: Hits, fb, tex4) -> bool:
-    """Whether autograd would record the generation's shading: grad mode is on
-    and one of its inputs asks for a gradient."""
+    """Whether autograd would record the generation's shading or its children:
+    grad mode is on and one of their inputs asks for a gradient."""
     if not torch.is_grad_enabled():
         return False
-    inputs = (fb, tex4, gen.weight, gen.sigma, gen.rays.direction, *hits,
+    inputs = (fb, tex4, gen.weight, gen.sigma, *gen.rays, *hits,
               *(getattr(scene, f) for f in _SHADING_FIELDS))
     return any(x is not None and x.requires_grad for x in inputs)
 
@@ -388,15 +390,18 @@ def _lights_glue(scene, surf: shade.Surface, blocked, stats, incomplete, shadow_
 
 def _shade_generation(scene, bvh, gen: _Generation, fb, spawn: bool, cfg, stats,
                       tex4=None, identity_pixels: bool = False):
-    """Trace + shade one generation; returns (fb, child candidates or None, stats).
+    """Trace + shade one generation; returns (fb, its children or None, stats),
+    the children as ``_next_queue`` takes them.
 
     ``identity_pixels`` declares gen.pixel == arange(n) (generation 0): the
     framebuffer accumulation is then a dense add instead of a scatter-add.
 
-    The shading takes one of two paths, by what it can observe: on CUDA
-    tensors, when autograd would record nothing (``_wants_grad``), the kernels
-    of ``ops/shade`` (``shade.surface``, ``shade.lights``); otherwise the torch
-    glue (``_surface_glue``, ``_lights_glue``), their plain version.
+    The shading and the children take one of two paths, by what they can
+    observe: on CUDA tensors, when autograd would record nothing
+    (``_wants_grad``), the kernels of ``ops/shade`` (``shade.surface``,
+    ``shade.lights``) and ``ops/spawn`` (``child_rays.flags``); otherwise the
+    torch glue (``_surface_glue``, ``_lights_glue``, ``_spawn``), their plain
+    version.
 
     Its stages tile it, each a span: ``rt.trace`` (the closest hits),
     ``rt.shade`` (the surface and the shadow rays' operands, then the lights'
@@ -449,7 +454,10 @@ def _shade_generation(scene, bvh, gen: _Generation, fb, spawn: bool, cfg, stats,
 
     # ---- spawn reflection / refraction children (Raytracer.cpp:204-396) ----
     with trace.span("rt.spawn"):
-        cand, stats = _spawn(gen, hits, w, refl_c, trans_c, ior, stats)
+        if fused:
+            cand = child_rays.flags(rays, gen.pixel, hits, w, refl_c, trans_c, ior)
+        else:
+            cand, stats = _spawn(gen, hits, w, refl_c, trans_c, ior, stats)
         del hits, w, refl_c, trans_c, ior
     return fb, cand, stats
 
@@ -538,6 +546,19 @@ def _spawn(gen: _Generation, hits: Hits, w, refl_c, trans_c, ior, stats):
     return cand, stats
 
 
+def _next_queue(cand, stats):
+    """The next generation and the stats from a generation's children: the
+    glue's candidates compacted by ``_compact``, or the flagged parents of
+    ``child_rays.flags`` through K6 and ``child_rays.write``, which also adds
+    the children to the stats."""
+    if isinstance(cand, dict):
+        return _compact(cand), stats
+    q = child_rays.children(cand, stats.num_reflection, stats.num_refraction)
+    return (_Generation(rays=q.rays, weight=q.weight, sigma=q.sigma, pixel=q.pixel,
+                        active=q.active),
+            stats._replace(num_reflection=q.num_reflection, num_refraction=q.num_refraction))
+
+
 def _compact(cand: dict) -> _Generation:
     """Stable-compact the active child candidates into the next generation's queue
     (K6); the queue holds exactly the active candidates, in candidate order."""
@@ -614,7 +635,7 @@ def _render(scene, cfg: RenderConfig, n: int, pixel_idx, bvh, tex4):
             if cand is None:
                 break
             with trace.span("rt.compact"):
-                gen = _compact(cand)
+                gen, stats = _next_queue(cand, stats)
                 del cand
         if gen.pixel.shape[0] == 0:
             break

@@ -15,7 +15,7 @@ from raytracer_tpu_torch import kernels
 from raytracer_tpu_torch.accel.blas import build_blas
 from raytracer_tpu_torch.config import MeshAccelerator, RenderConfig
 from raytracer_tpu_torch.ops import (
-    compaction, framebuffer, intersect, shade, sky_sample, traversal, traversal_wide,
+    compaction, framebuffer, intersect, shade, sky_sample, spawn, traversal, traversal_wide,
 )
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import meshgen
@@ -161,14 +161,16 @@ def test_a_frame_on_the_cpu_counts_no_launch(scene):
     assert dict(trace.counters) == before
 
 
-SHADE_KEYS = ("launch.shade.surface", "launch.shade.lights", "launch.shade.tex_id")
+SHADE_KEYS = ("launch.shade.surface", "launch.shade.lights", "launch.shade.tex_id",
+              "launch.spawn.flags", "launch.spawn.write")
 
 
 def test_the_cpu_and_a_gradient_take_the_glue(scene):
-    """The shading kernels run only on the card and only where autograd records
-    nothing: a render that asks gradients of the materials and the lights
-    dispatches to the glue (``_wants_grad``), launches no shading kernel, and
-    its loss backpropagates into ``mat_diffuse`` and the lights."""
+    """The shading and children kernels run only on the card and only where
+    autograd records nothing: a render that asks gradients of the materials
+    and the lights dispatches to the glue (``_wants_grad``), launches no
+    shading or children kernel, and its loss backpropagates into
+    ``mat_diffuse`` and the lights."""
     _, s = scene
     gen = renderer._Generation(
         rays=renderer.generate_primary_rays(s, CFG), weight=torch.ones((CFG.num_pixels, 3)),
@@ -194,6 +196,35 @@ def test_the_cpu_and_a_gradient_take_the_glue(scene):
     for f, p in params.items():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), f
         assert float(p.grad.abs().sum()) > 0, f
+
+
+@pytest.mark.parametrize("field", intersect.Rays._fields)
+def test_a_gradient_of_any_ray_field_takes_the_glue(scene, field):
+    """The children read every field of the generation's rays (the
+    differentials among them): a gradient asked of any one alone keeps the
+    generation on the glue."""
+    _, s = scene
+    rays = renderer.generate_primary_rays(s, CFG)
+    asked = rays._replace(**{field: getattr(rays, field).clone().requires_grad_()})
+    gen = renderer._Generation(
+        rays=asked, weight=torch.ones((CFG.num_pixels, 3)),
+        sigma=torch.zeros((CFG.num_pixels, 3)),
+        pixel=torch.arange(CFG.num_pixels, dtype=torch.int32),
+        active=torch.ones((CFG.num_pixels,), dtype=torch.bool))
+    hits = intersect.make_miss_hits(CFG.num_pixels, "cpu")
+    assert renderer._wants_grad(s, gen, hits, torch.zeros((CFG.num_pixels, 3)), None)
+
+
+def test_a_camera_gradient_alone_takes_the_glue(scene):
+    """A render that asks a gradient of the camera alone launches no shading
+    or children kernel, and autograd records it back to the camera."""
+    _, s = scene
+    cam_x = s.cam_x.clone().requires_grad_()
+    before = {k: trace.counters[k] for k in SHADE_KEYS}
+    rgb, _ = renderer.render_wavefront(s._replace(cam_x=cam_x), CFG)
+    rgb.square().sum().backward()
+    assert {k: trace.counters[k] for k in SHADE_KEYS} == before
+    assert cam_x.grad is not None
 
 
 def _surface(s, n=4):
@@ -224,6 +255,13 @@ def _threaded(s):
     return (bvh, *_wide(s)[1:])
 
 
+def _parents(n=4):
+    z3 = torch.zeros((n, 3))
+    rays = intersect.Rays(z3, z3, z3, z3, z3, z3)
+    return spawn.flags(rays, torch.arange(n, dtype=torch.int32),
+                       intersect.make_miss_hits(n, "cpu"), z3, z3, z3, torch.zeros(n))
+
+
 LAUNCHES = {
     "launch.k6": lambda s: compaction._launch(torch.tensor([True, False, True])),
     "launch.fb_scatter": lambda s: framebuffer.scatter_add(
@@ -243,6 +281,10 @@ LAUNCHES = {
         s, intersect.make_miss_hits(4, "cpu"), torch.ones((4, 3)), torch.zeros((4, 3)),
         torch.ones(4, dtype=torch.bool), torch.zeros((4, 3)), None, CFG),
     "launch.shade.lights": lambda s: _shade_lights(s, torch.zeros((4, 3))),
+    "launch.spawn.flags": lambda s: _parents(),
+    "launch.spawn.write": lambda s: spawn.write(
+        _parents(0), torch.zeros((0,), dtype=torch.int32), torch.zeros((), dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32)),
 }
 
 
