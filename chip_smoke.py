@@ -73,27 +73,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    framebuffer scatter also with their calls queued behind a wait kernel
    (``device_ms``) and their time inside the training step; K4 in every mode
    also against the float64 sums of the plain version's per-lane values, with
-   its ``device_ms``, every scatter form (the per-lane one-float atomics among them)
-   timed on the same lanes, the run structure of its rows within warps and
-   the atomics each form issues; under ANISOTROPIC also on the training
+   its ``device_ms`` and the run structure of its rows within warps and the
+   atomics it issues; under ANISOTROPIC also on the training
    step's own generations 0 and 1 and on the patterns of
    ``microbench/scatter.py`` (every lane on one row, a permutation, 90% zero
    cotangents); K11 with the device time of ``index_select`` beside it; K1
-   and K2 in the renderer's quantised form and in the exact-record form (the
-   yardstick), both held to the plain walk, each with its device time and
-   bytes as issued, and the quantised walk's counters (undecided children,
-   lanes with a 0 direction component, live triangles a leaf visit) held to
-   the plain walk's; K10 on every generation of config3's and config4's
-   threaded frames, and on config3's generation 0 in both forms (the
-   renderer's octant records, any hit over the active lanes, and the split
-   tables of the first version, the yardstick), each held to the plain walk
-   with its ms, device time, bytes as issued and sectors touched
-   (``microbench/threaded.py``), beside the tables' sizes and the walk's warp
-   efficiency; K3 in every mode and K8 in two forms each, the renderer's
-   (K3's vector form, K8's tile form) held bit for bit to the first
-   (the yardstick), each with its device time (in turns), K3 with its taps'
-   spread a lane and a warp, and EWA's set-up share (the window cut to one
-   texel); K5, K7 and K9 with their device time; the two shading kernels of
+   and K2 held to the plain walk, with their device time and bytes as
+   issued, and the walk's counters (undecided children, lanes with a 0
+   direction component, live triangles a leaf visit) held to the plain
+   walk's; K10 on every generation of config3's and config4's threaded
+   frames, with its device time, bytes as issued and sectors touched on
+   generation 0 (``microbench/threaded.py``), beside the tables' sizes and
+   the walk's warp efficiency; K3 in every mode and K8 with their device
+   time, K3 with its taps' spread a lane and a warp, and EWA's set-up share
+   (the window cut to one texel); K5, K7 and K9 with their device time; the two shading kernels of
    the no-grad path (``csrc/shade.cu``, row ``shade``) on config3's
    generation 0 against the torch glue they replace (every output bit for
    bit, the frame's dense add within 1e-6 relative), with their device time
@@ -110,17 +103,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each harness kernel (K11 direct and staged, K11 from the 2.40 MB table, K12
    at the harnesses' two loop shapes, K13 single and chained) against its
    plain version, exact, with its device time (the calls queued behind a wait
-   kernel, so none waits on the host); K12 and K13 in both forms, the new one
-   (K12's warp form, K13's one block an SM) and the first, each exact, timed
-   in turns, each row's launches the new form's own; then K12 in both
-   forms on config3's wide table (10 dependent 288-byte rows for each of the
-   2,073,600 lanes) beside K1's time in this run, its latency (one warp an SM,
-   1,000 steps a lane), and over the same rows cut to the quantised record's
-   128 bytes; then K12 over the threaded walk's box rows, 54 dependent rows a
-   lane, as they are (24 bytes, 32-bit loads) and padded to 32 bytes (16-byte
-   loads, both forms): the first form is the floor under K1's and K10's
-   one-lane-one-record reads, the warp form the floor a fetch shared across a
-   warp could reach;
+   kernel, so none waits on the host); then K12 on config3's wide table (10
+   dependent 288-byte rows for each of the 2,073,600 lanes) beside K1's time
+   in this run, its latency (one warp an SM, 1,000 steps a lane), and over
+   the same rows cut to the quantised record's 128 bytes; then K12 over the
+   threaded walk's box rows, 54 dependent rows a lane, as they are (24
+   bytes, 32-bit loads, one thread a chain: the floor under K10's
+   one-lane-one-record reads) and padded to 32 bytes (16-byte loads, a warp's
+   rows fetched together: the floor a fetch shared across a warp could
+   reach);
 8. small-input checks, the card against the same render on the CPU through the
    plain versions: config3 at 64x36 (20k triangles; also under the threaded
    walk), config4 at 96x64 on animation frames 0 and 2, config2 at 64x64 and 8
@@ -329,23 +320,16 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     return (b, "bytes") if b >= o else (o, "operations")
 
 
-# bytes a walk's loads ask for (csrc/traverse.cu).  The exact form: the
-# instance matrix (12 floats) every iteration, 64 floats a node visit, 72 a
-# leaf visit.  The quantised form: the matrix and the world ray (6 floats) at
-# each transform into an instance's space, a node visit's 7 x 16 bytes of its
-# record, an exact lane's 3 of them and the 48 box floats of its exact row, 6
-# floats an undecided child, 9 x 16 bytes a leaf half
-BYTES_ITER, BYTES_NODE, BYTES_LEAF = 48, 256, 288
+# bytes a walk's loads ask for (csrc/traverse.cu): the matrix and the world ray
+# (6 floats) at each transform into an instance's space, a node visit's 7 x 16
+# bytes of its record, an exact lane's 3 of them and the 48 box floats of its
+# exact row, 6 floats an undecided child, 9 x 16 bytes a leaf half
 BYTES_ENTER, BYTES_QNODE, BYTES_XLANE, BYTES_UNDECIDED, BYTES_HALF = 72, 112, 48 + 192, 24, 144
 
 
-def issued_bytes(stats, lane_bytes, nodes=0.0, leaves=0.0) -> float:
-    """Bytes as issued by one K1 / K2 launch: ``stats`` the quantised form's
-    counters (``traversal_wide.walk_stats``), None for the exact form, whose
-    node and leaf visits are given."""
-    if stats is None:
-        return lane_bytes + (nodes + leaves) * BYTES_ITER + nodes * BYTES_NODE \
-            + leaves * BYTES_LEAF
+def issued_bytes(stats, lane_bytes) -> float:
+    """Bytes as issued by one K1 / K2 launch, from its counters ``stats``
+    (``traversal_wide.walk_stats``)."""
     return (lane_bytes + stats["enters"] * BYTES_ENTER
             + stats["quantised_node_visits"] * BYTES_QNODE
             + stats["exact_lane_node_visits"] * BYTES_XLANE
@@ -537,16 +521,14 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
 
     dev = scene.tr_p0.device
     t_gather = time.perf_counter()
-    problems, runs, runs_first = [], {}, {}
+    problems, runs = [], {}
     for label, bench in (("gather", mb_gather), ("chained", mb_chained),
                          ("table_gather", mb_table_gather), ("table_rowsum", mb_table_rowsum)):
         for key in gather.LAUNCH.values():
             trace.counters.pop(key, None)
-            trace.counters.pop(key + ".first", None)
         with contextlib.redirect_stdout(io.StringIO()):
             lines = bench.main([])
         runs[label] = {k: trace.counters[v] for k, v in gather.LAUNCH.items()}
-        runs_first[label] = {k: trace.counters[v + ".first"] for k, v in gather.LAUNCH.items()}
         checks = {f"{line['name']}.{k}": v for line in lines for k, v in line.items()
                   if k in ("match", "exact", "j_equal", "per_call_equal")}
         emit("gather_bench", bench=label, module=f"raytracer_tpu_torch.microbench.{label}",
@@ -576,60 +558,33 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
             j = gather.next_index(j, table[j.long(), 0] * t, i, t)
         return int(seen.sum())
 
-    def turns(fns: dict, reps: int) -> dict:
-        """Each function's ms (CUDA events) and device ms, timed in turns (a, b,
-        ..., b, a): {name: {ms, device_ms (the means), device_ms_turns}}."""
-        got = {k: ([], []) for k in fns}
-        for k in list(fns) + list(fns)[::-1]:
-            got[k][0].append(cuda_ms(fns[k], reps))
-            got[k][1].append(microbench.device_ms(fns[k], dev, reps))
-        return {k: {"ms": sum(m) / len(m), "device_ms": sum(d) / len(d), "device_ms_turns": d}
-                for k, (m, d) in got.items()}
-
     def gather_row(name, replaces, run, key, kernel, plain, bnd, library=None, reps=50,
-                   first=None, issued=None, **extra):
-        """One kernel row; ``first``: the kernel's first form (K12, K13), held to
-        the plain version too and timed in turns with the new form.  The row's
-        launches are its new form's (the first form's stand in ``first_form``)."""
-        first_launches = runs_first[run].get(key, 0)
-        launches[name] = runs[run][key] - first_launches
-        if launches[name] <= 0 or (first is not None and first_launches <= 0):
-            problems.append(f"{name} launched {launches[name]} times in microbench.{run}, "
-                            f"its first form {first_launches}")
-        want = plain()
-        exact, err = gather_err(kernel(), want)
-        if first is None:
-            t = {"new": {"ms": cuda_ms(kernel, reps),
-                         "device_ms": microbench.device_ms(kernel, dev)}}
-        else:
-            first_exact, first_err = gather_err(first(), want)
-            t = turns({"first": first, "new": kernel}, reps)
-            extra["device_ms_turns"] = t["new"]["device_ms_turns"]
-            extra["first_form"] = dict(t["first"], exact=first_exact, max_abs_err=first_err,
-                                       launches=first_launches)
-            extra["speedup_device"] = t["first"]["device_ms"] / t["new"]["device_ms"]
-            exact = exact and first_exact
+                   issued=None, **extra):
+        """One kernel row, its launches those of microbench.``run``."""
+        launches[name] = runs[run][key]
+        if launches[name] <= 0:
+            problems.append(f"{name} launched {launches[name]} times in microbench.{run}")
+        exact, err = gather_err(kernel(), plain())
+        dev_ms = microbench.device_ms(kernel, dev)
         if issued is not None:
             extra["bytes_as_issued"] = issued
-            extra["issued_per_s"] = issued / (t["new"]["device_ms"] / 1e3)
-            if first is not None:
-                extra["first_form"]["issued_per_s"] = issued / (t["first"]["device_ms"] / 1e3)
+            extra["issued_per_s"] = issued / (dev_ms / 1e3)
         record(name, "raytracer_tpu_torch/csrc/gather.cu", replaces, err,
-               t["new"]["ms"], cuda_ms(plain, 5), bnd,
+               cuda_ms(kernel, reps), cuda_ms(plain, 5), bnd,
                None if library is None else cuda_ms(library, reps), exact,
-               device_ms=t["new"]["device_ms"],
-               microbench=f"raytracer_tpu_torch.microbench.{run}", **extra)
+               device_ms=dev_ms, microbench=f"raytracer_tpu_torch.microbench.{run}", **extra)
 
-    def both_forms(table, lanes, steps, reps=50) -> dict:
-        """K12 in both forms over ``table``: {form: {exact, ms, device_ms,
-        bytes_as_issued, issued_per_s}}, timed in turns."""
-        want = gather.chained_gather_plain(table, lanes, steps)
-        fns = {f: (lambda f=f: gather.chained_gather(table, lanes, steps, form=f))
-               for f in gather.K12_FORMS}
-        t = turns(fns, reps)
+    def k12_over(table, lanes, steps, reps=50) -> dict:
+        """K12 over ``table``: {exact, ms, device_ms, bytes_as_issued,
+        issued_per_s}."""
+        def fn():
+            return gather.chained_gather(table, lanes, steps)
+
+        dev_ms = microbench.device_ms(fn, dev, reps)
         issued = lanes.shape[0] * steps * table.shape[1] * 4
-        return {f: dict(t[f], exact=gather_err(fns[f](), want)[0], bytes_as_issued=issued,
-                        issued_per_s=issued / (t[f]["device_ms"] / 1e3)) for f in fns}
+        return {"exact": gather_err(fn(), gather.chained_gather_plain(table, lanes, steps))[0],
+                "ms": cuda_ms(fn, reps), "device_ms": dev_ms, "bytes_as_issued": issued,
+                "issued_per_s": issued / (dev_ms / 1e3)}
 
     _, padded, idx = mb_gather.inputs(dev)
     k11_bytes = (torch.unique(idx).numel() * padded.shape[1] * 4 + nbytes(idx)
@@ -663,38 +618,32 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
                lambda: gather.chained_gather_plain(table, idx, iters),
                bound_ms(rows * width * 4 + nbytes(idx) + n * 8,
                         n * iters * (width - 1 + OPS_CHAIN_STEP)),
-               first=lambda: gather.chained_gather(table, idx, iters, form="first"),
                issued=n * iters * width * 4,
                shape={"table": list(table.shape), "lanes": n, "iters": iters},
-               rows_read=rows, tolerance="acc and j equal on every lane, both forms")
+               rows_read=rows, tolerance="acc and j equal on every lane")
     del table, idx
 
     table, idx, idx_all = mb_chained.inputs(dev)
     n, iters, width = idx.shape[0], mb_chained.ITERS, table.shape[1]
     rows = chain_rows(table, idx, iters)
     issued = n * iters * width * 4
-    indep_want = gather.indep_gather_plain(table, idx_all)
-    indep_forms = {f: (lambda f=f: gather.indep_gather(table, idx_all, form=f))
-                   for f in gather.K12_FORMS}
-    indep_t = turns(indep_forms, 50)
-    indep = {"launches": runs["chained"]["indep"] - runs_first["chained"]["indep"],
-             "first_launches": runs_first["chained"]["indep"]}
-    for f, fn in indep_forms.items():
-        f_exact, f_err = gather_err(fn(), indep_want)
-        indep[f] = dict(indep_t[f], exact=f_exact, max_abs_err=f_err)
-        if not f_exact:
-            problems.append(f"K12 indep ({f}) differs from its plain version by {f_err}")
+    def indep_fn():
+        return gather.indep_gather(table, idx_all)
+
+    i_exact, i_err = gather_err(indep_fn(), gather.indep_gather_plain(table, idx_all))
+    indep = {"launches": runs["chained"]["indep"], "exact": i_exact, "max_abs_err": i_err,
+             "ms": cuda_ms(indep_fn, 50), "device_ms": microbench.device_ms(indep_fn, dev)}
+    if not i_exact:
+        problems.append(f"K12 indep differs from its plain version by {i_err}")
     gather_row("chained_gather", "scratch/bench_pallas_chained.py:25 pallas_gather "
                "(in make_fn :67-84)", "chained", "chained",
                lambda: gather.chained_gather(table, idx, iters),
                lambda: gather.chained_gather_plain(table, idx, iters),
                bound_ms(rows * width * 4 + nbytes(idx) + n * 8,
                         n * iters * (width - 1 + OPS_CHAIN_STEP)),
-               first=lambda: gather.chained_gather(table, idx, iters, form="first"),
                issued=issued, shape={"table": list(table.shape), "lanes": n, "iters": iters},
                rows_read=rows, bound_as_issued_ms=issued / PEAK_BYTES_PER_S * 1e3,
-               indep=indep, tolerance="acc and j equal on every lane, both forms; indep's "
-               "acc equal, both forms")
+               indep=indep, tolerance="acc and j equal on every lane; indep's acc equal")
     del table, idx, idx_all
 
     tab, idx = mb_table_rowsum.inputs(dev)
@@ -703,19 +652,16 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
                "rowsum", lambda: gather.table_rowsum(tab, idx),
                lambda: gather.table_rowsum_plain(tab, idx),
                bound_ms(nbytes(tab, idx) + n * 4, n * (comps - 1)),
-               first=lambda: gather.table_rowsum(tab, idx, form="first"),
                shape={"table": list(tab.shape), "lanes": n},
                smem_floor_as_issued_ms=n * comps * 4 / SMEM_BYTES_PER_S * 1e3,
-               tolerance="equal on every lane, both forms (both sum left to right)")
+               tolerance="equal on every lane (both sum left to right)")
     gather_row("table_rowsum_chain", "scratch/bench_vmem_invreg.py:39 in_kernel",
                "table_rowsum", "rowsum_chain", lambda: gather.table_rowsum_chain(tab, idx, iters),
                lambda: gather.table_rowsum_chain_plain(tab, idx, iters),
                bound_ms(nbytes(tab, idx) + n * 8, n * iters * (comps - 1 + OPS_CHAIN_STEP)),
-               first=lambda: gather.table_rowsum_chain(tab, idx, iters, form="first"),
                shape={"table": list(tab.shape), "lanes": n, "iters": iters},
                smem_floor_as_issued_ms=n * iters * comps * 4 / SMEM_BYTES_PER_S * 1e3,
-               tolerance="acc and j equal on every lane, both forms (j follows the float "
-               "sum)")
+               tolerance="acc and j equal on every lane (j follows the float sum)")
     del tab, idx
 
     # K12 on config3's own wide table: one dependent 288-byte row a step, 10
@@ -724,37 +670,35 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
     n, iters = WIDTH * HEIGHT, WIDE_CHAIN_ITERS
     idx = torch.from_numpy(np.random.default_rng(0).integers(
         0, wide.shape[0], n).astype(np.int32)).to(dev)
-    forms = both_forms(wide, idx, iters)
-    same = all(f["exact"] for f in forms.values())
-    w_ms = forms["warp"]["ms"]
+    k12 = k12_over(wide, idx, iters)
+    same = k12["exact"]
+    w_ms = k12["ms"]
     rows = chain_rows(wide, idx, iters)
     # the latency of one dependent row: one warp an SM, so no row waits for bandwidth
     lat_n = torch.cuda.get_device_properties(dev).multi_processor_count * 32 \
         if dev.type == "cuda" else 32
-    latency = {"lanes": lat_n, "steps": LATENCY_STEPS}
-    for f in gather.K12_FORMS:
-        lat_ms = cuda_ms(lambda f=f: gather.chained_gather(wide, idx[:lat_n], LATENCY_STEPS,
-                                                           form=f), 5)
-        latency[f] = {"ms": lat_ms, "ns_per_step": lat_ms * 1e6 / LATENCY_STEPS}
+    lat_ms = cuda_ms(lambda: gather.chained_gather(wide, idx[:lat_n], LATENCY_STEPS), 5)
+    latency = {"lanes": lat_n, "steps": LATENCY_STEPS, "ms": lat_ms,
+               "ns_per_step": lat_ms * 1e6 / LATENCY_STEPS}
     # the same chains over the rows cut to the quantised node record's width
     # (QUANT_ROW_FLOATS): the floor a narrower record could reach
     narrow = wide[:, :QUANT_ROW_FLOATS].contiguous()
-    narrow_forms = both_forms(narrow, idx, iters)
-    n_same = all(f["exact"] for f in narrow_forms.values())
-    narrow_row = {"row_floats": narrow.shape[1], "forms": narrow_forms,
-                  "over_wide": narrow_forms["warp"]["device_ms"] / forms["warp"]["device_ms"]}
+    narrow_row = dict(k12_over(narrow, idx, iters), row_floats=narrow.shape[1])
+    n_same = narrow_row["exact"]
+    narrow_row["over_wide"] = narrow_row["device_ms"] / k12["device_ms"]
     del narrow
     k1 = next(r for r in report if r["name"] == "traverse_closest")
     k1_walk = walk_visits["traverse_closest"]
     emit("gather_wide_table", table=list(wide.shape), lanes=n, iters=iters, exact=same,
-         ms=w_ms, device_ms=forms["warp"]["device_ms"],
-         ns_per_lane_iter=w_ms * 1e6 / (n * iters), forms=forms, rows_read=rows,
+         ms=w_ms, device_ms=k12["device_ms"], bytes_as_issued=k12["bytes_as_issued"],
+         issued_per_s=k12["issued_per_s"], ns_per_lane_iter=w_ms * 1e6 / (n * iters),
+         rows_read=rows,
          bound_ms=bound_ms(rows * wide.shape[1] * 4 + nbytes(idx) + n * 8,
                            n * iters * (wide.shape[1] - 1 + OPS_CHAIN_STEP))[0],
          latency=latency, k1_ms=k1["ms"], k1_bound_ms=k1["bound_ms"], k1_walk=k1_walk,
          k1_visits_per_active_lane=(k1_walk["node_visits"] + k1_walk["leaf_visits"])
          / max(k1_walk["active"], 1),
-         k1_over_chain={f: k1["ms"] / forms[f]["ms"] for f in forms}, narrow=narrow_row,
+         k1_over_chain=k1["ms"] / w_ms, narrow=narrow_row,
          nvidia_smi=smi)
     if not n_same:
         problems.append("K12 on config3's cut table differs from its plain version")
@@ -764,7 +708,7 @@ def gather_phase(scene, record, launches: dict, report: list, walk_visits: dict,
 
     # K12 over the threaded walk's box rows (K10's table), 54 dependent rows a
     # lane (K10's node visits a primary ray): the rows as they are, 24 bytes
-    # with 32-bit loads, and padded to 32 bytes with 16-byte loads in both forms
+    # with 32-bit loads, and padded to 32 bytes with 16-byte loads
     floors = mb_threaded.chain_floor(traversal.build_scene_bvh(scene), WIDTH * HEIGHT,
                                      mb_threaded.CHAIN_ITERS, dev, 20)
     k10 = next(r for r in report if r["name"] == "threaded_closest")
@@ -1481,7 +1425,7 @@ def main(argv=None) -> int:
              fwd_bwd_mrays_per_s=rays_of(mtcounters) / (mstep_ms / 1e3) / 1e6,
              step_counters=mtcounters, step_launches={k: n for k, n in
                                                       mstep_launches.items() if n},
-             texture_kernel_ms_in_step=mkernel_ms, step_profile=mprofile, grad_norms=mnorms,
+             texture_ms_in_step=mkernel_ms, step_profile=mprofile, grad_norms=mnorms,
              max_memory_allocated_bytes=mpeak, nvidia_smi=smi)
         problems = []
         if mlaunches[k3_name] <= 0 or mstep_launches[k4_name] <= 0:
@@ -1790,17 +1734,12 @@ def main(argv=None) -> int:
                       "lanes": direction.shape[0], "lanes_other_texel": frac}
 
     def check_texture(tex, lanes, tcfg, data4):
-        """K3 against sample_plain, and its vector form's bits against its first
-        form's."""
+        """K3 against sample_plain."""
         got = texture_sample.sample(tex, *lanes, tcfg, data4=data4)
         err = (got - texture_sample.sample_plain(tex, *lanes, tcfg, data4)).abs().amax(dim=1)
-        first = texture_sample.sample_forward(tex, lanes, texture_sample.filter_of(tcfg), data4,
-                                              "first")
-        differ = int((got.view(torch.int32) != first.view(torch.int32)).any(dim=1).sum())
         frac = float((err <= 1e-5).float().mean())
-        return {"max_abs_err": float(err.max()), "passed": frac >= 0.999 and differ == 0,
-                "lanes": err.shape[0], "lanes_within_tolerance": frac,
-                "lanes_differ_from_first_form": differ}
+        return {"max_abs_err": float(err.max()), "passed": frac >= 0.999,
+                "lanes": err.shape[0], "lanes_within_tolerance": frac}
 
     def check_compact(flags):
         k_idx, k_n = compaction.compact(flags)
@@ -1813,45 +1752,34 @@ def main(argv=None) -> int:
         return kcfg.traversal_strategy == TraversalStrategy.ORDERED
 
     def check_traverse(any_hit, bvh, o, d, t_max, active, kcfg):
-        """K1 / K2 against the plain walk, the renderer's quantised form (through
-        trace_closest / trace_any) and the exact-record form; the quantised
-        form's counters against the plain walk's (which also holds the
+        """K1 / K2 (through trace_closest / trace_any) against the plain walk; the
+        kernel's counters against the plain walk's (which also holds the
         quantised test to the exact one at every node visit).  Also returns the
         walk (its visits count the work)."""
         walk = traversal_wide.trace_plain(bvh, o, d, t_max, active, kcfg.wide_stack_size,
                                           ordered(kcfg), any_hit, quantised=True)
-        forms = {}
-        for form in traversal_wide.FORMS:
-            if form == "exact":
-                kt, kbest, ksteps, kfound, kinc = traversal_wide.trace_form(
-                    form, any_hit, bvh, o, d, t_max, active, kcfg)
-            elif any_hit:
-                kfound, kinc = traversal_wide.trace_any(bvh, o, d, t_max, active, kcfg)
-            else:
-                res = traversal_wide.trace_closest(bvh, o, d, t_max, active, kcfg)
-                kt, kinc, ksteps = res.t, res.incomplete, res.steps
-                kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
-            if any_hit:
-                same = bool(torch.equal(kfound, walk.found))
-                got = {"max_abs_err": 0.0 if same else float("inf"),
-                       "found_differs": int((kfound != walk.found).sum())}
-            else:
-                same = bool(torch.equal(kbest, walk.best) and torch.equal(ksteps, walk.steps))
-                fin = torch.isfinite(walk.t)
-                gap = (kt - walk.t)[fin].abs()
-                rel = float((gap / walk.t[fin].abs()).max()) if bool(fin.any()) else 0.0
-                same = same and rel <= 1e-6
-                got = {"max_abs_err": float(gap.max()) if bool(fin.any()) else 0.0,
-                       "ids_differ": int((kbest != walk.best).sum()),
-                       "steps_differ": int((ksteps != walk.steps).sum()), "t_max_rel": rel}
-            got.update(passed=same and int(kinc) == 0, incomplete=int(kinc))
-            forms[form] = got
+        if any_hit:
+            kfound, kinc = traversal_wide.trace_any(bvh, o, d, t_max, active, kcfg)
+            same = bool(torch.equal(kfound, walk.found))
+            got = {"max_abs_err": 0.0 if same else float("inf"),
+                   "found_differs": int((kfound != walk.found).sum())}
+        else:
+            res = traversal_wide.trace_closest(bvh, o, d, t_max, active, kcfg)
+            kt, kinc, ksteps = res.t, res.incomplete, res.steps
+            kbest = torch.where(res.tri >= 0, (res.tri << 8) | (res.inst + 1), -1)
+            same = bool(torch.equal(kbest, walk.best) and torch.equal(ksteps, walk.steps))
+            fin = torch.isfinite(walk.t)
+            gap = (kt - walk.t)[fin].abs()
+            rel = float((gap / walk.t[fin].abs()).max()) if bool(fin.any()) else 0.0
+            same = same and rel <= 1e-6
+            got = {"max_abs_err": float(gap.max()) if bool(fin.any()) else 0.0,
+                   "ids_differ": int((kbest != walk.best).sum()),
+                   "steps_differ": int((ksteps != walk.steps).sum()), "t_max_rel": rel}
         stats = traversal_wide.walk_stats(any_hit, bvh, o, d, t_max, active, kcfg)
         stats_equal = stats == {k: walk.quant[k] for k in traversal_wide.STATS}
-        got = forms.pop("quantised")
-        got.update(passed=got["passed"] and forms["exact"]["passed"] and stats_equal
+        got.update(passed=same and int(kinc) == 0 and stats_equal
                    and walk.quant["bits_differ"] == 0 and int(walk.incomplete) == 0,
-                   lanes=o.shape[0], active=int(active.sum()), exact_form=forms["exact"],
+                   incomplete=int(kinc), lanes=o.shape[0], active=int(active.sum()),
                    stats=stats, stats_equal_plain=stats_equal,
                    bits_differ=walk.quant["bits_differ"])
         return got, walk
@@ -2022,50 +1950,24 @@ def main(argv=None) -> int:
         if config4 is not None:
             fmax, fpassed = max(fmax, config4["max_abs_err"]), fpassed and config4["passed"]
             fcheck["config4_900x600"] = config4
-        # both forms launched alone (sample_forward, no autograd.Function), in
-        # turns: first, vector, vector, first
-        def form_run(form):
-            return lambda: texture_sample.sample_forward(tex, lanes_in, filt, data4, form)
+        # the kernel launched alone (sample_forward, no autograd.Function)
+        def forward(f=filt):
+            return texture_sample.sample_forward(tex, lanes_in, f, data4)
 
-        form_dev = {f: [] for f in texture_sample.FWD_FORMS}
-        for f in ("first", "vector", "vector", "first"):
-            form_dev[f].append(microbench.device_ms(form_run(f), dev))
-        k3_dev = min(form_dev["vector"])
-        first_dev = min(form_dev["first"])
-        first_form = {"ms": cuda_ms(form_run("first"), 20), "device_ms": first_dev,
-                      "device_ms_runs": form_dev["first"],
-                      "kernel": f"texture_kernel<{texture_sample.MODES.index(mode)}>",
-                      "lanes_differ": fcheck["lanes_differ_from_first_form"],
-                      "bit_identical": fcheck["lanes_differ_from_first_form"] == 0
-                      and (config4 is None or config4["lanes_differ_from_first_form"] == 0)}
         span1 = {}
         if mode == "ewa":
-            # the set-up's share: both forms with the window cut to one texel
-            one = filt._replace(ewa_span=1)
-
-            def span1_run(form):
-                return lambda: texture_sample.sample_forward(tex, lanes_in, one, data4, form)
-
-            first_form["device_ms_span1"] = microbench.device_ms(span1_run("first"), dev)
-            span1["forward_device_ms_span1"] = microbench.device_ms(span1_run("vector"), dev)
-        targets = {"first form / vector form (device)": first_dev / k3_dev}
-        if mode == "aniso":
-            targets["device_ms <= 0.0574"] = k3_dev <= 0.0574
-        elif mode == "ewa":
-            targets["first form / vector form >= 2"] = first_dev / k3_dev >= 2.0
-        else:
-            targets["device_ms <= 1.05 x first form"] = k3_dev <= 1.05 * first_dev
+            # the set-up's share: the window cut to one texel
+            span1["forward_device_ms_span1"] = microbench.device_ms(
+                lambda: forward(filt._replace(ewa_span=1)), dev)
         record(f"texture_{mode}", "raytracer_tpu_torch/csrc/texture.cu", replaces, fmax,
                cuda_ms(k3, 20), cuda_ms(p3, 5),
                bound_ms(nbytes(*read_lanes, *atlases, *tex[1:5]) + n * 12, fwd_ops), None,
                fpassed, **fcheck, device_ms=microbench.device_ms(k3, dev),
-               forward_ms=cuda_ms(form_run("vector"), 20), forward_device_ms=k3_dev,
-               forward_device_ms_runs=form_dev["vector"],
-               **span1,
+               forward_ms=cuda_ms(forward, 20),
+               forward_device_ms=microbench.device_ms(forward, dev), **span1,
                kernel=f"vector_kernel<{texture_sample.MODES.index(mode)}>",
-               first_form=first_form, targets=targets, work=work, lane_spread=spread,
-               tolerance="max abs <= 1e-5 on >= 99.9% of lanes; the same bits as the "
-                         "first form on every lane"
+               work=work, lane_spread=spread,
+               tolerance="max abs <= 1e-5 on >= 99.9% of lanes"
                          + (", on config3 and on config4" if config4 else ""))
 
         # A lane whose K3 result differs (another mip level at a rounding
@@ -2162,23 +2064,21 @@ def main(argv=None) -> int:
                   for k, a, b in (("data", first[0], again[0]), ("data4", first[1], again[1]))
                   if a is not None}
         del first, again
-        # every scatter form on these lanes (the per-lane "lane" among them), and the
-        # runs and atomics they give; under ANISOTROPIC also on the training
-        # step's own generations 0 and 1 and on the made-up patterns
-        forms = scatter.k4_measure(tex, lanes_in, kcfg, data4, cot, dev, 20)
+        # the kernel on these lanes, and the runs and atomics it gives; under
+        # ANISOTROPIC also on the training step's own generations 0 and 1 and on
+        # the made-up patterns
+        measured = scatter.k4_measure(tex, lanes_in, kcfg, data4, cot, dev, 20)
         runs = scatter.k4_runs(tex, lanes_in, kcfg, cot)
 
-        def forms_hold(measured) -> bool:
-            """Every form within 1e-5 l2-relative of the float64 sums, or no
-            further from them than the per-lane form on the same inputs (every lane
-            on one row: 2 M float32 adds into one row are ~1e-5 off in any
+        def sums_hold(m) -> bool:
+            """Within 1e-5 l2-relative of the float64 sums, or no further from
+            them than the plain version's float32 sums of the same values (every
+            lane on one row: 2 M float32 adds into one row are ~1e-5 off in any
             order)."""
-            return all(v.get(f"l2_rel_{k}", 0.0)
-                       <= max(1e-5, measured["lane"].get(f"l2_rel_{k}", 0.0))
-                       for v in measured.values() if isinstance(v, dict)
+            return all(m.get(f"l2_rel_{k}", 0.0) <= max(1e-5, m.get(f"plain_l2_rel_{k}", 0.0))
                        for k in ("data", "data4"))
 
-        forms_ok = forms_hold(forms)
+        sums_ok = sums_hold(measured)
         step_gens, patterns = {}, {}
         if mode == "aniso":
             # autograd runs the last generation's backward first
@@ -2188,24 +2088,24 @@ def main(argv=None) -> int:
             for g, ((stex, slanes, _f, sdata4, scot, *_), _) in enumerate(step_calls):
                 step_gens[f"generation{g}"] = {
                     "runs": scatter.k4_runs(stex, slanes, kcfg, scot),
-                    "forms": scatter.k4_measure(stex, slanes, kcfg, sdata4, scot, dev, 20)}
+                    "measured": scatter.k4_measure(stex, slanes, kcfg, sdata4, scot, dev, 20)}
                 if g == 0:
                     for pattern, (plan, pcot) in scatter.k4_patterns(slanes, scot, stex,
                                                                       kcfg).items():
                         patterns[pattern] = {
                             "runs": scatter.k4_runs(stex, plan, kcfg, pcot),
-                            "forms": scatter.k4_measure(stex, plan, kcfg, sdata4, pcot, dev, 5)}
+                            "measured": scatter.k4_measure(stex, plan, kcfg, sdata4, pcot,
+                                                           dev, 5)}
             for entry in (*step_gens.values(), *patterns.values()):
-                forms_ok = forms_ok and forms_hold(entry["forms"])
+                sums_ok = sums_ok and sums_hold(entry["measured"])
         bwd_in = nbytes(*read_lanes, cot, *tex[1:5]) + (0 if data4 is None else nbytes(data4))
         bwd_out = x_rows * (12 * (mode != "bilinear") + 48 * (data4 is not None)) + n * 24
         record(f"texture_{mode}_bwd", "raytracer_tpu_torch/csrc/texture_bwd.cu", replaces,
                max(check.pop("max_abs_err"), top_check["max_abs_err"]), cuda_ms(k4, 20),
                cuda_ms(p4, 1 if mode == "ewa" else 5), bound_ms(bwd_in + bwd_out, bwd_ops),
-               None, check.pop("passed") and top_check["passed"] and forms_ok, work=work,
-               device_ms=microbench.device_ms(k4, dev, 20),
-               atomics_lane_form=runs["atomics_lane_form"],
-               atomics_this_form=runs["atomics_warp_form"], runs=runs, forms=forms,
+               None, check.pop("passed") and top_check["passed"] and sums_ok, work=work,
+               device_ms=microbench.device_ms(k4, dev, 20), atomics=runs["atomics"], runs=runs,
+               measured=measured,
                **step_gens, patterns=patterns, **check, top_texel_check=top_check,
                run_to_run=spread,
                tolerance="data and data4 gradients within 1e-5 l2-relative of the float64 "
@@ -2213,9 +2113,9 @@ def main(argv=None) -> int:
                          "autograd unless that is further from the float64 sums than the "
                          "kernel (data on the top-texel check where the mode has one, as "
                          "generation 0 may have no top-texel lane); each lane gradient "
-                         "within 1e-5 of its max |grad| on >= 99.9% of lanes; every scatter "
-                         "form, on every input, within 1e-5 of the float64 sums or no "
-                         "further than the per-lane form")
+                         "within 1e-5 of its max |grad| on >= 99.9% of lanes; on every input, "
+                         "within 1e-5 of the float64 sums or no further than the plain "
+                         "version's float32 sums")
 
     tex_calls = rec.calls["texture_aniso"]
     texture_rows("aniso", tex_calls, config4=on4["texture_aniso"])
@@ -2458,7 +2358,7 @@ def main(argv=None) -> int:
     del parents, sel
 
     # K1 closest hit, on the primary rays; K2 any hit, on generation 0's shadow
-    # rays; each in the renderer's quantised form and in the exact-record form
+    # rays
     walk_visits = {}  # the walks' visits, beside which the gather phase puts K12's
     for name, any_hit, replaces in (
         ("traverse_closest", False, "raytracer_tpu/ops/traversal_wide.py:503"),
@@ -2475,11 +2375,6 @@ def main(argv=None) -> int:
         lane_bytes = nbytes(o, d, t_max, active) + out_bytes
         st = got["stats"]
         issued = issued_bytes(st, lane_bytes)
-        exact_issued = issued_bytes(None, lane_bytes, nodes, leaves_)
-
-        def exact_fn(any_hit=any_hit, bvh=bvh, o=o, d=d, t_max=t_max, active=active, kcfg=kcfg):
-            return traversal_wide.trace_form("exact", any_hit, bvh, o, d, t_max, active, kcfg)
-
         plain_ms = cuda_ms(lambda: traversal_wide.trace_plain(
             bvh, o, d, t_max, active, kcfg.wide_stack_size, ordered(kcfg), any_hit), 1)
         k_ms = cuda_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), 5)
@@ -2492,26 +2387,21 @@ def main(argv=None) -> int:
         stack = {"entries": traversal_wide.walk_stack(bvh, kcfg.wide_stack_size),
                  "device_ms_at_16": k16_dev, "at_bound_over_at_16": k_dev / k16_dev,
                  "incomplete_at_16": int(k16_out[1] if any_hit else k16_out.incomplete)}
-        x_dev = microbench.device_ms(exact_fn, dev, reps=20)
-        got["exact_form"].update(ms=cuda_ms(exact_fn, 5), device_ms=x_dev,
-                                 bytes_as_issued=exact_issued)
         record(name, "raytracer_tpu_torch/csrc/traverse.cu", replaces,
                max(got.pop("max_abs_err"), on4[name]["max_abs_err"]), k_ms, plain_ms,
                bound_ms(nbytes(o, d, t_max, active, bvh.table, bvh.inst_mat) + out_bytes,
                         (nodes + leaves_) * OPS_ITER + nodes * OPS_NODE
                         + leaves_ * OPS_LEAF), None,
                got.pop("passed") and on4[name]["passed"], **got, device_ms=k_dev,
-               speedup_over_exact_form=x_dev / k_dev, bytes_as_issued=issued, stack=stack,
+               bytes_as_issued=issued, stack=stack,
                undecided_share=st["undecided_children"]
                / max(8 * st["quantised_node_visits"], 1),
                exact_lane_share=st["exact_lanes"] / max(int(active.sum()), 1),
                live_per_leaf_visit=st["live_tests"] / max(st["leaf_visits"], 1),
-               targets={"device_ms <= 1.0": k_dev <= 1.0,
-                        "exact form / quantised >= 1.5": x_dev / k_dev >= 1.5},
                node_visits=nodes, leaf_visits=leaves_, config4_900x600=on4[name],
-               tolerance="ids, steps and found identical; t within 1e-6 relative; "
-                         "both forms, on config3 and on config4; the quantised form's "
-                         "counters equal the plain walk's, its test the exact one's")
+               tolerance="ids, steps and found identical; t within 1e-6 relative; on "
+                         "config3 and on config4; the kernel's counters equal the plain "
+                         "walk's, its quantised test the exact one's")
         del walk
 
     # K7, forward on every generation of config3's frame and of config4's,
@@ -2722,23 +2612,8 @@ def main(argv=None) -> int:
         nodes, pairs = checked[0]["node_visits"], checked[0]["pair_visits"]
         entries, rays = checked[0]["entries"], checked[0]["active"]
         out_bytes = o.shape[0] * (1 if any_hit else 12)
-        # both forms on generation 0, held to the plain walk (the octant form's
-        # any hit over the active lanes K6 lists, as trace_any walks them)
-        forms = {}
-        for form in traversal.FORMS:
-            def run(form=form):
-                return traversal.trace_form(form, any_hit, bvh, o, d, t_max, active, kcfg)
-            kt, kbest, ksteps, kfound, kinc = run()
-            same = (bool(torch.equal(kfound, walk.found)) if any_hit else
-                    bool(torch.equal(kbest, walk.best) and torch.equal(ksteps, walk.steps)
-                         and torch.equal(kt.view(torch.int32), walk.t.view(torch.int32))))
-            forms[form] = {
-                "exact": same and int(kinc) == 0, "ms": cuda_ms(run, 5),
-                "device_ms": microbench.device_ms(run, dev, reps=20),
-                **mb_threaded.traffic(form, bvh, walk, o.shape[0], any_hit)}
         k_dev = microbench.device_ms(lambda: fn(bvh, o, d, t_max, active, kcfg), dev, reps=20)
-        own = forms["octant"]
-        speedup = forms["split"]["device_ms"] / own["device_ms"]  # kernel to kernel
+        traffic = mb_threaded.traffic(walk, o.shape[0], any_hit)
         iters = walk.steps + walk.pairs
         plain_ms = cuda_ms(lambda: traversal.trace_plain(bvh, o, d, t_max, active,
                                                          ordered(kcfg), any_hit), 1)
@@ -2749,65 +2624,43 @@ def main(argv=None) -> int:
                                bvh.inst_root, bvh.tri) + out_bytes,
                         rays * OPS_TRAY + entries * OPS_TENTRY + nodes * OPS_TNODE
                         + pairs * OPS_TPAIR),
-               None, all(c["passed"] for c in checked + checked4)
-               and all(f["exact"] for f in forms.values()),
-               device_ms=k_dev, kernel=f"rec_kernel<{str(any_hit).lower()}>",
-               split_form={k: forms["split"][k] for k in ("ms", "device_ms", "bytes_as_issued",
-                                                         "sectors_touched")},
-               speedup_over_split_form=speedup,
-               bytes_as_issued=own["bytes_as_issued"], sectors_touched=own["sectors_touched"],
-               forms=forms, tables=mb_threaded.tables(bvh),
+               None, all(c["passed"] for c in checked + checked4),
+               device_ms=k_dev, kernel=f"rec_kernel<{str(any_hit).lower()}>", **traffic,
+               tables=mb_threaded.tables(bvh),
                warp_efficiency=mb_threaded.warp_efficiency(iters),
                warp_efficiency_compacted=mb_threaded.warp_efficiency(iters[active]),
-               targets={"device_ms <= 1.0": k_dev <= 1.0,
-                        "split form / octant form >= 1.5": speedup >= 1.5,
-                        "split form / octant form >= 1.3": speedup >= 1.3},
                node_visits=nodes, pair_visits=pairs, entries=entries,
                per_generation=checked, config4_per_generation=checked4,
                tolerance="ids, t, steps and found identical on every lane of every "
                          "generation of the threaded 1080p frame and of config4's "
-                         "threaded frame; every form identical on generation 0")
+                         "threaded frame")
         del walk
     del threaded_calls, threaded4_calls
     del inputs
 
-    # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame,
-    # in its tile form and its first form (device times in turns: first, tile,
-    # tile, first)
+    # K8 FXAA on config4's frame (the app's shape) and on config3's 1080p frame
     fx = {}
     for label, img_in in (("900x600", rec4.inputs["fxaa"][0][0]), ("1920x1080", image)):
         px = img_in.shape[0] * img_in.shape[1]
         got = fxaa.fxaa(img_in)
         err = (got - fxaa.fxaa_plain(img_in)).abs().amax(dim=-1)
-        differ = int((got.view(torch.int32) != fxaa.fxaa_form("first", img_in)
-                      .view(torch.int32)).any(dim=-1).sum())
-        form_dev = {f: [] for f in fxaa.FORMS}
-        for f in ("first", "tile", "tile", "first"):
-            form_dev[f].append(microbench.device_ms(lambda f=f: fxaa.fxaa_form(f, img_in), dev))
         fx[label] = {
             "pixels": px, "max_abs_err": float(err.max()),
             "pixels_within_tolerance": float((err <= 1e-5).float().mean()),
             "mean_abs_err": float(err.mean()),
             "ms": cuda_ms(lambda: fxaa.fxaa(img_in), 20),
-            "device_ms": min(form_dev["tile"]), "device_ms_runs": form_dev["tile"],
+            "device_ms": microbench.device_ms(lambda: fxaa.fxaa(img_in), dev),
             "plain_ms": cuda_ms(lambda: fxaa.fxaa_plain(img_in), 5),
-            "first_form": {"ms": cuda_ms(lambda: fxaa.fxaa_form("first", img_in), 20),
-                           "device_ms": min(form_dev["first"]),
-                           "device_ms_runs": form_dev["first"], "pixels_differ": differ,
-                           "bit_identical": differ == 0},
-            "first_form_over_tile_form": min(form_dev["first"]) / min(form_dev["tile"]),
             "bound": bound_ms(2 * nbytes(img_in), px * OPS_FXAA)}
     fx_ok = all(v["pixels_within_tolerance"] >= 0.999 and v["mean_abs_err"] <= 1e-6
-                and v["first_form"]["bit_identical"] for v in fx.values())
+                for v in fx.values())
     row = fx.pop("900x600")
     record("fxaa", "raytracer_tpu_torch/csrc/fxaa.cu", "raytracer_tpu/ops/fxaa.py:45",
            row.pop("max_abs_err"), row.pop("ms"), row.pop("plain_ms"), row.pop("bound"),
            None, fx_ok, **row, kernel="tile_kernel",
-           targets={"first form / tile form >= 3": row["first_form_over_tile_form"] >= 3},
            launches_per_frame=app_launches["fxaa"] / APP_FRAMES,
            at_1920x1080={**fx["1920x1080"], "bound_ms": fx["1920x1080"].pop("bound")[0]},
-           tolerance="<= 1e-5 abs on >= 99.9% of pixels, mean <= 1e-6, and the same bits "
-                     "as the first form on every pixel, at both sizes")
+           tolerance="<= 1e-5 abs on >= 99.9% of pixels, mean <= 1e-6, at both sizes")
 
     # K9, timed on config4's generation 0: the primaries' closest hit, the shadow
     # rays' any hit (3 lights in one launch).  Its check covers every generation

@@ -17,15 +17,13 @@
 // Bound on the H100: bytes.  The image is read once (12 B per pixel) and
 // written once (12 B), against ~300 float operations per pixel.
 //
-// Two forms.  fxaa_kernel is the first design, kept as the yardstick
-// (fxaa.fxaa_form("first", image)): one thread per output pixel, each of its
-// 21 texel reads gamma'd anew (63 powf a pixel).  tile_kernel is the
-// renderer's: a block of 32x16 pixels first writes the gamma-space texels of
-// its pixels and a halo of 4 before and 5 after (41x25, with their luma) into
-// shared memory, each once; every pixel then runs the first form's arithmetic
-// on them and gives its bits.  Left undone: ~2 gamma texels a pixel remain
-// (3 powf each), and the tile's loads and the taps' reads of shared memory
-// are not vectorised.
+// A thread per pixel that gammas each of its 21 texel reads anew runs 63 powf
+// a pixel (the first design, removed; PERF.md section 6).  tile_kernel's block
+// of 32x16 pixels first writes the gamma-space texels of its pixels and a halo
+// of 4 before and 5 after (41x25, with their luma) into shared memory, each
+// once; every pixel then runs the plain version's arithmetic on them.  Left
+// undone: ~2 gamma texels a pixel remain (3 powf each), and the tile's loads
+// and the taps' reads of shared memory are not vectorised.
 #include "common.cuh"
 
 namespace {
@@ -56,20 +54,6 @@ struct Image {
   __device__ Rgb clamped(int y, int x) const {
     return at(min(max(y, 0), h - 1), min(max(x, 0), w - 1));
   }
-
-  // fxaa._bilinear_tap
-  __device__ Rgb bilinear(float x, float y) const {
-    x = rt::nan_min(rt::nan_max(x, 0.0f), (float)w - 1.0f);
-    y = rt::nan_min(rt::nan_max(y, 0.0f), (float)h - 1.0f);
-    int x0 = (int)floorf(x), y0 = (int)floorf(y);
-    int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
-    float fx = x - (float)x0, fy = y - (float)y0;
-    float gx = 1.0f - fx, gy = 1.0f - fy;
-    Rgb p00 = at(y0, x0), p10 = at(y0, x1), p01 = at(y1, x0), p11 = at(y1, x1);
-    return {p00.r * gx * gy + p10.r * fx * gy + p01.r * gx * fy + p11.r * fx * fy,
-            p00.g * gx * gy + p10.g * fx * gy + p01.g * gx * fy + p11.g * fx * fy,
-            p00.b * gx * gy + p10.b * fx * gy + p01.b * gx * fy + p11.b * fx * fy};
-  }
 };
 
 __device__ __forceinline__ float luma(Rgb c) { return c.r * kLumaR + c.g * kLumaG + c.b * kLumaB; }
@@ -78,51 +62,14 @@ __device__ __forceinline__ Rgb mean2(Rgb a, Rgb b) {
   return {0.5f * (a.r + b.r), 0.5f * (a.g + b.g), 0.5f * (a.b + b.b)};
 }
 
-__global__ void fxaa_kernel(Image img, float* __restrict__ out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)img.h * img.w) return;
-  int y = (int)(i / img.w), x = (int)(i % img.w);
-
-  float l_tl = luma(img.clamped(y - 1, x - 1));
-  float l_tr = luma(img.clamped(y - 1, x + 1));
-  float l_bl = luma(img.clamped(y + 1, x - 1));
-  float l_br = luma(img.clamped(y + 1, x + 1));
-  float l_m = luma(img.at(y, x));
-
-  float l_min = rt::nan_min(rt::nan_min(rt::nan_min(l_tl, l_tr), rt::nan_min(l_bl, l_br)), l_m);
-  float l_max = rt::nan_max(rt::nan_max(rt::nan_max(l_tl, l_tr), rt::nan_max(l_bl, l_br)), l_m);
-
-  float dir_x = (l_bl + l_br) - (l_tl + l_tr);
-  float dir_y = (l_tl + l_bl) - (l_tr + l_br);
-  float reduce = rt::nan_max((l_tl + l_tr + l_bl + l_br) * 0.25f * kReduceMul, kReduceMin);
-  float adjust = 1.0f / (rt::nan_min(fabsf(dir_x), fabsf(dir_y)) + reduce);
-  dir_x = rt::nan_min(rt::nan_max(dir_x * adjust, -kSpanMax), kSpanMax);
-  dir_y = rt::nan_min(rt::nan_max(dir_y * adjust, -kSpanMax), kSpanMax);
-
-  float xf = (float)x, yf = (float)y;
-  const float k0 = (float)(1.0 / 3.0 - 0.5), k1 = (float)(2.0 / 3.0 - 0.5);
-  Rgb ra = mean2(img.bilinear(xf + dir_x * k0, yf + dir_y * k0),
-                 img.bilinear(xf + dir_x * k1, yf + dir_y * k1));
-  Rgb rb = mean2(img.bilinear(xf + dir_x * -0.5f, yf + dir_y * -0.5f),
-                 img.bilinear(xf + dir_x * 0.5f, yf + dir_y * 0.5f));
-  Rgb res = mean2(ra, rb);
-  float l_res = luma(res);
-  Rgb o = (l_res < l_min || l_res > l_max) ? ra : res;
-  out[3 * i + 0] = o.r;
-  out[3 * i + 1] = o.g;
-  out[3 * i + 2] = o.b;
-}
-
-// ------------------------------------------------------------------ the tile form
-// The renderer's form.  A block of kTileW x kTileH pixels first writes the
-// gamma-space texels (and their luma) of its pixels and a halo into shared
-// memory, each texel once, with Image::gamma's powf on the same inputs; then
-// every pixel runs fxaa_kernel's arithmetic on those values, so its output is
-// the first form's, bit for bit.  A finite tap direction is clamped to +-8 px
-// and the taps sit at k in [-1/2, 1/2] along it, so a tap's texels lie within
-// kHaloLo before and kHaloHi after the pixel (x1 = x0 + 1 adds the one);
-// a tap outside the tile (a NaN direction, from a NaN centre or diagonal)
-// reads the image with Image::at.
+// A block of kTileW x kTileH pixels first writes the gamma-space texels (and
+// their luma) of its pixels and a halo into shared memory, each texel once,
+// with Image::gamma's powf on the same inputs; then every pixel runs the plain
+// version's expressions in its order on those values.  A finite tap direction
+// is clamped to +-8 px and the taps sit at k in [-1/2, 1/2] along it, so a
+// tap's texels lie within kHaloLo before and kHaloHi after the pixel (x1 = x0
+// + 1 adds the one); a tap outside the tile (a NaN direction, from a NaN
+// centre or diagonal) reads the image with Image::at.
 
 constexpr int kTileW = 32, kTileH = 16;  // pixels a block
 constexpr int kHaloLo = 4, kHaloHi = 5;
@@ -145,7 +92,7 @@ struct TileAt {
   __device__ Rgb rgb(int k) const { return {t.r[k], t.g[k], t.b[k]}; }
 };
 
-// Image::bilinear on the tile; the same expressions
+// fxaa._bilinear_tap on the tile, the image's texels outside it
 __device__ __forceinline__ Rgb tile_bilinear(const TileAt& tl, const Image& img, float x,
                                              float y) {
   x = rt::nan_min(rt::nan_max(x, 0.0f), (float)img.w - 1.0f);
@@ -218,28 +165,15 @@ __global__ void __launch_bounds__(kTileW * kTileH) tile_kernel(Image img,
   out[3 * i + 2] = o.b;
 }
 
-// The forms of rt_fxaa, in the order of fxaa.py's FORMS.
-enum Form { kTile = 0, kFirst = 1 };
-
 }  // namespace
 
 // image, out: [h,w,3] f32, row-major; halo_lo, halo_hi: the halo the caller
-// counts on (fxaa.py's HALO), which must be the tile form's.
-extern "C" int rt_fxaa(const void* image, int h, int w, int form, int halo_lo, int halo_hi,
-                       void* out, void* stream) {
+// counts on (fxaa.py's HALO), which must be the kernel's.
+extern "C" int rt_fxaa(const void* image, int h, int w, int halo_lo, int halo_hi, void* out,
+                       void* stream) {
   if (halo_lo != kHaloLo || halo_hi != kHaloHi) return (int)cudaErrorInvalidValue;
   const Image img{(const float*)image, h, w};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (form == kTile) {
-    const dim3 grid((unsigned)((w + kTileW - 1) / kTileW), (unsigned)((h + kTileH - 1) / kTileH));
-    tile_kernel<<<grid, dim3(kTileW, kTileH), 0, st>>>(img, (float*)out);
-  } else if (form == kFirst) {
-    constexpr int kBlock = 256;
-    long long n = (long long)h * w;
-    unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
-    fxaa_kernel<<<grid, kBlock, 0, st>>>(img, (float*)out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((unsigned)((w + kTileW - 1) / kTileW), (unsigned)((h + kTileH - 1) / kTileH));
+  tile_kernel<<<grid, dim3(kTileW, kTileH), 0, (cudaStream_t)stream>>>(img, (float*)out);
   return (int)cudaGetLastError();
 }

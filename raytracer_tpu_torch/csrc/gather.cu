@@ -47,17 +47,14 @@
 // With kIndep the indices come from idx_all[i, n] instead
 // (bench_pallas_chained.py:107-113).  Every step reads the whole row from
 // global memory and sums it left to right, as ops/gather.py's, so acc and j
-// equal the plain version's.  Two forms:
-//   - chain_warp_kernel<kR4, kIndep> (the warp form, the default): a warp's 32
-//     chains fetch their rows together, 32 consecutive 16-byte pieces an
-//     instruction, through a slot of shared memory (see the kernel).
-//   - chain_kernel<kR4, kIndep> (the first form, the yardstick): one thread
-//     reads its own row, R/4 16-byte loads (R = 72 and 128 unrolled whole), as
-//     K1 and K10 read a node record: each load instruction of a warp touches
-//     32 different lines.
-// chain_scalar_kernel reads rows of any width with 32-bit loads (the threaded
-// walk's 24-byte box rows, whose stride straddles 32-byte sectors), one thread
-// a chain, its one form.
+// equal the plain version's.  chain_warp_kernel<kR4, kIndep>: a warp's 32
+// chains fetch their rows together, 32 consecutive 16-byte pieces an
+// instruction, through a slot of shared memory (see the kernel); a thread that
+// reads its own row, as K1 and K10 read a node record, touches 32 different
+// lines a load instruction of a warp, and took twice as long (the first
+// design, removed; PERF.md section 6).  chain_scalar_kernel reads rows of any
+// width with 32-bit loads (the threaded walk's 24-byte box rows, whose stride
+// straddles 32-byte sectors), one thread a chain.
 // Bound: bytes (each distinct row once) at the harness's shapes with a table
 // beyond L2; operations (R + 5 a step) once the table is small.  The measure of
 // interest is its time a lane-iteration and its rate of rows as issued: the
@@ -68,12 +65,9 @@
 // the table, j = next_index(j, s * 7, i, U)).  The [C, U] table (records in
 // columns, 36 KB at C = 72, U = 128) is staged in shared memory, then one
 // thread a lane sums c = 0 .. C-1 left to right (bit-exact with the plain
-// version under --fmad=false).  Two forms:
-//   - rowsum_sm_kernel<kChain, kC> (the default): one block of 1024 threads an
-//     SM stages the table once, in its own [C][U] layout with one bulk async
-//     copy, and walks the lanes by grid stride.
-//   - rowsum_kernel<kChain> (the first form): up to 4 blocks an SM, each staging
-//     the table transposed to [U][C | 1] with its threads.
+// version under --fmad=false).  rowsum_sm_kernel<kChain, kC>: one block of
+// 1024 threads an SM stages the table once, in its own [C][U] layout with one
+// bulk async copy, and walks the lanes by grid stride.
 // Bound: bytes single, operations chained; with random records shared
 // memory's bank conflicts set the pace.
 #include "common.cuh"
@@ -222,65 +216,6 @@ staged_gather_kernel(const float4* __restrict__ table, int r4, const int* __rest
   if (lane == 0) bulk_wait_all();
 }
 
-// One row's float32 sum, c = 0 first; *first receives row[0].  kR4 > 0: the
-// row's kR4 16-byte loads are unrolled, none waiting on another.
-template <int kR4>
-__device__ __forceinline__ float row_sum(const float4* __restrict__ row, int r4,
-                                         float* first) {
-  if constexpr (kR4 > 0) {
-    float4 v[kR4];
-#pragma unroll
-    for (int q = 0; q < kR4; ++q) v[q] = __ldg(row + q);
-    float s = v[0].x;
-    s += v[0].y;
-    s += v[0].z;
-    s += v[0].w;
-#pragma unroll
-    for (int q = 1; q < kR4; ++q) {
-      s += v[q].x;
-      s += v[q].y;
-      s += v[q].z;
-      s += v[q].w;
-    }
-    *first = v[0].x;
-    return s;
-  } else {
-    float4 v = __ldg(row);
-    float s = v.x;
-    s += v.y;
-    s += v.z;
-    s += v.w;
-    *first = v.x;
-    for (int q = 1; q < r4; ++q) {
-      v = __ldg(row + q);
-      s += v.x;
-      s += v.y;
-      s += v.z;
-      s += v.w;
-    }
-    return s;
-  }
-}
-
-template <int kR4, bool kIndep>
-__global__ void chain_kernel(const float4* __restrict__ table, int t, int r4,
-                             const int* __restrict__ idx, int n, int iters,
-                             float* __restrict__ acc_out, int* __restrict__ j_out) {
-  int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= n) return;
-  float acc = 0.0f;
-  int j = kIndep ? 0 : idx[lane];
-  for (int i = 0; i < iters; ++i) {
-    if (kIndep) j = idx[(size_t)i * n + lane];
-    float first;
-    float s = row_sum<kR4>(table + (size_t)j * r4, r4, &first);
-    acc = acc + s;
-    if (!kIndep) j = next_index(j, first * (float)t, i, t);
-  }
-  acc_out[lane] = acc;
-  if (!kIndep) j_out[lane] = j;
-}
-
 // K12 over rows of any width R, read with 32-bit loads (R = 6: the threaded
 // walk's [U,6] box rows at their own 24-byte stride; kR = 0 for other widths)
 template <int kR>
@@ -305,38 +240,7 @@ __global__ void chain_scalar_kernel(const float* __restrict__ table, int t, int 
   j_out[lane] = j;
 }
 
-template <bool kChain>
-__global__ void rowsum_kernel(const float* __restrict__ tab, int c_dim, int u_dim,
-                              const int* __restrict__ idx, int n, int iters,
-                              float* __restrict__ acc_out, int* __restrict__ j_out) {
-  extern __shared__ float sm[];  // [U][C | 1]
-  const int stride = c_dim | 1;
-  for (int e = threadIdx.x; e < c_dim * u_dim; e += kThreads) {
-    int c = e / u_dim, u = e - c * u_dim;  // coalesced along a component's row
-    sm[u * stride + c] = tab[e];
-  }
-  __syncthreads();
-  for (int lane = blockIdx.x * kThreads + threadIdx.x; lane < n;
-       lane += gridDim.x * kThreads) {
-    int j = idx[lane];
-    float acc = 0.0f;
-    for (int i = 0; i < (kChain ? iters : 1); ++i) {
-      const float* rec = sm + j * stride;
-      float s = rec[0];
-      for (int c = 1; c < c_dim; ++c) s += rec[c];
-      if (!kChain) {
-        acc = s;
-        break;
-      }
-      acc = acc + s;
-      j = next_index(j, s * 7.0f, i, u_dim);
-    }
-    acc_out[lane] = acc;
-    if (kChain) j_out[lane] = j;
-  }
-}
-
-// K12's warp form: a warp walks 32 chains, one a lane, and fetches their rows
+// K12: a warp walks 32 chains, one a lane, and fetches their rows
 // together.  Each step, piece p of the 32 rows laid end to end (p = 32k + lane,
 // k = 0 .. r4 - 1) is one 16-byte cp.async into the warp's slot in shared
 // memory, so that instruction k reads 32 consecutive pieces (a 512-byte row is
@@ -349,7 +253,7 @@ __global__ void rowsum_kernel(const float* __restrict__ tab, int c_dim, int u_di
 // step's copies issued before the sum, half the warps an SM), copies through
 // L2 only (.cg; .ca goes through L1), one bulk async copy a row, and plain
 // loads and stores.
-constexpr int kWarpBlock = 4;  // warps a block of the warp form at most
+constexpr int kWarpBlock = 4;  // warps a block at most
 
 template <int kR4, bool kIndep>
 __global__ void __launch_bounds__(32 * kWarpBlock)
@@ -411,14 +315,15 @@ chain_warp_kernel(const float4* __restrict__ table, int t, int r4_arg,
   }
 }
 
-// K13's persistent form: one block an SM, which stages the table once, in its
-// own [C][U] layout, and walks the lanes by grid stride.  One bulk async copy
-// brings the table's 16-byte body, completing on an mbarrier (threads copy a
-// tail, or all of it from a base that is not 16-byte aligned).  kC > 0: the
-// record's width, its reads unrolled ahead of the adds.  Measured against the
-// first form's [U][C | 1] and a [U][C4 | 1] of 16-byte pieces, read 16 bytes a
-// load: on the harness's random records their bank conflicts differ little,
-// and [C][U], which needs no transposition, was the fastest (PERF.md, Findings).
+// K13: one block an SM, which stages the table once, in its own [C][U] layout,
+// and walks the lanes by grid stride.  One bulk async copy brings the table's
+// 16-byte body, completing on an mbarrier (threads copy a tail, or all of it
+// from a base that is not 16-byte aligned).  kC > 0: the record's width, its
+// reads unrolled ahead of the adds.  Measured against a [U][C | 1] layout (the
+// first design's, a few blocks an SM each staging the table) and a [U][C4 | 1]
+// of 16-byte pieces, read 16 bytes a load: on the harness's random records
+// their bank conflicts differ little, and [C][U], which needs no
+// transposition, was the fastest (PERF.md, Findings).
 constexpr int kSmThreads = 1024;
 
 template <bool kChain, int kC>
@@ -465,16 +370,6 @@ rowsum_sm_kernel(const float* __restrict__ tab, int c_arg, int u_dim,
     }
     acc_out[lane] = acc;
   }
-}
-
-template <int kR4>
-void launch_chain(bool indep, const float4* table, int t, int r4, const int* idx, int n,
-                  int iters, float* acc, int* j_out, cudaStream_t s) {
-  unsigned grid = rt::grid_for(n, kThreads);
-  if (indep)
-    chain_kernel<kR4, true><<<grid, kThreads, 0, s>>>(table, t, r4, idx, n, iters, acc, j_out);
-  else
-    chain_kernel<kR4, false><<<grid, kThreads, 0, s>>>(table, t, r4, idx, n, iters, acc, j_out);
 }
 
 // shared memory a block may opt in to on the H100 (232,448 B), less room for the
@@ -594,27 +489,16 @@ extern "C" int rt_row_gather(int staged, const void* table, int r4, const void* 
 
 // table: [t, 4 * r4] f32, 16-byte aligned; idx: [n] int32 (chained: the first
 // rows) or [iters, n] (indep); acc: [n] f32; j_out: [n] int32 (chained only).
-// form 1: the warp form (chain_warp_kernel, 32 rows of (r4 | 1) pieces of
-// shared memory a warp), 0: the first (chain_kernel).
-extern "C" int rt_chained_gather(int indep, int form, const void* table, int t, int r4,
-                                 const void* idx, int n, int iters, void* acc, void* j_out,
-                                 void* stream) {
+// A warp fetches its 32 chains' rows into 32 rows of (r4 | 1) pieces of
+// shared memory.
+extern "C" int rt_chained_gather(int indep, const void* table, int t, int r4, const void* idx,
+                                 int n, int iters, void* acc, void* j_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float4* tab = (const float4*)table;
   const int* ix = (const int*)idx;
-  if (form == 1)
-    return indep ? dispatch_chain_warp<true>(tab, t, r4, ix, n, iters, (float*)acc, nullptr, s)
-                 : dispatch_chain_warp<false>(tab, t, r4, ix, n, iters, (float*)acc,
-                                              (int*)j_out, s);
-  if (r4 == 8)  // the wide walk's 32-float quantised node record
-    launch_chain<8>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
-  else if (r4 == 18)  // the wide walk's 72-float row
-    launch_chain<18>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
-  else if (r4 == 32)  // the harnesses' 128-float padded row
-    launch_chain<32>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
-  else
-    launch_chain<0>(indep, tab, t, r4, ix, n, iters, (float*)acc, (int*)j_out, s);
-  return (int)cudaGetLastError();
+  return indep ? dispatch_chain_warp<true>(tab, t, r4, ix, n, iters, (float*)acc, nullptr, s)
+               : dispatch_chain_warp<false>(tab, t, r4, ix, n, iters, (float*)acc,
+                                            (int*)j_out, s);
 }
 
 // K12 chained over rows of r floats with 32-bit loads: table [t, r] f32; idx:
@@ -634,33 +518,14 @@ extern "C" int rt_chained_gather_scalar(const void* table, int t, int r, const v
 
 // tab: [c_dim, u_dim] f32, u_dim * (c_dim | 1) floats within 48 KB; idx: [n]
 // int32 in [0, u_dim).  j_out null: single (acc_out[n] = the record's sum);
-// else the chain of iters steps, its acc and last j.  form 1: the persistent
-// form (rowsum_sm_kernel, one block an SM); form 0: the first (rowsum_kernel).
-extern "C" int rt_table_rowsum(int form, const void* tab, int c_dim, int u_dim,
-                               const void* idx, int n, int iters, void* acc_out, void* j_out,
-                               void* stream) {
+// else the chain of iters steps, its acc and last j.  One block an SM.
+extern "C" int rt_table_rowsum(const void* tab, int c_dim, int u_dim, const void* idx, int n,
+                               int iters, void* acc_out, void* j_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* t = (const float*)tab;
   const int* ix = (const int*)idx;
-  if (form == 1)
-    return j_out ? dispatch_rowsum_sm<true>(t, c_dim, u_dim, ix, n, iters, (float*)acc_out,
-                                            (int*)j_out, s)
-                 : dispatch_rowsum_sm<false>(t, c_dim, u_dim, ix, n, iters, (float*)acc_out,
-                                             nullptr, s);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  // a few blocks an SM, each staging the table once, walk the lanes by grid stride
-  unsigned grid = rt::grid_for(n, kThreads);
-  if (grid > 4u * sms) grid = 4u * sms;
-  size_t smem = (size_t)u_dim * (c_dim | 1) * sizeof(float);
-  if (j_out)
-    rowsum_kernel<true><<<grid, kThreads, smem, s>>>(t, c_dim, u_dim, ix, n, iters,
-                                                     (float*)acc_out, (int*)j_out);
-  else
-    rowsum_kernel<false><<<grid, kThreads, smem, s>>>(t, c_dim, u_dim, ix, n, iters,
-                                                      (float*)acc_out, nullptr);
-  return (int)cudaGetLastError();
+  return j_out ? dispatch_rowsum_sm<true>(t, c_dim, u_dim, ix, n, iters, (float*)acc_out,
+                                          (int*)j_out, s)
+               : dispatch_rowsum_sm<false>(t, c_dim, u_dim, ix, n, iters, (float*)acc_out,
+                                           nullptr, s);
 }

@@ -2,7 +2,7 @@
 // in texture_bwd.cu, with the lane set-up shared in texture.cuh).
 //
 // Replaces raytracer_tpu/ops/texture_sample.py:sample (JAX) in each of its modes,
-// one instance of texture_kernel<Mode> each:
+// one instance of vector_kernel<Mode> each:
 //   NEAREST      _sample_nearest (:53): one wrapped texel of data at level 0;
 //   BILINEAR     _sample_bilinear at level 0 (:316-317, :64-105);
 //   TRILINEAR    _sample_trilinear (:115-144): bilinear taps at floor(lam) and
@@ -27,15 +27,11 @@
 // and 7 floats in, 12 bytes out per lane, against ~30 float operations a tap);
 // EWA does ~20 operations for each texel of its window, up to 256 a lane.  The
 // atlases (~13 MB on config3) stay in L2 and the gathers are scattered: what
-// sets the pace is instructions issued, not bytes (the first form's BILINEAR,
-// one tap a lane, ran at 1.9x its byte bound).
+// sets the pace is instructions issued, not bytes (a scalar kernel's BILINEAR,
+// one tap a lane, ran at 1.9x its byte bound; PERF.md section 6).
 //
-// Two forms.  texture_kernel is the first design, kept as the yardstick
-// (texture_sample.sample_forward(..., form="first")): one thread a lane,
-// scalar code, a tap re-reads its level's size and first row and wraps with
-// integer division, 12 32-bit loads a quad row.  vector_kernel is the
-// renderer's, with the same set-up helpers and the same float32 expressions in
-// the same order, so it gives the same bits in every mode:
+// One thread a lane, the same float32 expressions in the same order as the
+// plain version; what the design does about the instructions:
 //  - a lane reads its level (size, first row) once;
 //  - a quad row is three 16-byte loads (the wrapper checks data4's alignment);
 //  - a tap of s in [0, 1] wraps with a compare and an add (wrap), integer
@@ -60,99 +56,6 @@ namespace {
 
 using rt::Atlas;
 using rt::Rgb;
-
-__device__ __forceinline__ Rgb bilinear(const Atlas& a, int tid, float s, float t, int level) {
-  return rt::tap_value(a, rt::bilinear_tap(a, tid, s, t, level));
-}
-
-// _sample_anisotropic's average of the used taps (texture_sample.py:170-180).
-__device__ __forceinline__ Rgb aniso_average(const Atlas& a, int tid, float s, float t,
-                                             const rt::Aniso& f, float max_anisotropy) {
-  Rgb acc = {0.0f, 0.0f, 0.0f};
-  const int max_taps = (int)max_anisotropy;
-  for (int k = 1; k <= max_taps; ++k) {
-    if (!rt::tap_used(k, f)) continue;
-    const float c = rt::tap_coeff(k, f);
-    Rgb tap = bilinear(a, tid, s + f.step_s * c, t + f.step_t * c, f.level_c);
-    acc.r = acc.r + tap.r;
-    acc.g = acc.g + tap.g;
-    acc.b = acc.b + tap.b;
-  }
-  return {acc.r / f.nt, acc.g / f.nt, acc.b / f.nt};
-}
-
-// _sample_ewa's weighted average (texture_sample.py:262-278).
-__device__ __forceinline__ Rgb ewa_average(const Atlas& a, int tid, const rt::Ewa& e) {
-  Rgb acc = {0.0f, 0.0f, 0.0f};
-  float wsum = 0.0f;
-  for (int dj = 0; dj < e.nt; ++dj) {
-    const int tj = e.t0 + dj;
-    for (int di = 0; di < e.ns; ++di) {
-      const int si = e.s0 + di;
-      const float r2 = rt::ewa_r2(e, si, tj);
-      if (!(r2 < 1.0f)) continue;
-      const float w = rt::ewa_weight(r2);
-      const Rgb p = rt::texel(a, rt::texel_row(a, tid, si, tj, e.level_c));
-      acc.r = acc.r + w * p.r;
-      acc.g = acc.g + w * p.g;
-      acc.b = acc.b + w * p.b;
-      wsum = wsum + w;
-    }
-  }
-  const float m = rt::nan_max(wsum, 1e-20f);
-  return {acc.r / m, acc.g / m, acc.b / m};
-}
-
-template <int kMode>
-__global__ void texture_kernel(Atlas a, rt::Lanes l, int n, float max_anisotropy, int span,
-                               float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int tid = l.tex_id[i];
-  const float s = l.s[i], t = l.t[i];
-  Rgb res;
-  if constexpr (kMode == rt::kNearest) {
-    res = rt::texel(a, rt::nearest_row(a, tid, s, t));
-  } else if constexpr (kMode == rt::kBilinearMode) {
-    res = bilinear(a, tid, s, t, 0);
-  } else {
-    const int levels = a.levels[tid];
-    const float dsx = l.ds_dx[i], dsy = l.ds_dy[i], dtx = l.dt_dx[i], dty = l.dt_dy[i];
-    rt::Branch branch;
-    if constexpr (kMode == rt::kTrilinear) {
-      const rt::Trilinear f = rt::trilinear_setup(levels, dsx, dsy, dtx, dty);
-      branch = f.branch;
-      if (branch == rt::kFilter) {
-        const Rgb lo = bilinear(a, tid, s, t, f.lo);
-        const Rgb hi = bilinear(a, tid, s, t, f.hi);
-        const float omf = 1.0f - f.f;
-        res = {omf * lo.r + f.f * hi.r, omf * lo.g + f.f * hi.g, omf * lo.b + f.f * hi.b};
-      }
-    } else if constexpr (kMode == rt::kAnisotropic) {
-      const rt::Aniso f = rt::aniso_setup(levels, dsx, dsy, dtx, dty, max_anisotropy);
-      branch = f.branch;
-      if (branch == rt::kFilter) res = aniso_average(a, tid, s, t, f, max_anisotropy);
-    } else {
-      const rt::Ewa e = rt::ewa_setup(a, tid, levels, s, t, dsx, dsy, dtx, dty,
-                                      max_anisotropy, span);
-      branch = e.branch;
-      if (branch == rt::kFilter) res = ewa_average(a, tid, e);
-    }
-    if (branch == rt::kTop) {
-      res = rt::texel(a, rt::top_row(a, tid, levels));  // texel (0, 0) of the last level
-    } else if (branch == rt::kBilinear) {
-      res = bilinear(a, tid, s, t, 0);
-    }
-  }
-  out[3 * i + 0] = res.r;
-  out[3 * i + 1] = res.g;
-  out[3 * i + 2] = res.b;
-}
-
-// ---------------------------------------------------------------- the vector form
-// The renderer's form.  The same lane set-up (texture.cuh) and the same float32
-// expressions in the same order as texture_kernel, so every mode's result is
-// bit-identical to it; what changes is the work around them.
 
 constexpr int kBlock = 256;
 
@@ -212,8 +115,8 @@ __device__ __forceinline__ Rgb tap4(const float* __restrict__ data4, const Level
 }
 
 // EWA's weights, rt::ewa_weight at each of its 128 indices, in device memory:
-// written once a device by ewa_table_kernel (rt_texture launches it before the
-// first EWA launch of the vector form), read through the L1 cache.  Built by
+// written once a device by ewa_table_kernel (rt_texture launches it before its
+// first EWA launch), read through the L1 cache.  Built by
 // the kernel's own expf, so the values are rt::ewa_weight's bits.
 __device__ float ewa_weights[128];
 
@@ -242,7 +145,8 @@ __device__ __forceinline__ EwaLane ewa_lane(const rt::Ewa& e, const Level& v) {
   return {e.ss, e.tt, e.a, e.b, e.c, e.s0, e.t0, e.ns, e.nt, v.base, v.w, v.h};
 }
 
-// ewa_average over the window in the same dj-major order, one loop over its
+// _sample_ewa's weighted average (texture_sample.py:262-278) over the window in
+// JAX's dj-major order, one loop over its
 // ns x nt texels (a warp runs its largest window, not its largest ns times its
 // largest nt); the wrap is taken once and stepped, r2's t term once a row.
 __device__ __forceinline__ Rgb ewa_window(const float* __restrict__ data, const EwaLane& e) {
@@ -276,8 +180,8 @@ __device__ __forceinline__ Rgb ewa_window(const float* __restrict__ data, const 
   return {acc.r / m, acc.g / m, acc.b / m};
 }
 
-// One lane of sample() in mode kMode: texture_kernel's body with the level read
-// once a lane, the vector taps and the table.
+// One lane of sample() in mode kMode: the level read once a lane, the vector
+// taps and the table.
 template <int kMode>
 __device__ __forceinline__ Rgb vector_lane(const Atlas& a, const rt::Lanes& l, int i,
                                            float max_anisotropy, int span) {
@@ -387,27 +291,14 @@ vector_kernel(Atlas a, rt::Lanes l, int n, float max_anisotropy, int span,
   store_warp(stage, out, n, i, res);
 }
 
-// The forms of rt_texture, in the order of texture_sample.py's FORMS.
-enum Form { kVector = 0, kFirst = 1 };
-
-template <int kMode>
-void launch(int form, unsigned grid, cudaStream_t st, Atlas a, rt::Lanes l, int n,
-            float max_anisotropy, int span, float* out) {
-  if (form == kFirst)
-    texture_kernel<kMode><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span, out);
-  else
-    vector_kernel<kMode><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span, out);
-}
-
 }  // namespace
 
-extern "C" int rt_texture(int mode, int form, const void* data, const void* data4,
+extern "C" int rt_texture(int mode, const void* data, const void* data4,
                           const void* width, const void* height, const void* levels,
                           const void* offsets, const void* tex_id, const void* s,
                           const void* t, const void* ds_dx, const void* ds_dy,
                           const void* dt_dx, const void* dt_dy, int n, float max_anisotropy,
                           int span, void* out, void* stream) {
-  if (form != kVector && form != kFirst) return (int)cudaErrorInvalidValue;
   Atlas a{(const float*)data, (const float*)data4, (const int*)width,
           (const int*)height, (const int*)levels, (const int*)offsets};
   rt::Lanes l{(const int*)tex_id, (const float*)s, (const float*)t, (const float*)ds_dx,
@@ -415,7 +306,7 @@ extern "C" int rt_texture(int mode, int form, const void* data, const void* data
   const unsigned grid = rt::grid_for(n, kBlock);
   cudaStream_t st = (cudaStream_t)stream;
   float* o = (float*)out;
-  if (mode == rt::kEwa && form != kFirst) {
+  if (mode == rt::kEwa) {
     static bool built[64] = {};  // the weight table, once a device
     int dev = 0;
     cudaGetDevice(&dev);
@@ -429,18 +320,22 @@ extern "C" int rt_texture(int mode, int form, const void* data, const void* data
   }
   switch (mode) {
     case rt::kNearest:
-      launch<rt::kNearest>(form, grid, st, a, l, n, max_anisotropy, span, o);
+      vector_kernel<rt::kNearest><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span, o);
       break;
     case rt::kBilinearMode:
-      launch<rt::kBilinearMode>(form, grid, st, a, l, n, max_anisotropy, span, o);
+      vector_kernel<rt::kBilinearMode><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span,
+                                                                o);
       break;
     case rt::kTrilinear:
-      launch<rt::kTrilinear>(form, grid, st, a, l, n, max_anisotropy, span, o);
+      vector_kernel<rt::kTrilinear><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span, o);
       break;
     case rt::kAnisotropic:
-      launch<rt::kAnisotropic>(form, grid, st, a, l, n, max_anisotropy, span, o);
+      vector_kernel<rt::kAnisotropic><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span,
+                                                               o);
       break;
-    case rt::kEwa: launch<rt::kEwa>(form, grid, st, a, l, n, max_anisotropy, span, o); break;
+    case rt::kEwa:
+      vector_kernel<rt::kEwa><<<grid, kBlock, 0, st>>>(a, l, n, max_anisotropy, span, o);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

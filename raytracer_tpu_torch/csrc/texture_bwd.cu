@@ -6,8 +6,8 @@
 // plain PyTorch version is torch.autograd of
 // raytracer_tpu_torch/ops/texture_sample.py:sample_plain.
 //
-// One thread per lane, one instance of texture_bwd_kernel<Mode, Form> per mode
-// and scatter form.  The lane set-up (levels, taps, window and branch) is
+// One thread per lane, one instance of texture_bwd_kernel<Mode> per mode.  The
+// lane set-up (levels, taps, window and branch) is
 // recomputed by the helpers K3 uses (texture.cuh), not saved, so both kernels
 // take the same decisions.  The backward is the chain rule of the forward's
 // expressions term by term, in JAX's form, not a closed form, which keeps it
@@ -40,9 +40,9 @@
 // Bound on the H100: bytes.  Per lane 7 floats and the 12-byte cotangent in,
 // the rows it reads, the atlas gradients and 24 bytes of lane gradients out.
 //
-// The per-lane form (kLane, the earlier design, kept as the yardstick of
-// chip_smoke.py's K4 rows) issues 12 one-float atomicAdds a tap, every lane,
-// zero cotangents too: on the training step's generation 0 (config3, 1080p,
+// A per-lane scatter (the first design, removed; PERF.md section 6) issued 12
+// one-float atomicAdds a tap, every lane, zero cotangents too: on the training
+// step's generation 0 (config3, 1080p,
 // ANISOTROPIC) 34.9 M atomics in 3.36 ms of device time on an NVIDIA H100
 // 80GB HBM3 at 700 W, against a byte bound of 0.047 ms.  Its time followed
 // the atomics, not the bytes or the taps (BILINEAR, one tap a lane, took as
@@ -50,7 +50,7 @@
 // texture; within a warp (32 pixels of one image row) a quad row's run is 2.1
 // lanes on the mean (p50 1, p90 4), 15 distinct rows a warp, and the later
 // anisotropic taps' runs are 1.0-1.3 lanes (chip_smoke.py, microbench/
-// scatter.py:k4_runs).  The warp form (kScan):
+// scatter.py:k4_runs).  So a warp's runs are summed first:
 //  - a lane whose cotangent is all +-0 reads no row and issues no atomic
 //    (exact: the gradients start at +0, and adding +-0 leaves a value as it
 //    is; a NaN is not zero and reaches its rows);
@@ -63,7 +63,8 @@
 //    segmented shuffle scan of its 12 values, no more steps than the warp's
 //    longest run needs, and the run's last lane adds the 48-byte row as
 //    three 16-byte vector atomics (atomicAdd(float4*, float4), sm_90 global
-//    memory): 3 L2 requests a run where the per-lane form makes 12 a lane, 5.2 M in all;
+//    memory): 3 L2 requests a run where the per-lane scatter made 12 a lane,
+//    5.2 M in all;
 //  - texel rows (grad_data: NEAREST, the top texel, EWA's window) go through
 //    warp_scatter3 (scatter.cuh), K5 bwd's scatter; EWA walks the warp's
 //    largest window, its lanes masked outside their own.
@@ -76,9 +77,9 @@
 // memory round trip costs more than runs of ~2 lanes save.  They win where
 // every lane is its own run (a permutation: 0.256 against 0.414), which the
 // renderer's lanes do not give.  (fs, ft) differ from lane to lane, so a run
-// cannot sum h alone.  The per-lane arithmetic is unchanged (--fmad=false):
-// the lane gradients are the per-lane form's, value for value; only the order of the
-// atlas sums changes, and fp32 atomics still change it from run to run.
+// cannot sum h alone.  The per-lane arithmetic is a lane-by-lane scatter's
+// (--fmad=false), so the lane gradients are its values; only the order of the
+// atlas sums differs, and fp32 atomics still change it from run to run.
 #include "scatter.cuh"
 #include "texture.cuh"
 
@@ -90,10 +91,6 @@ using rt::Rgb;
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
-
-// How the atlas gradients are added: one-float atomics from every lane,
-// or a warp's runs summed first.
-enum Form { kLane = 0, kScan = 1 };
 
 // One vector atomic of a quad row's quarter (16-byte aligned: the rows are
 // 48 B from a 16-byte aligned base, which the wrapper checks).
@@ -112,61 +109,41 @@ __device__ __forceinline__ void quad_values(const rt::Tap& p, Rgb h, float v[12]
   }
 }
 
-// Adds v[0..11] of each lane with key >= 0 into grad_data4's row `key`, in
-// the given form.  Called by all 32 lanes of a warp, converged.
-template <int kForm>
+// Adds v[0..11] of each lane with key >= 0 into grad_data4's row `key`.
+// Called by all 32 lanes of a warp, converged.
 __device__ __forceinline__ void scatter_quad(float* __restrict__ gd4, int key, float v[12]) {
   if (gd4 == nullptr) return;
-  if constexpr (kForm == kLane) {
-    if (key >= 0) {
-      float* gq = gd4 + 12ll * key;
+  if (__ballot_sync(kFullWarp, key >= 0) == 0) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(kFullWarp, key, 1);
+  const unsigned heads = __ballot_sync(kFullWarp, lane == 0 || prev != key);
+  const int start = 31 - __clz(heads & (kFullWarp >> (31 - lane)));
+  // segmented inclusive scan, its steps bounded by the warp's longest run:
+  // none where every run is one lane (a later anisotropic tap)
+  const int longest = __reduce_max_sync(kFullWarp, key >= 0 ? lane - start + 1 : 0);
+  for (int d = 1; d < longest; d <<= 1) {
+    float y[12];
 #pragma unroll
-      for (int c = 0; c < 12; ++c) atomicAdd(gq + c, v[c]);
-    }
-  } else {
-    if (__ballot_sync(kFullWarp, key >= 0) == 0) return;  // warp-uniform
-    const int lane = threadIdx.x & 31;
-    const int prev = __shfl_up_sync(kFullWarp, key, 1);
-    const unsigned heads = __ballot_sync(kFullWarp, lane == 0 || prev != key);
-    const int start = 31 - __clz(heads & (kFullWarp >> (31 - lane)));
-    // segmented inclusive scan, its steps bounded by the warp's longest run:
-    // none where every run is one lane (a later anisotropic tap)
-    const int longest = __reduce_max_sync(kFullWarp, key >= 0 ? lane - start + 1 : 0);
-    for (int d = 1; d < longest; d <<= 1) {
-      float y[12];
+    for (int c = 0; c < 12; ++c) y[c] = __shfl_up_sync(kFullWarp, v[c], d);
+    if (lane - d >= start) {
 #pragma unroll
-      for (int c = 0; c < 12; ++c) y[c] = __shfl_up_sync(kFullWarp, v[c], d);
-      if (lane - d >= start) {
-#pragma unroll
-        for (int c = 0; c < 12; ++c) v[c] = y[c] + v[c];
-      }
+      for (int c = 0; c < 12; ++c) v[c] = y[c] + v[c];
     }
-    // a run's last lane holds its sums: three 16-byte vector atomics
-    const int next = __shfl_down_sync(kFullWarp, key, 1);
-    if (key >= 0 && (lane == 31 || next != key)) {
-      float* row = gd4 + 12ll * key;
-      add_quarter(row, 0, make_float4(v[0], v[1], v[2], v[3]));
-      add_quarter(row, 1, make_float4(v[4], v[5], v[6], v[7]));
-      add_quarter(row, 2, make_float4(v[8], v[9], v[10], v[11]));
-    }
+  }
+  // a run's last lane holds its sums: three 16-byte vector atomics
+  const int next = __shfl_down_sync(kFullWarp, key, 1);
+  if (key >= 0 && (lane == 31 || next != key)) {
+    float* row = gd4 + 12ll * key;
+    add_quarter(row, 0, make_float4(v[0], v[1], v[2], v[3]));
+    add_quarter(row, 1, make_float4(v[4], v[5], v[6], v[7]));
+    add_quarter(row, 2, make_float4(v[8], v[9], v[10], v[11]));
   }
 }
 
-// Adds h into grad_data's row `key` (>= 0) in the given form; converged warp.
-template <int kForm>
+// Adds h into grad_data's row `key` (>= 0); converged warp.
 __device__ __forceinline__ void scatter_texel(float* __restrict__ gd, int key, Rgb h,
                                               rt::Scatter3List& list) {
-  if (gd == nullptr) return;
-  if constexpr (kForm == kLane) {
-    if (key >= 0) {
-      float* gp = gd + 3ll * key;
-      atomicAdd(gp + 0, h.r);
-      atomicAdd(gp + 1, h.g);
-      atomicAdd(gp + 2, h.b);
-    }
-  } else {
-    rt::warp_scatter3(gd, key, h.r, h.g, h.b, list);
-  }
+  if (gd != nullptr) rt::warp_scatter3(gd, key, h.r, h.g, h.b, list);
 }
 
 // The lane's part of one bilinear tap's backward with cotangent h: the
@@ -235,39 +212,19 @@ __device__ __forceinline__ void trilinear_blend_backward(const Atlas& a, const r
   for (int k = 0; k < 4; ++k) cot_d[k] = sign_of(d[k]) * c[k];
 }
 
-// EWA's window, the per-lane form: w g / max(wsum, 1e-20) into each texel inside the
-// ellipse, one lane at a time.
-__device__ __forceinline__ void ewa_lane_scatter(const Atlas& a, int tid, const rt::Ewa& e,
-                                                 Rgb h, float* grad_data) {
-  for (int dj = 0; dj < e.nt; ++dj) {
-    const int tj = e.t0 + dj;
-    for (int di = 0; di < e.ns; ++di) {
-      const int si = e.s0 + di;
-      const float r2 = rt::ewa_r2(e, si, tj);
-      if (!(r2 < 1.0f)) continue;
-      const float w = rt::ewa_weight(r2);
-      float* gp = grad_data + 3ll * rt::texel_row(a, tid, si, tj, e.level_c);
-      atomicAdd(gp + 0, h.r * w);
-      atomicAdd(gp + 1, h.g * w);
-      atomicAdd(gp + 2, h.b * w);
-    }
-  }
-}
-
-template <int kMode, int kForm>
+template <int kMode>
 __global__ void __launch_bounds__(kBlock)
 texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
                    float max_anisotropy, int span, float* __restrict__ grad_data,
                    float* __restrict__ grad_data4, float* __restrict__ grad_lanes) {
-  __shared__ rt::Scatter3List lists[kForm == kLane ? 1 : kWarps];
-  rt::Scatter3List& list = lists[kForm == kLane ? 0 : threadIdx.x >> 5];
-  // no lane returns early: the warp forms' shuffles need all 32
+  __shared__ rt::Scatter3List lists[kWarps];
+  rt::Scatter3List& list = lists[threadIdx.x >> 5];
+  // no lane returns early: the warp's shuffles need all 32
   const int i = blockIdx.x * kBlock + threadIdx.x;
   Rgb g = {0.0f, 0.0f, 0.0f};
   if (i < n) g = {cot[3 * i + 0], cot[3 * i + 1], cot[3 * i + 2]};
-  // the warp forms skip a lane whose cotangent is all +-0 (NaN != 0)
-  const bool live =
-      i < n && (kForm == kLane || g.r != 0.0f || g.g != 0.0f || g.b != 0.0f);
+  // a lane whose cotangent is all +-0 is skipped (NaN != 0)
+  const bool live = i < n && (g.r != 0.0f || g.g != 0.0f || g.b != 0.0f);
   int tid = 0;
   float s = 0.0f, t = 0.0f;
   if (live) {
@@ -279,12 +236,12 @@ texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
   float cot_d[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // ds_dx, ds_dy, dt_dx, dt_dy
   float v[12] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if constexpr (kMode == rt::kNearest) {
-    scatter_texel<kForm>(grad_data, live ? (int)rt::nearest_row(a, tid, s, t) : -1, g,
+    scatter_texel(grad_data, live ? (int)rt::nearest_row(a, tid, s, t) : -1, g,
                          list);
   } else if constexpr (kMode == rt::kBilinearMode) {
     int key = -1;
     if (live) tap(a, rt::bilinear_tap(a, tid, s, t, 0), g, cot_s, cot_t, key, v);
-    scatter_quad<kForm>(grad_data4, key, v);
+    scatter_quad(grad_data4, key, v);
   } else {
     int levels = 1;
     float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -315,14 +272,14 @@ texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
       } else if (bil) {
         tap(a, rt::bilinear_tap(a, tid, s, t, 0), g, cot_s, cot_t, key, v);
       }
-      scatter_quad<kForm>(grad_data4, key, v);
+      scatter_quad(grad_data4, key, v);
       if (__any_sync(kFullWarp, filt)) {
         key = -1;
         if (filt) {
           hi = rt::bilinear_tap(a, tid, s, t, f.hi);
           tap(a, hi, {g.r * f.f, g.g * f.f, g.b * f.f}, xh, yh, key, v);
         }
-        scatter_quad<kForm>(grad_data4, key, v);
+        scatter_quad(grad_data4, key, v);
       }
       if (filt) {
         cot_s = xl + xh;
@@ -359,7 +316,7 @@ texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
         } else if (base) {
           tap(a, rt::bilinear_tap(a, tid, s, t, 0), g, cot_s, cot_t, key, v);
         }
-        scatter_quad<kForm>(grad_data4, key, v);
+        scatter_quad(grad_data4, key, v);
       }
       if (filt) {
         cot_d[f.x_major ? 0 : 1] = cot_step_s;
@@ -375,7 +332,7 @@ texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
       const bool bil = live && branch == rt::kBilinear;
       int key = -1;
       if (bil) tap(a, rt::bilinear_tap(a, tid, s, t, 0), g, cot_s, cot_t, key, v);
-      scatter_quad<kForm>(grad_data4, key, v);
+      scatter_quad(grad_data4, key, v);
       if (grad_data != nullptr) {
         // the weight sum first, in the forward's order
         Rgb h = {0.0f, 0.0f, 0.0f};
@@ -390,34 +347,30 @@ texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
           const float m = rt::nan_max(wsum, 1e-20f);
           h = {g.r / m, g.g / m, g.b / m};
         }
-        if constexpr (kForm == kLane) {
-          if (filt) ewa_lane_scatter(a, tid, e, h, grad_data);
-        } else {
-          // the warp's largest window, each lane masked outside its own
-          const int ns = filt ? e.ns : 0, nt = filt ? e.nt : 0;
-          const int wns = __reduce_max_sync(kFullWarp, ns);
-          const int wnt = __reduce_max_sync(kFullWarp, nt);
-          for (int dj = 0; dj < wnt; ++dj) {
-            for (int di = 0; di < wns; ++di) {
-              int texel = -1;
-              Rgb x = {0.0f, 0.0f, 0.0f};
-              if (dj < nt && di < ns) {
-                const int si = e.s0 + di, tj = e.t0 + dj;
-                const float r2 = rt::ewa_r2(e, si, tj);
-                if (r2 < 1.0f) {
-                  const float w = rt::ewa_weight(r2);
-                  texel = (int)rt::texel_row(a, tid, si, tj, e.level_c);
-                  x = {h.r * w, h.g * w, h.b * w};
-                }
+        // the warp's largest window, each lane masked outside its own
+        const int ns = filt ? e.ns : 0, nt = filt ? e.nt : 0;
+        const int wns = __reduce_max_sync(kFullWarp, ns);
+        const int wnt = __reduce_max_sync(kFullWarp, nt);
+        for (int dj = 0; dj < wnt; ++dj) {
+          for (int di = 0; di < wns; ++di) {
+            int texel = -1;
+            Rgb x = {0.0f, 0.0f, 0.0f};
+            if (dj < nt && di < ns) {
+              const int si = e.s0 + di, tj = e.t0 + dj;
+              const float r2 = rt::ewa_r2(e, si, tj);
+              if (r2 < 1.0f) {
+                const float w = rt::ewa_weight(r2);
+                texel = (int)rt::texel_row(a, tid, si, tj, e.level_c);
+                x = {h.r * w, h.g * w, h.b * w};
               }
-              scatter_texel<kForm>(grad_data, texel, x, list);
             }
+            scatter_texel(grad_data, texel, x, list);
           }
         }
       }
     }
     // the top-texel slot
-    scatter_texel<kForm>(grad_data, live && branch == rt::kTop ?
+    scatter_texel(grad_data, live && branch == rt::kTop ?
                          (int)rt::top_row(a, tid, levels) : -1, g, list);
   }
   if (grad_lanes != nullptr && i < n) {
@@ -429,27 +382,17 @@ texture_bwd_kernel(Atlas a, rt::Lanes l, const float* __restrict__ cot, int n,
 }
 
 template <int kMode>
-int launch(int form, unsigned grid, cudaStream_t st, Atlas a, rt::Lanes l, const float* cot,
-           int n, float max_anisotropy, int span, float* gd, float* gd4, float* gl) {
-  switch (form) {
-    case kLane:
-      texture_bwd_kernel<kMode, kLane><<<grid, kBlock, 0, st>>>(a, l, cot, n, max_anisotropy,
-                                                                 span, gd, gd4, gl);
-      break;
-    case kScan:
-      texture_bwd_kernel<kMode, kScan><<<grid, kBlock, 0, st>>>(a, l, cot, n, max_anisotropy,
-                                                                 span, gd, gd4, gl);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch(unsigned grid, cudaStream_t st, Atlas a, rt::Lanes l, const float* cot, int n,
+           float max_anisotropy, int span, float* gd, float* gd4, float* gl) {
+  texture_bwd_kernel<kMode><<<grid, kBlock, 0, st>>>(a, l, cot, n, max_anisotropy, span, gd,
+                                                     gd4, gl);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// form: 0 one-float atomics from every lane, 1 a warp's runs summed
-// first.  grad_data4 16-byte aligned.
-extern "C" int rt_texture_bwd(int mode, int form, const void* data, const void* data4,
+// grad_data4 16-byte aligned.
+extern "C" int rt_texture_bwd(int mode, const void* data, const void* data4,
                               const void* width, const void* height, const void* levels,
                               const void* offsets, const void* tex_id, const void* s,
                               const void* t, const void* ds_dx, const void* ds_dy,
@@ -465,14 +408,16 @@ extern "C" int rt_texture_bwd(int mode, int form, const void* data, const void* 
   const float* c = (const float*)cot;
   float *gd = (float*)grad_data, *gd4 = (float*)grad_data4, *gl = (float*)grad_lanes;
   switch (mode) {
-    case rt::kNearest: return launch<rt::kNearest>(form, grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
+    case rt::kNearest:
+      return launch<rt::kNearest>(grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
     case rt::kBilinearMode:
-      return launch<rt::kBilinearMode>(form, grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
+      return launch<rt::kBilinearMode>(grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
     case rt::kTrilinear:
-      return launch<rt::kTrilinear>(form, grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
+      return launch<rt::kTrilinear>(grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
     case rt::kAnisotropic:
-      return launch<rt::kAnisotropic>(form, grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
-    case rt::kEwa: return launch<rt::kEwa>(form, grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
+      return launch<rt::kAnisotropic>(grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
+    case rt::kEwa:
+      return launch<rt::kEwa>(grid, st, a, l, c, n, maxa, span, gd, gd4, gl);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,8 +27,7 @@
 // the plain version's sequence of float32 operations, so ids and steps are
 // bit-identical to it.
 //
-// Two kernels:
-//   - quant_kernel (the renderer's K1 / K2): a node visit reads the node's
+// quant_kernel (K1 / K2): a node visit reads the node's
 //     128-byte quantised record (accel/wide.py:quantised_records) with seven
 //     16-byte loads instead of 64 floats of the exact row.  Each live child's
 //     outer box (which holds its exact box) and inner box (inside it) are
@@ -53,15 +52,12 @@
 //     entry.  The ray's transform into an instance's space, its inverse and
 //     its octant are kept until the instance changes: the same operations on
 //     the same inputs, once a BLAS walk.
-//   - exact_kernel (the first version's form, kept as the yardstick; chip_smoke.py and the
-//     tests launch it, the renderer never does): 64 scalar loads a node visit,
-//     72 a leaf visit, 8 tests a leaf, the transform every iteration.
 //
 // Bound on the H100.  Each iteration reads one record chosen by the previous
-// one; the ~40 MB table of the 1080p scene fits the 50 MB L2.  The exact form
-// reads 256 bytes a node visit and 288 a leaf visit, and K12 over its rows
-// (chip_smoke.py gather_wide_table) is as slow as it is.  The quantised form
-// reads 112 bytes a node visit; its pace is then set as much by the
+// one; the ~40 MB table of the 1080p scene fits the 50 MB L2.  An exact row
+// is 256 bytes, and K12 over those rows (chip_smoke.py gather_wide_table) is
+// as slow as a walk of them.  The quantised record reads 112 bytes a node
+// visit; its pace is then set as much by the
 // instructions a visit issues (four a plane: the permute, the bias, the slab
 // test's two) and by the warps in flight (64 registers, 8 blocks an SM) as by
 // the bytes.  The roofline bound is computed from the counted node and leaf
@@ -92,152 +88,19 @@ constexpr long long kMaxIterations = 1ll << 26;
 // with an exact node visit, transforms into an instance's space
 constexpr int kStats = 9;
 
-enum Form { kExact = 0, kQuant = 1, kQuantStats = 2 };
-
 constexpr int kBlock = 128;  // threads a block
 
 struct Scene {
   const float* table;     // [node_rows + leaf_rows, 72]
   const int4* qrec;       // [node_rows, 8] int4: the quantised node records
   const float* inst_mat;  // [I+1, 12] inverse 3x4 rows, slot 0 identity
-  unsigned long long* stats;  // [kStats] (kQuantStats only)
+  unsigned long long* stats;  // [kStats] (the counting instance only)
   int node_rows;
   int n_nodes;  // node_rows / 8
   int root;
   int stack_size;
   int ordered;
 };
-
-template <bool kAnyHit>
-__global__ void exact_kernel(Scene sc, const float* __restrict__ o,
-                                const float* __restrict__ d,
-                                const float* __restrict__ t_max,
-                                const uint8_t* __restrict__ active, int n,
-                                float* __restrict__ t_out, int* __restrict__ best_out,
-                                int* __restrict__ steps_out, uint8_t* __restrict__ found_out,
-                                int* __restrict__ incomplete) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float owx = o[3 * i], owy = o[3 * i + 1], owz = o[3 * i + 2];
-  const float dwx = d[3 * i], dwy = d[3 * i + 1], dwz = d[3 * i + 2];
-  float tb = t_max[i];
-  int best = -1, steps = 0, sp = 0;
-  bool found = false, ovf = false, done = false;
-  int stack[kMaxStack];
-  int cur = active[i] ? ((kKindInternal << kPayloadBits | sc.root) << 8) : kPop;
-  if (!active[i]) done = true;
-
-  for (long long it = 0; !done; ++it) {
-    if (it == kMaxIterations) {
-      ovf = true;
-      break;
-    }
-    if (cur == kPop) {
-      if (sp == 0) break;
-      cur = stack[--sp];
-    }
-    const int kind = cur >> (kPayloadBits + 8);
-    const int payload = (cur >> 8) & kPayloadMask;
-    const int inst1 = cur & 255;
-    const float* m = sc.inst_mat + 12 * inst1;
-    const float ox = m[0] * owx + m[1] * owy + m[2] * owz + m[3];
-    const float oy = m[4] * owx + m[5] * owy + m[6] * owz + m[7];
-    const float oz = m[8] * owx + m[9] * owy + m[10] * owz + m[11];
-    const float dx = m[0] * dwx + m[1] * dwy + m[2] * dwz;
-    const float dy = m[4] * dwx + m[5] * dwy + m[6] * dwz;
-    const float dz = m[8] * dwx + m[9] * dwy + m[10] * dwz;
-
-    if (kind == kKindLeaf) {
-      const float* r = sc.table + 72ll * (sc.node_rows + payload);
-      float tmin = INFINITY;
-      int jmin = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p0x = r[j], p0y = r[8 + j], p0z = r[16 + j];
-        const float e1x = r[24 + j], e1y = r[32 + j], e1z = r[40 + j];
-        const float e2x = r[48 + j], e2y = r[56 + j], e2z = r[64 + j];
-        const float hx = dy * e2z - dz * e2y;
-        const float hy = dz * e2x - dx * e2z;
-        const float hz = dx * e2y - dy * e2x;
-        const float a = e1x * hx + e1y * hy + e1z * hz;
-        const float f = 1.0f / (fabsf(a) < 1e-30f ? 1e-30f : a);
-        const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
-        const float u = f * (sx * hx + sy * hy + sz * hz);
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = f * (dx * qx + dy * qy + dz * qz);
-        const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-        const bool hit = (u > 0.0f) && (u < 1.0f) && (v > 0.0f) && (u + v < 1.0f) &&
-                         (t > kRayEpsilon) && (t < tb);
-        if (kAnyHit) {
-          found = found || hit;
-        } else if (hit && t < tmin) {
-          tmin = t;
-          jmin = j;
-        }
-      }
-      if (kAnyHit) {
-        if (found) break;
-      } else if (tmin < tb) {
-        tb = tmin;
-        best = ((payload * 8 + jmin) << 8) | inst1;
-      }
-      cur = kPop;
-    } else if (kind == kKindInternal) {
-      ++steps;
-      const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-      const int oct = sc.ordered ? ((dx > 0.0f) | ((dy > 0.0f) << 1) | ((dz > 0.0f) << 2)) : 0;
-      const float* r = sc.table + 72ll * (oct * sc.n_nodes + payload);
-      int entries[8];
-      unsigned bits = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float t0x = (r[j] - ox) * ix, t1x = (r[24 + j] - ox) * ix;
-        const float t0y = (r[8 + j] - oy) * iy, t1y = (r[32 + j] - oy) * iy;
-        const float t0z = (r[16 + j] - oz) * iz, t1z = (r[40 + j] - oz) * iz;
-        const float t_near = rt::nan_max(rt::nan_max(kRayEpsilon, rt::nan_min(t0x, t1x)),
-                                         rt::nan_max(rt::nan_min(t0y, t1y), rt::nan_min(t0z, t1z)));
-        const float t_far = rt::nan_min(rt::nan_min(tb, rt::nan_max(t0x, t1x)),
-                                        rt::nan_min(rt::nan_max(t0y, t1y), rt::nan_max(t0z, t1z)));
-        const int fa = (int)r[48 + j];  // exact float values: convert, never bitcast
-        const int fb = (int)r[56 + j];
-        entries[j] = (fa << 8) | (fb > 0 ? fb : inst1);
-        if ((t_near < t_far) && ((fa >> kPayloadBits) != kKindEmpty)) bits |= 1u << j;
-      }
-      if (bits == 0) {
-        cur = kPop;
-      } else {
-        const int first = __ffs(bits) - 1;
-        cur = entries[first];
-        // the rest, far to near: the nearest ends on top; when the stack is
-        // full the remaining (nearer) ones are dropped
-#pragma unroll
-        for (int j = 7; j >= 0; --j) {
-          if (j > first && (bits >> j) & 1u) {
-            if (sp < sc.stack_size) {
-              stack[sp++] = entries[j];
-            } else {
-              ovf = true;
-            }
-          }
-        }
-      }
-    } else {
-      cur = kPop;  // not produced by a valid table
-    }
-  }
-
-  if (kAnyHit) {
-    found_out[i] = found;
-    if (ovf && !found) atomicAdd(incomplete, 1);
-  } else {
-    t_out[i] = tb;
-    best_out[i] = best;
-    steps_out[i] = steps;
-    if (ovf) atomicAdd(incomplete, 1);
-  }
-}
 
 // Today's slab test of child j of an exact row r (cols c*8 + j).
 __device__ __forceinline__ bool exact_child_hit(const float* __restrict__ r, int j, float ox,
@@ -488,13 +351,12 @@ __device__ __forceinline__ void quant_leaf(const Scene& sc, const Ray& ry, int p
 }
 
 
-template <bool kAnyHit, int kForm>
+template <bool kAnyHit, bool kCount>
 __global__ void __launch_bounds__(kBlock, 8) quant_kernel(
     Scene sc, const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_max, const uint8_t* __restrict__ active, int n,
     float* __restrict__ t_out, int* __restrict__ best_out, int* __restrict__ steps_out,
     uint8_t* __restrict__ found_out, int* __restrict__ incomplete) {
-  constexpr bool kCount = kForm == kQuantStats;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float tb = t_max[i];
@@ -554,61 +416,41 @@ __global__ void __launch_bounds__(kBlock, 8) quant_kernel(
   }
 }
 
-template <int kForm>
+template <bool kCount>
 void launch(bool any_hit, const Scene& sc, const float* o, const float* d, const float* t_max,
             const uint8_t* active, int n, float* t_out, int* best_out, int* steps_out,
             uint8_t* found_out, int* incomplete, cudaStream_t s) {
   const unsigned grid = rt::grid_for(n, kBlock);
-  if (kForm == kExact) {
-    if (any_hit)
-      exact_kernel<true><<<grid, kBlock, 0, s>>>(sc, o, d, t_max, active, n, nullptr, nullptr,
-                                                 nullptr, found_out, incomplete);
-    else
-      exact_kernel<false><<<grid, kBlock, 0, s>>>(sc, o, d, t_max, active, n, t_out, best_out,
-                                                  steps_out, nullptr, incomplete);
-  } else if (any_hit) {
-    quant_kernel<true, kForm><<<grid, kBlock, 0, s>>>(sc, o, d, t_max, active, n, nullptr,
-                                                      nullptr, nullptr, found_out, incomplete);
-  } else {
-    quant_kernel<false, kForm><<<grid, kBlock, 0, s>>>(sc, o, d, t_max, active, n, t_out,
-                                                       best_out, steps_out, nullptr, incomplete);
-  }
+  if (any_hit)
+    quant_kernel<true, kCount><<<grid, kBlock, 0, s>>>(sc, o, d, t_max, active, n, nullptr,
+                                                       nullptr, nullptr, found_out, incomplete);
+  else
+    quant_kernel<false, kCount><<<grid, kBlock, 0, s>>>(sc, o, d, t_max, active, n, t_out,
+                                                        best_out, steps_out, nullptr, incomplete);
 }
 
 }  // namespace
 
-// o, d: [n,3] f32 world rays; t_max: [n] f32; active: [n] bool.
-// form: 0 exact (the yardstick), 1 quantised (the renderer's), 2 quantised
-// adding its counters to stats [9] u64 (which the caller zeroes); qrec: [node_rows,
-// 32] int32, 16-byte aligned (forms 1, 2).
+// o, d: [n,3] f32 world rays; t_max: [n] f32; active: [n] bool; qrec:
+// [node_rows, 32] int32, 16-byte aligned.  count: 0 the renderer's walk, 1 the
+// same walk adding its counters to stats [9] u64 (which the caller zeroes).
 // Closest: writes t_out [n] f32, best_out [n] i32 (tri << 8 | inst1, -1 = miss),
 // steps_out [n] i32.  Any: writes found_out [n] bool.  Both add the lanes they
 // could not finish (stack overflow) to *incomplete, which the caller zeroes.
-extern "C" int rt_trace(int any_hit, int form, const void* table, const void* qrec,
+extern "C" int rt_trace(int any_hit, int count, const void* table, const void* qrec,
                         int node_rows, int root, const void* inst_mat, int stack_size,
                         int ordered, const void* o, const void* d, const void* t_max,
                         const void* active, int n, void* t_out, void* best_out,
                         void* steps_out, void* found_out, void* incomplete, void* stats,
                         void* stream) {
   if (stack_size < 1 || stack_size > kMaxStack) return (int)cudaErrorInvalidValue;
-  if (form != kExact && (qrec == nullptr || ((uintptr_t)qrec & 15)))
-    return (int)cudaErrorInvalidValue;
-  if (form == kQuantStats && stats == nullptr) return (int)cudaErrorInvalidValue;
+  if (qrec == nullptr || ((uintptr_t)qrec & 15)) return (int)cudaErrorInvalidValue;
+  if (count != 0 && (count != 1 || stats == nullptr)) return (int)cudaErrorInvalidValue;
   Scene sc{(const float*)table, (const int4*)qrec, (const float*)inst_mat,
            (unsigned long long*)stats, node_rows, node_rows / 8, root, stack_size, ordered};
-  cudaStream_t s = (cudaStream_t)stream;
-  auto args = [&](auto launcher) {
-    launcher(any_hit != 0, sc, (const float*)o, (const float*)d, (const float*)t_max,
-             (const uint8_t*)active, n, (float*)t_out, (int*)best_out, (int*)steps_out,
-             (uint8_t*)found_out, (int*)incomplete, s);
-  };
-  if (form == kExact)
-    args(launch<kExact>);
-  else if (form == kQuant)
-    args(launch<kQuant>);
-  else if (form == kQuantStats)
-    args(launch<kQuantStats>);
-  else
-    return (int)cudaErrorInvalidValue;
+  auto launcher = count ? launch<true> : launch<false>;
+  launcher(any_hit != 0, sc, (const float*)o, (const float*)d, (const float*)t_max,
+           (const uint8_t*)active, n, (float*)t_out, (int*)best_out, (int*)steps_out,
+           (uint8_t*)found_out, (int*)incomplete, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

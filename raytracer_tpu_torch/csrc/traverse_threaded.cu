@@ -4,18 +4,13 @@
 // :361 and :381; one iteration of their walk is _step, :230-318); the plain
 // PyTorch version is raytracer_tpu_torch/ops/traversal.py:trace_plain.
 //
-// Two kernels for one walk, chosen by rt_trace_threaded's `form`:
-//   - rec_kernel (form 1, the renderer's): one 32-byte, 32-byte aligned node
-//     record a visit, read with two 16-byte loads, and an 80-byte row a
-//     triangle pair, read with five (ops/traversal.py: octant_records,
-//     pair_rows); the any-hit walk runs over the active lanes only, which K6
-//     lists on the device;
-//   - split_kernel (form 0, the first version, kept as the yardstick): box
-//     [U,6] f32, node [U,3] i32 left | kind | count and links [8,U,2] i32,
-//     read with 32-bit loads; tri [T,9] f32 p0|e1|e2.
-// Links carry the DONE (-1) and BLAS_EXIT (-2) sentinels; inst_mat [I+1,12]
-// (slot 0 identity); inst_root [I+1] i32.  The octant records, [8,U] x 8
-// words, hold a node's box and the octant's near and skip; a leaf's near
+// rec_kernel reads one 32-byte, 32-byte aligned node record a visit with two
+// 16-byte loads, and an 80-byte row a triangle pair with five
+// (ops/traversal.py: octant_records, pair_rows); the any-hit walk runs over
+// the active lanes only, which K6 lists on the device.  Links carry the DONE
+// (-1) and BLAS_EXIT (-2) sentinels; inst_mat [I+1,12] (slot 0 identity);
+// inst_root [I+1] i32.  The octant records, [8,U] x 8 words, hold a node's
+// box and the octant's near and skip; a leaf's near
 // (never followed) holds its payload, bit 31 set so it never is a child, bit
 // 30 set for a TLAS leaf: BLAS leaf count / 2 << 21 | left / 2, TLAS leaf
 // count << 8 | instance (0x80000000 | ... is never DONE or BLAS_EXIT).
@@ -26,8 +21,8 @@
 // reciprocals and its octant are set when the walk enters a space: once for
 // the TLAS (through slot 0's identity rows, as the plain version: they can
 // turn a -0 component into +0, and so an infinite reciprocal's sign), once on
-// each TLAS-leaf entry, and restored on each BLAS exit (rec_kernel keeps the
-// world and TLAS rays in shared memory, split_kernel in registers).  JAX's
+// each TLAS-leaf entry, and restored on each BLAS exit (the world and TLAS
+// rays are kept in shared memory).  JAX's
 // vectorised _step transforms on every iteration; the inputs are the same
 // floats, so the results are the same.  Each iteration is one _step:
 //   - a BLAS exit (cur == BLAS_EXIT, no pair left) restores the TLAS ray and
@@ -41,7 +36,7 @@
 //     with resume = skip, and the ray into the instance's space.
 // NAIVE (ordered = 0) takes octant 0's links.  Built with --fmad=false: the
 // transform, slab and triangle arithmetic are the plain version's float32
-// operations, so ids, t and steps equal it.  rec_kernel's reciprocals are
+// operations, so ids, t and steps equal it.  The reciprocals are
 // __frcp_rn (IEEE 1/x rounded to nearest: the bits of the division), and its
 // min / max are PTX min.NaN / max.NaN (slab_hit_rec says why zeros' signs do
 // not matter there).
@@ -50,7 +45,8 @@
 // threaded_closest / threaded_any rows, PERF.md section 6): instructions
 // issued, then the latency of one dependent row a step; not bytes.  On
 // config3's 1080p primaries the octant records cut the sectors the lanes
-// touch 2.9x (475 M to 161 M) but the time only 1.19x (1.47 to 1.24 ms);
+// touch 2.9x against separate box, node, link and triangle tables read with
+// 32-bit loads (475 M to 161 M) but the time only 1.19x (1.47 to 1.24 ms);
 // cutting instructions then took it to 0.68 ms: single-instruction NaN
 // min / max in the slab test (12 a node visit, each a compare, two NaN tests
 // and a select before), __frcp_rn for IEEE division, and the TLAS ray kept
@@ -81,17 +77,6 @@ constexpr int kMinBlocks = 8;  // rec_kernel blocks an SM: at most 64 registers 
 // incomplete instead of hanging the card.
 constexpr long long kMaxIterations = 1ll << 26;
 
-struct Tables {
-  const float* box;
-  const int* node;
-  const int* links;
-  int n_nodes;
-  const float* inst_mat;
-  const int* inst_root;
-  const float* tri;
-  int ordered;
-};
-
 struct RecTables {
   const int4* rec;         // [8U] octant records, two int4 each
   int n_nodes;
@@ -100,150 +85,6 @@ struct RecTables {
   const float4* pairs;     // [T/2] x 5 float4
   int ordered;
 };
-
-// intersect.triangle_hit: (hit, t) of the ray against the triangle at row r
-__device__ __forceinline__ bool triangle_hit(const float* r, float ox, float oy, float oz,
-                                             float dx, float dy, float dz, float t_max,
-                                             float* t_out) {
-  const float p0x = r[0], p0y = r[1], p0z = r[2];
-  const float e1x = r[3], e1y = r[4], e1z = r[5];
-  const float e2x = r[6], e2y = r[7], e2z = r[8];
-  const float hx = dy * e2z - dz * e2y;
-  const float hy = dz * e2x - dx * e2z;
-  const float hz = dx * e2y - dy * e2x;
-  const float a = e1x * hx + e1y * hy + e1z * hz;
-  const float f = 1.0f / (fabsf(a) < kTiny ? (a < 0.0f ? -kTiny : kTiny) : a);
-  const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
-  const float u = f * (sx * hx + sy * hy + sz * hz);
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v = f * (dx * qx + dy * qy + dz * qz);
-  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-  *t_out = t;
-  return (u > 0.0f) && (u < 1.0f) && (v > 0.0f) && (u + v < 1.0f) && (t > kRayEpsilon) &&
-         (t < t_max);
-}
-
-template <bool kAnyHit>
-__global__ void split_kernel(Tables tb_, const float* __restrict__ o,
-                             const float* __restrict__ d, const float* __restrict__ t_max,
-                             const uint8_t* __restrict__ active, int n,
-                             float* __restrict__ t_out, int* __restrict__ best_out,
-                             int* __restrict__ steps_out, uint8_t* __restrict__ found_out,
-                             int* __restrict__ incomplete) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float owx = o[3 * i], owy = o[3 * i + 1], owz = o[3 * i + 2];
-  const float dwx = d[3 * i], dwy = d[3 * i + 1], dwz = d[3 * i + 2];
-  const float t_fixed = t_max[i];
-  float tb = t_fixed;
-  int best = -1, steps = 0;
-  int cur = active[i] ? 0 : kDone;
-  int resume = -1, inst = -1;  // the TLAS continuation and the entered instance
-  int pi = 0, rem = 0;         // pair cursor
-  bool found = false, lost = false;
-
-  // the ray in the current space, its reciprocals and octant
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-  int oct;
-  auto enter = [&](int slot) {
-    const float* m = tb_.inst_mat + 12 * slot;
-    ox = m[0] * owx + m[1] * owy + m[2] * owz + m[3];
-    oy = m[4] * owx + m[5] * owy + m[6] * owz + m[7];
-    oz = m[8] * owx + m[9] * owy + m[10] * owz + m[11];
-    dx = m[0] * dwx + m[1] * dwy + m[2] * dwz;
-    dy = m[4] * dwx + m[5] * dwy + m[6] * dwz;
-    dz = m[8] * dwx + m[9] * dwy + m[10] * dwz;
-    ix = 1.0f / dx;
-    iy = 1.0f / dy;
-    iz = 1.0f / dz;
-    oct = tb_.ordered ? ((dx > 0.0f) | ((dy > 0.0f) << 1) | ((dz > 0.0f) << 2)) : 0;
-  };
-  enter(0);
-  const float tox = ox, toy = oy, toz = oz, tdx = dx, tdy = dy, tdz = dz;
-  const float tix = ix, tiy = iy, tiz = iz;
-  const int toct = oct;
-
-  for (long long it = 0;; ++it) {
-    const bool has_tri = rem > 0;
-    if (!has_tri && cur < 0 && cur != kBlasExit) break;  // done
-    if (it == kMaxIterations) {
-      lost = true;
-      break;
-    }
-    if (cur == kBlasExit && !has_tri) {
-      cur = resume;
-      resume = -1;
-      inst = -1;
-      ox = tox, oy = toy, oz = toz, dx = tdx, dy = tdy, dz = tdz;
-      ix = tix, iy = tiy, iz = tiz;
-      oct = toct;
-    }
-
-    if (has_tri) {
-      const float* r = tb_.tri + 18ll * pi;
-      float t0, t1;
-      const bool hit0 = triangle_hit(r, ox, oy, oz, dx, dy, dz, kAnyHit ? t_fixed : tb, &t0);
-      if (!kAnyHit && hit0) tb = t0;
-      const bool hit1 =
-          triangle_hit(r + 9, ox, oy, oz, dx, dy, dz, kAnyHit ? t_fixed : tb, &t1);
-      if (kAnyHit) {
-        if (hit0 || hit1) {
-          found = true;
-          break;
-        }
-      } else {
-        if (hit1) tb = t1;
-        if (hit0 || hit1) best = ((hit1 ? 2 * pi + 1 : 2 * pi) << 8) | (inst + 1);
-      }
-      ++pi;
-      --rem;
-      continue;
-    }
-    if (cur < 0) continue;  // an exit to DONE: nothing left to visit
-
-    ++steps;
-    const float* bx = tb_.box + 6ll * cur;
-    const int* nd = tb_.node + 3ll * cur;
-    const int* lk = tb_.links + 2ll * ((long long)oct * tb_.n_nodes + cur);
-    const float t0x = (bx[0] - ox) * ix, t1x = (bx[3] - ox) * ix;
-    const float t0y = (bx[1] - oy) * iy, t1y = (bx[4] - oy) * iy;
-    const float t0z = (bx[2] - oz) * iz, t1z = (bx[5] - oz) * iz;
-    const float t_near = rt::nan_max(rt::nan_max(kRayEpsilon, rt::nan_min(t0x, t1x)),
-                                     rt::nan_max(rt::nan_min(t0y, t1y), rt::nan_min(t0z, t1z)));
-    const float t_far = rt::nan_min(rt::nan_min(kAnyHit ? t_fixed : tb, rt::nan_max(t0x, t1x)),
-                                    rt::nan_min(rt::nan_max(t0y, t1y), rt::nan_max(t0z, t1z)));
-    const int left = nd[0], kind = nd[1], count = nd[2];
-    const int near = lk[0], skip = lk[1];
-    if (!(t_near < t_far)) {
-      cur = skip;
-    } else if (kind == kInternal) {
-      cur = near;
-    } else if (kind == kBlasLeaf) {
-      pi = left >> 1;
-      rem = count >> 1;
-      cur = skip;
-    } else if (kind == kTlasLeaf) {
-      cur = tb_.inst_root[left + 1];
-      resume = skip;
-      inst = left;
-      enter(left + 1);
-    } else {
-      cur = skip;  // not produced by build_scene_bvh
-    }
-  }
-
-  if (kAnyHit) {
-    found_out[i] = found;
-    if (lost) atomicAdd(incomplete, 1);
-  } else {
-    t_out[i] = tb;
-    best_out[i] = best;
-    steps_out[i] = steps;
-    if (lost) atomicAdd(incomplete, 1);
-  }
-}
 
 template <bool kAnyHit>
 __device__ __forceinline__ void write_lane(int i, float tb, int best, int steps, bool found,
@@ -287,8 +128,9 @@ __device__ __forceinline__ bool slab_hit_rec(float lx, float ly, float lz, float
   return t_near < t_far;
 }
 
-// triangle_hit with the reciprocal as __frcp_rn: IEEE 1/x rounded to nearest,
-// the same bits as the division 1.0f / x
+// intersect.triangle_hit: (hit, t) of the ray against one triangle, with the
+// reciprocal as __frcp_rn: IEEE 1/x rounded to nearest, the same bits as the
+// division 1.0f / x
 __device__ __forceinline__ bool triangle_hit_rec(float p0x, float p0y, float p0z, float e1x,
                                                  float e1y, float e1z, float e2x, float e2y,
                                                  float e2z, float ox, float oy, float oz,
@@ -435,50 +277,41 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 }
 
 template <bool kAnyHit>
-void launch(int form, const Tables& split, const RecTables& rec, const float* o, const float* d,
-            const float* t_max, const uint8_t* active, int n, const int* lane_list,
-            const int* lane_count, float* t_out, int* best_out, int* steps_out,
-            uint8_t* found_out, int* incomplete, cudaStream_t s) {
-  const unsigned grid = rt::grid_for(n, kBlock);
-  if (form == 0)
-    split_kernel<kAnyHit><<<grid, kBlock, 0, s>>>(split, o, d, t_max, active, n, t_out,
-                                                  best_out, steps_out, found_out, incomplete);
-  else
-    rec_kernel<kAnyHit><<<grid, kBlock, 0, s>>>(rec, o, d, t_max, active, n, lane_list,
-                                                lane_count, t_out, best_out, steps_out,
-                                                found_out, incomplete);
+void launch(const RecTables& rec, const float* o, const float* d, const float* t_max,
+            const uint8_t* active, int n, const int* lane_list, const int* lane_count,
+            float* t_out, int* best_out, int* steps_out, uint8_t* found_out, int* incomplete,
+            cudaStream_t s) {
+  rec_kernel<kAnyHit><<<rt::grid_for(n, kBlock), kBlock, 0, s>>>(
+      rec, o, d, t_max, active, n, lane_list, lane_count, t_out, best_out, steps_out,
+      found_out, incomplete);
 }
 
 }  // namespace
 
-// form 0: the split tables box, node, links, tri; form 1: the octant records
-// `rec` [8U,8] i32 and the pair rows `pairs` [T/2,20] f32, which with inst_mat
-// lie on 16-byte aligned bases.  o, d: [n,3] f32 world rays; t_max: [n] f32;
-// active: [n] bool.  Closest: writes t_out [n] f32, best_out [n] i32 (tri << 8
-// | inst + 1, -1 = miss), steps_out [n] i32 (node visits).  Any: writes
-// found_out [n] bool.  Both add the lanes that hit the iteration guard to
-// *incomplete (zeroed by the caller).  lane_list (form 1; null: every lane):
-// [n] i32 whose first *lane_count entries are the lanes to walk; the other
-// lanes' outputs are the caller's.
-extern "C" int rt_trace_threaded(int any_hit, int form, const void* box, const void* node,
-                                 const void* links, const void* rec, const void* pairs,
-                                 int n_nodes, const void* inst_mat, const void* inst_root,
-                                 const void* tri, int ordered, const void* o, const void* d,
-                                 const void* t_max, const void* active, int n,
-                                 const void* lane_list, const void* lane_count, void* t_out,
-                                 void* best_out, void* steps_out, void* found_out,
-                                 void* incomplete, void* stream) {
-  const Tables split{(const float*)box, (const int*)node, (const int*)links, n_nodes,
-                     (const float*)inst_mat, (const int*)inst_root, (const float*)tri, ordered};
+// The octant records `rec` [8U,8] i32 and the pair rows `pairs` [T/2,20] f32,
+// which with inst_mat lie on 16-byte aligned bases.  o, d: [n,3] f32 world
+// rays; t_max: [n] f32; active: [n] bool.  Closest: writes t_out [n] f32,
+// best_out [n] i32 (tri << 8 | inst + 1, -1 = miss), steps_out [n] i32 (node
+// visits).  Any: writes found_out [n] bool.  Both add the lanes that hit the
+// iteration guard to *incomplete (zeroed by the caller).  lane_list (null:
+// every lane): [n] i32 whose first *lane_count entries are the lanes to walk;
+// the other lanes' outputs are the caller's.
+extern "C" int rt_trace_threaded(int any_hit, const void* rec, const void* pairs, int n_nodes,
+                                 const void* inst_mat, const void* inst_root, int ordered,
+                                 const void* o, const void* d, const void* t_max,
+                                 const void* active, int n, const void* lane_list,
+                                 const void* lane_count, void* t_out, void* best_out,
+                                 void* steps_out, void* found_out, void* incomplete,
+                                 void* stream) {
   const RecTables recs{(const int4*)rec, n_nodes, (const float4*)inst_mat,
                        (const int*)inst_root, (const float4*)pairs, ordered};
   cudaStream_t s = (cudaStream_t)stream;
   if (any_hit)
-    launch<true>(form, split, recs, (const float*)o, (const float*)d, (const float*)t_max,
+    launch<true>(recs, (const float*)o, (const float*)d, (const float*)t_max,
                  (const uint8_t*)active, n, (const int*)lane_list, (const int*)lane_count,
                  nullptr, nullptr, nullptr, (uint8_t*)found_out, (int*)incomplete, s);
   else
-    launch<false>(form, split, recs, (const float*)o, (const float*)d, (const float*)t_max,
+    launch<false>(recs, (const float*)o, (const float*)d, (const float*)t_max,
                   (const uint8_t*)active, n, (const int*)lane_list, (const int*)lane_count,
                   (float*)t_out, (int*)best_out, (int*)steps_out, nullptr, (int*)incomplete,
                   s);

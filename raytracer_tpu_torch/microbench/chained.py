@@ -11,9 +11,8 @@ harness's checksum ``acc.sum() + j.sum()``:
 - ``chained index_select``: its ``make_fn(jnp.take)``;
 - ``chained K11 staged``: its ``make_fn(pallas_gather)`` (``:25``), one K11
   launch a step;
-- ``K12 chained`` and ``K12 indep``: each loop as one kernel in K12's warp
-  form (a warp fetches its 32 lanes' rows together), then each in the first
-  form (``... first``: a thread reads its own row), the yardstick.
+- ``K12 chained`` and ``K12 indep``: each loop as one K12 kernel (a warp
+  fetches its 32 lanes' rows together).
 
 The last line, ``agree``, says whether every chained variant ends on the same
 ``j`` in every lane, and how far their ``acc`` lie apart (``index_select``'s
@@ -113,21 +112,17 @@ def main(argv=None) -> list:
         line(name, lambda rows_of=rows_of: loop(rows_of, table, idx, iters),
              float(a.sum()) + float(j.sum()), **extra)
 
-    for form in gather.K12_FORMS:
-        suffix = "" if form == "warp" else f" {form}"
+    def k12():
+        return gather.chained_gather(table, idx, iters)
 
-        def k12(form=form):
-            return gather.chained_gather(table, idx, iters, form=form)
+    def k12_indep():
+        return gather.indep_gather(table, idx_all)
 
-        def k12_indep(form=form):
-            return gather.indep_gather(table, idx_all, form=form)
-
-        ends["K12 chained" + suffix] = k12()
-        a, j = ends["K12 chained" + suffix]
-        line("K12 chained" + suffix, k12, float(a.sum()) + float(j.sum()), replaces=REPLACES,
-             form=form, device_ms=device_ms(k12, dev))
-        line("K12 indep" + suffix, k12_indep, float(k12_indep().sum()), form=form,
-             device_ms=device_ms(k12_indep, dev))
+    ends["K12 chained"] = k12()
+    a, j = ends["K12 chained"]
+    line("K12 chained", k12, float(a.sum()) + float(j.sum()), replaces=REPLACES,
+         device_ms=device_ms(k12, dev))
+    line("K12 indep", k12_indep, float(k12_indep().sum()), device_ms=device_ms(k12_indep, dev))
 
     a0, j0 = ends["K12 chained"]
     emit(out, "chained", dev, name="agree",

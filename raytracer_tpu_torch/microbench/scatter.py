@@ -139,21 +139,16 @@ def k4_runs(tex, lanes, cfg, cot) -> dict:
     """K4's run structure on one generation's lanes and cotangent
     (``texture_sample.tap_slots_plain``): the share of lanes whose cotangent is
     all zero, ``warp_runs`` of each quad slot and of the top-texel slot (EWA's
-    window slots merged into one entry), and the atomics each form issues:
-    the per-lane form's (12 one-float atomics a tap of every lane, zero lanes too, 3 a
-    texel) and the warp form's (3 a run: 16-byte vectors for a quad row, one
-    float each for a texel row)."""
+    window slots merged into one entry), and the atomics K4 issues (3 a run:
+    16-byte vectors for a quad row, one float each for a texel row)."""
     import torch
 
     from ..ops import texture_sample
 
     slots = [(x.kind, x.rows) for x in texture_sample.tap_slots_plain(tex, lanes, cfg, cot)]
-    lane_atomics = sum((12 if x.kind == "quad" else 3) * int((x.rows >= 0).sum())
-                       for x in texture_sample.tap_slots_plain(tex, lanes, cfg,
-                                                               torch.ones_like(cot)))
     out = {"lanes": int(cot.shape[0]),
            "zero_cotangent_share": float((~(cot != 0).any(dim=1)).float().mean()),
-           "slots": [], "atomics_lane_form": lane_atomics}
+           "slots": []}
     quads = [rows for kind, rows in slots if kind == "quad"]
     texels = [rows for kind, rows in slots if kind == "texel"]
     entries = [(f"quad {k}", [rows]) for k, rows in enumerate(quads)]
@@ -167,7 +162,7 @@ def k4_runs(tex, lanes, cfg, cot) -> dict:
         stats = _merge_runs(group)
         out["slots"].append({"slot": name, **stats})
         requests += 3 * stats["runs"]
-    out["atomics_warp_form"] = requests
+    out["atomics"] = requests
     return out
 
 
@@ -204,31 +199,36 @@ def k4_patterns(lanes, cot, tex, cfg, seed: int = 0) -> dict:
 
 
 def k4_measure(tex, lanes, cfg, data4, cot, device, reps: int) -> dict:
-    """K4 on (lanes, cot) in each scatter form (the per-lane "lane" and the warp
-    form "scan"): ms, device ms, the atlas gradients against the plain
+    """K4 on (lanes, cot): ms, device ms, the atlas gradients against the plain
     version's per-lane values summed in float64 (l2-relative, data and data4),
-    and the spread between two runs."""
+    the same of those values summed in float32 (``plain_l2_rel_*``: how far
+    the order of a float32 sum alone moves them), and the spread between two
+    runs."""
+    import torch
+
     from ..ops import texture_sample
 
     filt = texture_sample.filter_of(cfg)
-    want = texture_sample.scatter_sums_plain(
-        texture_sample.tap_slots_plain(tex, lanes, cfg, cot), tex[0].shape[0])
+    slots = list(texture_sample.tap_slots_plain(tex, lanes, cfg, cot))
+    want = texture_sample.scatter_sums_plain(slots, tex[0].shape[0])
+    want32 = texture_sample.scatter_sums_plain(slots, tex[0].shape[0], torch.float32)
+    del slots
     out = {"lanes": int(cot.shape[0]),
            "zero_cotangent_share": float((~(cot != 0).any(dim=1)).float().mean())}
-    for form in texture_sample.BWD_FORMS:
-        def kernel(form=form):
-            return texture_sample.sample_backward(tex, lanes, filt, data4, cot, True,
-                                                  data4 is not None, False, form)
 
-        got, again = kernel()[:2], kernel()[:2]
-        row = {"ms": ms(kernel, reps, device), "device_ms": device_ms(kernel, device, reps)}
-        for name, g, a, w in zip(("data", "data4"), got, again, want):
-            if g is None or w is None or not bool(w.any()):
-                continue
-            scale = float(w.norm())
-            row[f"l2_rel_{name}"] = float((g.double() - w).norm()) / scale
-            row[f"run_to_run_l2_rel_{name}"] = float((a - g).double().norm()) / scale
-        out[form] = row
+    def kernel():
+        return texture_sample.sample_backward(tex, lanes, filt, data4, cot, True,
+                                              data4 is not None, False)
+
+    got, again = kernel()[:2], kernel()[:2]
+    out.update(ms=ms(kernel, reps, device), device_ms=device_ms(kernel, device, reps))
+    for name, g, a, w, w32 in zip(("data", "data4"), got, again, want, want32):
+        if g is None or w is None or not bool(w.any()):
+            continue
+        scale = float(w.norm())
+        out[f"l2_rel_{name}"] = float((g.double() - w).norm()) / scale
+        out[f"plain_l2_rel_{name}"] = float((w32.double() - w).norm()) / scale
+        out[f"run_to_run_l2_rel_{name}"] = float((a - g).double().norm()) / scale
     return out
 
 

@@ -11,8 +11,7 @@ chained loop is ``bench_loop``'s (``:61-75``): 32 steps of
 - ``chained index_select``: the harness's ``jnp.take`` baseline loop;
 - ``K11 direct``: one gather, exact against ``index_select``;
 - ``chained K11 direct``: ``bench_loop`` over the kernel, one launch a step;
-- ``K12 chained``: the loop as one kernel in K12's warp form, then ``K12
-  chained first`` in its first form (each ``j`` against the others').
+- ``K12 chained``: the loop as one K12 kernel (its ``j`` against the others').
 
     python -m raytracer_tpu_torch.microbench.table_gather [--cpu] [--reps 50]
 """
@@ -82,18 +81,17 @@ def main(argv=None) -> list:
          exact=bool(torch.equal(one(), torch.index_select(table, 0, idx))), lanes=n)
     j_k11 = chain_line("chained K11 direct", direct)
 
-    for form in gather.K12_FORMS:
-        def k12(form=form):
-            return gather.chained_gather(table, idx, iters, form=form)
+    def k12():
+        return gather.chained_gather(table, idx, iters)
 
-        acc, j = k12()
-        t_ms = ms(k12, args.reps, dev)
-        emit(out, "table_gather", dev, name="K12 chained" + ("" if form == "warp" else f" {form}"),
-             replaces="scratch/bench_vmem_gather.py:61", form=form, ms=t_ms,
-             ns_per_lane_iter=t_ms * 1e6 / (n * iters), device_ms=device_ms(k12, dev),
-             sum=float(acc.sum()) + float(j.sum()),
-             j_equal=bool(torch.equal(j, j_ref) and torch.equal(j_k11, j_ref)), lanes=n,
-             iters=iters)
+    acc, j = k12()
+    t_ms = ms(k12, args.reps, dev)
+    emit(out, "table_gather", dev, name="K12 chained",
+         replaces="scratch/bench_vmem_gather.py:61", ms=t_ms,
+         ns_per_lane_iter=t_ms * 1e6 / (n * iters), device_ms=device_ms(k12, dev),
+         sum=float(acc.sum()) + float(j.sum()),
+         j_equal=bool(torch.equal(j, j_ref) and torch.equal(j_k11, j_ref)), lanes=n,
+         iters=iters)
     return out
 
 

@@ -4,17 +4,15 @@ The port of ``scratch/bench_vmem_invreg.py``: 128 records of 72 components
 stored in columns (36 KB), 131,072 lanes, each reading ``s = sum_c tab[c, j]``.
 The chain (32 steps) moves to ``j = (j + trunc(s * 7) + i) mod 128``.  Lines:
 
-- ``K13 single``: its ``gather_kernel`` (``:63``) in K13's form ``"sm"`` (one
-  block an SM stages the table once), against ``index_select(tab.T).sum(1)``
-  (another order of the sum) and exactly against the plain version; then
-  ``K13 single first`` in the first form;
+- ``K13 single``: its ``gather_kernel`` (``:63``) as K13 (one block an SM
+  stages the table once), against ``index_select(tab.T).sum(1)`` (another
+  order of the sum) and exactly against the plain version;
 - ``per-call K13 single``: the chain with one K13 launch a step (its
   ``loop_percall``);
-- ``K13 chained``: the whole chain in one kernel (its ``in_kernel``, ``:39``),
-  then ``K13 chained first``;
+- ``K13 chained``: the whole chain in one kernel (its ``in_kernel``, ``:39``);
 - ``index_select``: its XLA ``take`` baseline loop over the transposed table;
 - ``bank_conflicts``: for single and chained, the shared-memory wavefronts a
-  warp's record reads take in the form "sm"'s ``[C][U]`` table, over the count
+  warp's record reads take in K13's ``[C][U]`` table, over the count
   without conflicts (``bank_conflicts``, computed from the records the lanes
   read, on either device).
 
@@ -108,18 +106,17 @@ def main(argv=None) -> list:
     tab_t = tab.t().contiguous()
     n, iters, out = idx.shape[0], args.iters, []
 
-    for form in gather.K13_FORMS:
-        def single(form=form):
-            return gather.table_rowsum(tab, idx, form=form)
+    def single():
+        return gather.table_rowsum(tab, idx)
 
-        got = single()
-        t_ms = ms(single, args.reps, dev)
-        emit(out, "table_rowsum", dev, name="K13 single" + ("" if form == "sm" else f" {form}"),
-             replaces="scratch/bench_vmem_invreg.py:63", form=form, ms=t_ms,
-             ns_per_lane=t_ms * 1e6 / n, device_ms=device_ms(single, dev), sum=float(got.sum()),
-             max_abs_err_vs_index_select=float(
-                 (got - torch.index_select(tab_t, 0, idx).sum(dim=1)).abs().max()),
-             exact=bool(torch.equal(got, gather.table_rowsum_plain(tab, idx))), lanes=n)
+    got = single()
+    t_ms = ms(single, args.reps, dev)
+    emit(out, "table_rowsum", dev, name="K13 single", replaces="scratch/bench_vmem_invreg.py:63",
+         ms=t_ms, ns_per_lane=t_ms * 1e6 / n, device_ms=device_ms(single, dev),
+         sum=float(got.sum()),
+         max_abs_err_vs_index_select=float(
+             (got - torch.index_select(tab_t, 0, idx).sum(dim=1)).abs().max()),
+         exact=bool(torch.equal(got, gather.table_rowsum_plain(tab, idx))), lanes=n)
 
     def chain_line(name, fn, **extra):
         acc, j = fn()
@@ -132,17 +129,13 @@ def main(argv=None) -> list:
     per_call = chain_line("per-call K13 single",
                           lambda: chain(lambda j: gather.table_rowsum(tab, j), tab, idx, iters))
 
-    ends = []
-    for form in gather.K13_FORMS:
-        def k13(form=form):
-            return gather.table_rowsum_chain(tab, idx, iters, form=form)
+    def k13():
+        return gather.table_rowsum_chain(tab, idx, iters)
 
-        ends.append(chain_line("K13 chained" + ("" if form == "sm" else f" {form}"), k13,
-                               replaces="scratch/bench_vmem_invreg.py:39", form=form,
-                               device_ms=device_ms(k13, dev)))
+    acc, j = chain_line("K13 chained", k13, replaces="scratch/bench_vmem_invreg.py:39",
+                        device_ms=device_ms(k13, dev))
     emit(out, "table_rowsum", dev, name="agree",
-         per_call_equal=all(bool(torch.equal(acc, per_call[0]) and torch.equal(j, per_call[1]))
-                            for acc, j in ends))
+         per_call_equal=bool(torch.equal(acc, per_call[0]) and torch.equal(j, per_call[1])))
     chain_line("index_select", lambda: chain(
         lambda j: torch.index_select(tab_t, 0, j).sum(dim=1), tab, idx, iters))
     for mode, records in (("single", idx[None]), ("chained", record_steps(tab, idx, iters))):

@@ -1,6 +1,6 @@
 """K10, the threaded binary BVH walk (``ops/traversal.py``,
 ``csrc/traverse_threaded.cu``), on config3's threaded frame: its tables, the
-floor of dependent row reads under it, and each of its forms.
+floor of dependent row reads under it, and the kernel against the plain walk.
 
 Renders ``config3_sponza`` (1920x1080, the 260k-triangle stand-in) once under
 ``traversal_kernel="threaded"`` and keeps K10's generation-0 inputs: the
@@ -13,14 +13,13 @@ one JSON line each:
 - ``chain_floor``: K12 (``gather.chained_gather``) over the primaries' count of
   lanes x ``--iters`` dependent rows (54: K10's node visits a primary ray): the
   ``[U,6]`` box rows at their 24-byte stride with 32-bit loads (one thread a
-  chain), then the same rows padded to 32 bytes with 16-byte loads in K12's
-  two forms (``"warp"``: a warp fetches its 32 chains' rows together;
-  ``"first"``: a thread reads its own row, as K10 reads a record).  The first
-  column picks the next row, so all run the same chains;
+  chain), then the same rows padded to 32 bytes with 16-byte loads (a warp
+  fetches its 32 chains' rows together).  The first column picks the next
+  row, so both run the same chains;
 - ``walk`` (closest, any): the plain walk's node, pair and TLAS-leaf visits and
   its warp efficiency (the sum of the lanes' iterations over the sum of 32 x
   each warp's longest lane), in launch order and with the active lanes
-  compacted; then each form's ``ms``, ``device_ms``, bytes as issued and
+  compacted; then the kernel's ``ms``, ``device_ms``, bytes as issued and
   sectors touched (``traffic``), held bit for bit to the plain walk.
 
     python -m raytracer_tpu_torch.microbench.threaded            # on the card
@@ -40,11 +39,11 @@ SECTOR = 32  # bytes of an L2 sector
 # bytes a lane writes once (it reads o, d, t_max and active: 29): closest t,
 # best and steps, any hit found
 LANE_OUT_BYTES = {False: 12, True: 1}
-# bytes one lane's loads ask for (csrc/traverse_threaded.cu), by form: a node
-# visit, a pair visit; every form reads an instance's 12 matrix floats and its
-# root at a TLAS-leaf entry (52), and slot 0's matrix once a lane (48); a BLAS
-# exit reads the TLAS ray from registers (split) or shared memory
-FORM_BYTES = {"split": {"node": 24 + 12 + 8, "pair": 72}, "octant": {"node": 32, "pair": 80}}
+# bytes one lane's loads ask for (csrc/traverse_threaded.cu): a node visit's
+# record, a pair visit's row; the kernel also reads an instance's 12 matrix
+# floats and its root at a TLAS-leaf entry (52), and slot 0's matrix once a
+# lane (48); a BLAS exit reads the TLAS ray from shared memory
+NODE_BYTES, PAIR_BYTES = 32, 80
 
 
 def frame_walks(width: int, height: int, triangles: int, device):
@@ -123,32 +122,26 @@ def sectors(offsets, length: int):
     return (offsets + length - 1) // SECTOR - offsets // SECTOR + 1
 
 
-def traffic(form: str, bvh, walk, lanes: int, any_hit: bool) -> dict:
-    """Bytes as issued and sectors touched by one launch of ``form`` on the
-    walk's rays: per lane-visit, as if no two lanes shared a load (tables from
+def traffic(walk, lanes: int, any_hit: bool) -> dict:
+    """Bytes as issued and sectors touched by one kernel launch on the walk's
+    rays: per lane-visit, as if no two lanes shared a load (tables from
     32-byte aligned bases), from the plain walk's visits of each node and pair
     (``trace_plain(..., visits=True)``); each lane's own inputs and outputs
     once."""
     import torch
 
-    b = FORM_BYTES[form]
     nodes, pairs = walk.node_hist, walk.pair_hist
     entries = int(walk.entries.sum())
     active = int((walk.steps > 0).sum())
     lane_bytes = lanes * (12 + 12 + 4 + 1 + LANE_OUT_BYTES[any_hit])
-    u = torch.arange(nodes.shape[0], device=nodes.device, dtype=torch.int64)
     p = torch.arange(pairs.shape[0], device=pairs.device, dtype=torch.int64)
     n_nodes, n_pairs = int(nodes.sum()), int(pairs.sum())
-    if form == "split":
-        node_sec = int((nodes * (sectors(24 * u, 24) + sectors(12 * u, 12) + 1)).sum())
-        pair_sec = int((pairs * sectors(72 * p, 72)).sum())
-    else:
-        node_sec = n_nodes
-        pair_sec = int((pairs * sectors(80 * p, 80)).sum())
+    node_sec = n_nodes  # a record is one 32-byte aligned sector
+    pair_sec = int((pairs * sectors(PAIR_BYTES * p, PAIR_BYTES)).sum())
     # an instance's 48-byte matrix row touches 2 sectors, its root 1; every
     # active lane transforms its ray through slot 0 once at the start
     enter_sec = entries * 3 + active * 2
-    issued = (lane_bytes + n_nodes * b["node"] + n_pairs * b["pair"] + entries * 52
+    issued = (lane_bytes + n_nodes * NODE_BYTES + n_pairs * PAIR_BYTES + entries * 52
               + active * 48)
     return {"bytes_as_issued": issued,
             "sectors_touched": node_sec + pair_sec + enter_sec + -(-lane_bytes // SECTOR),
@@ -156,9 +149,9 @@ def traffic(form: str, bvh, walk, lanes: int, any_hit: bool) -> dict:
 
 
 def chain_floor(bvh, lanes: int, iters: int, device, reps: int) -> list:
-    """K12 over the box rows as they are and padded to 32 bytes, the latter in
-    both forms (see the module docstring): per table and form {rows, ms,
-    device_ms, bytes as issued, their rate, sectors touched, exact}."""
+    """K12 over the box rows as they are and padded to 32 bytes (see the module
+    docstring): per table {rows, ms, device_ms, bytes as issued, their rate,
+    sectors touched, exact}."""
     import torch
 
     from ..ops import gather
@@ -170,34 +163,33 @@ def chain_floor(bvh, lanes: int, iters: int, device, reps: int) -> list:
     idx = torch.from_numpy(np.random.default_rng(0).integers(0, u, lanes).astype(np.int32)).to(
         box.device)
     out = []
-    for label, table, loads, forms in (("box_rows_24B", box, "scalar", ("scalar",)),
-                                       ("rows_32B", padded, "vector", gather.K12_FORMS)):
+    for label, table, loads in (("box_rows_24B", box, "scalar"), ("rows_32B", padded, "vector")):
         want = gather.chained_gather_plain(table, idx, iters)
         row = table.shape[1] * 4
         sec, j = 0, idx
         for i in range(iters):  # the rows each chain reads, as the kernel does
             sec += int(sectors(j.long() * row, row).sum())
             j = gather.next_index(j, table[j.long(), 0] * u, i, u)
-        for form in forms:
-            def run(t=table, ld=loads, f=None if form == "scalar" else form):
-                return gather.chained_gather(t, idx, iters, ld, f)
 
-            exact = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
-                        for a, b in zip(run(), want))
-            dev_ms = device_ms(run, device, reps)
-            out.append({"table": label, "shape": list(table.shape), "loads": loads,
-                        "form": form, "lanes": lanes, "iters": iters, "exact": exact,
-                        "ms": ms(run, reps, device), "device_ms": dev_ms,
-                        "bytes_as_issued": lanes * iters * row,
-                        "issued_per_s": (lanes * iters * row / (dev_ms / 1e3)
-                                         if isinstance(dev_ms, float) else "not measured"),
-                        "sectors_touched": sec})
+        def run(t=table, ld=loads):
+            return gather.chained_gather(t, idx, iters, ld)
+
+        exact = all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                    for a, b in zip(run(), want))
+        dev_ms = device_ms(run, device, reps)
+        out.append({"table": label, "shape": list(table.shape), "loads": loads,
+                    "lanes": lanes, "iters": iters, "exact": exact,
+                    "ms": ms(run, reps, device), "device_ms": dev_ms,
+                    "bytes_as_issued": lanes * iters * row,
+                    "issued_per_s": (lanes * iters * row / (dev_ms / 1e3)
+                                     if isinstance(dev_ms, float) else "not measured"),
+                    "sectors_touched": sec})
     return out
 
 
 def measure_walk(name: str, bvh, kcfg, rays, device, reps: int) -> dict:
     """The plain walk's counts and warp efficiency on ``rays``, and on the card
-    each form's times, traffic and whether it equals the plain walk."""
+    the kernel's times, traffic and whether it equals the plain walk."""
     import torch
 
     from ..config import TraversalStrategy
@@ -212,26 +204,26 @@ def measure_walk(name: str, bvh, kcfg, rays, device, reps: int) -> dict:
             "node_visits": int(walk.steps.sum()), "pair_visits": int(walk.pairs.sum()),
             "entries": int(walk.entries.sum()),
             "warp_efficiency": warp_efficiency(iters),
-            "warp_efficiency_compacted": warp_efficiency(iters[active]), "forms": {}}
+            "warp_efficiency_compacted": warp_efficiency(iters[active])}
     if device.type != "cuda":
         return line
-    for form in traversal.FORMS:
-        def run(form=form):
-            return traversal.trace_form(form, any_hit, bvh, o, d, t_max, active, kcfg)
-        t, best, steps, found, inc = run()
-        if any_hit:
-            same = bool(torch.equal(found, walk.found))
-        else:
-            same = bool(torch.equal(best, walk.best) and torch.equal(steps, walk.steps)
-                        and torch.equal(t.view(torch.int32), walk.t.view(torch.int32)))
-        line["forms"][form] = {"exact": same and int(inc) == 0, "ms": ms(run, reps, device),
-                               "device_ms": device_ms(run, device, reps),
-                               **traffic(form, bvh, walk, o.shape[0], any_hit)}
+
+    def run():
+        return traversal._launch(any_hit, bvh, o, d, t_max, active, kcfg)
+    t, best, steps, found, inc = run()
+    if any_hit:
+        same = bool(torch.equal(found, walk.found))
+    else:
+        same = bool(torch.equal(best, walk.best) and torch.equal(steps, walk.steps)
+                    and torch.equal(t.view(torch.int32), walk.t.view(torch.int32)))
+    line["kernel"] = {"exact": same and int(inc) == 0, "ms": ms(run, reps, device),
+                      "device_ms": device_ms(run, device, reps),
+                      **traffic(walk, o.shape[0], any_hit)}
     return line
 
 
 def main(argv=None) -> list:
-    ap = parser("K10's tables, floor and forms on config3's threaded frame.")
+    ap = parser("K10's tables, floor and walk on config3's threaded frame.")
     ap.add_argument("--width", type=int, default=WIDTH)
     ap.add_argument("--height", type=int, default=HEIGHT)
     ap.add_argument("--triangles", type=int, default=TRIANGLES)

@@ -7,7 +7,7 @@ direction with span clamp, and a 2-vs-4 sample fallback by luma range.  Gamma
 fractional offsets are bilinear gathers on the image grid, clamped to the edge.
 
 ``fxaa`` launches ``csrc/fxaa.cu`` for a CUDA image and runs ``fxaa_plain`` for
-a CPU image.  The kernel's tile form reads every tap from a block's tile of the
+a CPU image.  The kernel reads every tap from a block's tile of the
 image and ``HALO`` texels around it (``fxaa_halo`` says why that holds them all).
 """
 
@@ -23,12 +23,7 @@ FXAA_REDUCE_MUL = 1.0 / 8.0
 FXAA_SPAN_MAX = 8.0
 LUMA = (0.299, 0.587, 0.114)
 
-# rt_fxaa's forms, in the order of fxaa.cu's ``enum Form``: "tile" (the
-# renderer's: each texel's gamma once a block, in shared memory) and "first",
-# the first design, kept as the yardstick of chip_smoke.py's K8 row and never
-# picked by a render path; both give the same bits
-FORMS = ("tile", "first")
-# the tile form's halo, in texels before and after a pixel on each axis: a
+# the kernel's halo, in texels before and after a pixel on each axis: a
 # finite direction is clamped to +-FXAA_SPAN_MAX and the taps sit at k in
 # [-1/2, 1/2] along it, so a tap starts at most 4 texels away, and its
 # bilinear's second texel is one further (fxaa.cu: kHaloLo, kHaloHi)
@@ -155,21 +150,17 @@ def fxaa_plain(linear_image: torch.Tensor) -> torch.Tensor:
 
 
 def fxaa(linear_image: torch.Tensor) -> torch.Tensor:
-    """K8.  CPU images take ``fxaa_plain``; CUDA images launch ``rt_fxaa``'s tile
-    form once (counted in ``trace.counters["launch.k8"]``)."""
+    """K8.  CPU images take ``fxaa_plain``; CUDA images launch ``rt_fxaa`` once
+    (counted in ``trace.counters["launch.k8"]``)."""
     if linear_image.device.type == "cpu":
         return fxaa_plain(linear_image)
-    return fxaa_form("tile", linear_image)
-
-
-def fxaa_form(form: str, linear_image: torch.Tensor) -> torch.Tensor:
-    """One ``rt_fxaa`` launch in ``form`` (one of ``FORMS``; the tile form counted
-    in ``trace.counters["launch.k8"]``, the first in ``"launch.k8.first"``) on a
-    CUDA image."""
-    if form not in FORMS:
-        raise ValueError(f"fxaa: form must be one of {FORMS}")
     if linear_image.device.type != "cuda":
         raise ValueError("fxaa: the kernel takes a CUDA image")
+    return _launch(linear_image)
+
+
+def _launch(linear_image: torch.Tensor) -> torch.Tensor:
+    """One ``rt_fxaa`` launch on an [H,W,3] float32 image."""
     if linear_image.dim() != 3 or linear_image.shape[2] != 3:
         raise ValueError("fxaa: [H,W,3] image expected")
     if linear_image.dtype != torch.float32:
@@ -180,10 +171,10 @@ def fxaa_form(form: str, linear_image: torch.Tensor) -> torch.Tensor:
     if h * w == 0:
         return out
     P, I = kernels.P, kernels.I
-    fn = kernels.entry("fxaa", "rt_fxaa", [P, I, I, I, I, I, P, P])
+    fn = kernels.entry("fxaa", "rt_fxaa", [P, I, I, I, I, P, P])
     # the kernel refuses a halo other than its own
-    err = fn(linear_image.data_ptr(), h, w, FORMS.index(form), *HALO, out.data_ptr(),
+    err = fn(linear_image.data_ptr(), h, w, *HALO, out.data_ptr(),
              kernels.stream_ptr(linear_image.device))
-    trace.count("launch.k8" if form == "tile" else "launch.k8.first")
-    kernels.check(err, f"rt_fxaa ({form})")
+    trace.count("launch.k8")
+    kernels.check(err, "rt_fxaa")
     return out

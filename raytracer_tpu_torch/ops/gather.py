@@ -13,21 +13,18 @@ chained so that the next index depends on the row just read.
   completing on its own mbarrier; persistent blocks, as many as fit the card).
 - K12 ``chained_gather``: per lane, ``iters`` dependent row reads, each row
   summed left to right into ``acc`` and its first column choosing the next row;
-  ``indep_gather`` is the same loop over precomputed indices.  Two forms:
-  ``"warp"`` (a warp fetches its 32 lanes' rows together into shared memory,
-  each 16-byte copy instruction reading 32 consecutive pieces) and ``"first"``
-  (a thread reads its own row, the yardstick).
+  ``indep_gather`` is the same loop over precomputed indices.  A warp fetches
+  its 32 lanes' rows together into shared memory, each 16-byte copy
+  instruction reading 32 consecutive pieces.
 - K13 ``table_rowsum`` / ``table_rowsum_chain``: the sum of a record stored in a
-  column of a small ``[C, U]`` table, once or chained as K12.  Two forms:
-  ``"sm"`` (one block an SM stages the table once, in its own ``[C][U]``
-  layout) and ``"first"`` (a few blocks an SM, each staging it transposed).
+  column of a small ``[C, U]`` table, once or chained as K12.  One block an SM
+  stages the table once, in its own ``[C][U]`` layout.
 
-CPU tensors take the ``*_plain`` versions (``form`` is checked and ignored).
-CUDA tensors launch ``csrc/gather.cu`` in the form named (both forms counted
-in ``trace.counters[LAUNCH[kind]]``, the first also under that key's ``.first``)
-or raise; no form stands in for another.  Indices must lie in the table; they
-do in every harness by construction, and the kernels do not clamp them.  The
-next index of a chain always does: see ``next_index``.
+CPU tensors take the ``*_plain`` versions.  CUDA tensors launch
+``csrc/gather.cu`` (counted in ``trace.counters[LAUNCH[kind]]``) or raise.
+Indices must lie in the table; they do in every harness by construction, and
+the kernels do not clamp them.  The next index of a chain always does: see
+``next_index``.
 """
 
 from __future__ import annotations
@@ -37,23 +34,20 @@ import torch
 from .. import kernels
 from ..utils import trace
 
-# the counter key of csrc/gather.cu's launches of each kind, every form: K11
-# direct and staged, K12 chained and indep, K13 single and chained; the share
-# of K12's and K13's in the first form counts under the key + ".first"
+# the counter key of csrc/gather.cu's launches of each kind: K11 direct and
+# staged, K12 chained and indep, K13 single and chained
 LAUNCH = {"direct": "launch.k11.direct", "staged": "launch.k11.staged",
           "chained": "launch.k12.chained", "indep": "launch.k12.indep",
           "rowsum": "launch.k13.rowsum", "rowsum_chain": "launch.k13.rowsum_chain"}
 
 SCHEDULES = ("direct", "staged")
-K12_FORMS = ("warp", "first")
-K13_FORMS = ("sm", "first")
 K13_SCALE = 7.0  # K13's next index: trunc(s * 7) (bench_vmem_invreg.py:54)
 _RING_ROWS = 8 * 16  # K11 staged's ring: kRingStages x kRingRows rows (csrc/gather.cu)
 # shared memory a block may opt in to on the H100 (232,448 B), less 1 KB for the
 # ring's barriers: rows of at most 1,808 B (452 floats) fit the ring
 _RING_SMEM_LIMIT = 232_448 - 1024
 _SMEM_LIMIT = 48 * 1024  # K13: shared memory a block may use without opting in
-# K12's warp form: a slot of 32 rows of (R/4 | 1) 16-byte pieces a warp, within the
+# K12: a slot of 32 rows of (R/4 | 1) 16-byte pieces a warp, within the
 # opt-in shared memory less 1 KB (csrc/gather.cu kSmemOptIn): rows of at most
 # 1,804 floats
 _WARP_ROW_PIECES = 451
@@ -184,46 +178,31 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, schedule: str = "direct")
     return out
 
 
-def _form(what: str, form: str, forms: tuple) -> int:
-    if form not in forms:
-        raise ValueError(f"{what}: form must be one of {forms}")
-    return int(form == forms[0])
-
-
-def _launch_chain(indep: bool, form: int, table, idx, n, iters, acc, j_out) -> None:
+def _launch_chain(indep: bool, table, idx, n, iters, acc, j_out) -> None:
     r4 = _check_rows("chained_gather", table)
-    if form and r4 > _WARP_ROW_PIECES:
-        raise ValueError("chained_gather: the warp form holds rows of at most 1804 floats")
+    if r4 > _WARP_ROW_PIECES:
+        raise ValueError("chained_gather: a warp's slot holds rows of at most 1804 floats")
     fn = kernels.entry("gather", "rt_chained_gather",
-                       [kernels.I, kernels.I, kernels.P, kernels.I, kernels.I, kernels.P,
-                        kernels.I, kernels.I, kernels.P, kernels.P, kernels.P])
-    err = fn(int(indep), form, table.data_ptr(), table.shape[0], r4, idx.data_ptr(), n, iters,
+                       [kernels.I, kernels.P, kernels.I, kernels.I, kernels.P, kernels.I,
+                        kernels.I, kernels.P, kernels.P, kernels.P])
+    err = fn(int(indep), table.data_ptr(), table.shape[0], r4, idx.data_ptr(), n, iters,
              acc.data_ptr(), None if j_out is None else j_out.data_ptr(),
              kernels.stream_ptr(table.device))
-    key = LAUNCH["indep" if indep else "chained"]
-    trace.count(key)
-    if not form:
-        trace.count(key + ".first")
+    trace.count(LAUNCH["indep" if indep else "chained"])
     kernels.check(err, "rt_chained_gather")
 
 
 def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int,
-                   loads: str = "vector", form: str | None = None) -> tuple:
+                   loads: str = "vector") -> tuple:
     """K12: (acc [N] f32, j [N] int32) of ``chained_gather_plain``.  CPU tensors
     take the plain version; CUDA tensors launch ``rt_chained_gather``
-    (``loads="vector"``: 16-byte loads of rows of whole 16-byte pieces, in
-    ``form`` ``"warp"``, the default, or ``"first"``) or
+    (``loads="vector"``: 16-byte loads of rows of whole 16-byte pieces) or
     ``rt_chained_gather_scalar`` (``"scalar"``: 32-bit loads of rows of any
-    width, one thread a chain, its one form: ``form`` is not given), counted
-    under ``LAUNCH["chained"]``."""
+    width, one thread a chain), counted under ``LAUNCH["chained"]``."""
     _check("chained_gather", table, idx0, 1)
     iters = _iters("chained_gather", iters, table.shape[0])
     if loads not in ("vector", "scalar"):
         raise ValueError("chained_gather: loads must be 'vector' or 'scalar'")
-    if loads == "scalar" and form is not None:
-        raise ValueError("chained_gather: loads='scalar' has one form; form is for "
-                         "loads='vector'")
-    warp = _form("chained_gather", form or K12_FORMS[0], K12_FORMS)
     if table.device.type == "cpu":
         return chained_gather_plain(table, idx0, iters)
     n = idx0.shape[0]
@@ -238,70 +217,62 @@ def chained_gather(table: torch.Tensor, idx0: torch.Tensor, iters: int,
         trace.count(LAUNCH["chained"])
         kernels.check(err, "rt_chained_gather_scalar")
     elif n:
-        _launch_chain(False, warp, table, idx0, n, iters, acc, j)
+        _launch_chain(False, table, idx0, n, iters, acc, j)
     return acc, j
 
 
-def indep_gather(table: torch.Tensor, idx_all: torch.Tensor, form: str = "warp") -> torch.Tensor:
+def indep_gather(table: torch.Tensor, idx_all: torch.Tensor) -> torch.Tensor:
     """K12's ``indep`` mode: ``indep_gather_plain``'s acc over ``idx_all
-    [iters, N]``.  CUDA tensors launch ``rt_chained_gather`` in ``form``
-    (counted under ``LAUNCH["indep"]``)."""
+    [iters, N]``.  CUDA tensors launch ``rt_chained_gather`` (counted under
+    ``LAUNCH["indep"]``)."""
     _check("indep_gather", table, idx_all, 2)
-    warp = _form("indep_gather", form, K12_FORMS)
     if table.device.type == "cpu":
         return indep_gather_plain(table, idx_all)
     iters, n = idx_all.shape
     _iters("indep_gather", iters, table.shape[0])
     acc = torch.empty((n,), dtype=torch.float32, device=table.device)
     if n:
-        _launch_chain(True, warp, table, idx_all, n, iters, acc, None)
+        _launch_chain(True, table, idx_all, n, iters, acc, None)
     return acc
 
 
-def _launch_rowsum(tab, idx, n, iters, acc, j_out, form: int) -> None:
+def _launch_rowsum(tab, idx, n, iters, acc, j_out) -> None:
     c, u = tab.shape
     if u * (c | 1) * 4 > _SMEM_LIMIT:
         raise ValueError("table_rowsum: the table must fit 48 KB of shared memory "
                          "with a row of padding")
     fn = kernels.entry("gather", "rt_table_rowsum",
-                       [kernels.I, kernels.P, kernels.I, kernels.I, kernels.P, kernels.I,
-                        kernels.I, kernels.P, kernels.P, kernels.P])
-    err = fn(form, tab.data_ptr(), c, u, idx.data_ptr(), n, iters, acc.data_ptr(),
+                       [kernels.P, kernels.I, kernels.I, kernels.P, kernels.I, kernels.I,
+                        kernels.P, kernels.P, kernels.P])
+    err = fn(tab.data_ptr(), c, u, idx.data_ptr(), n, iters, acc.data_ptr(),
              None if j_out is None else j_out.data_ptr(), kernels.stream_ptr(tab.device))
-    key = LAUNCH["rowsum_chain" if j_out is not None else "rowsum"]
-    trace.count(key)
-    if not form:
-        trace.count(key + ".first")
+    trace.count(LAUNCH["rowsum_chain" if j_out is not None else "rowsum"])
     kernels.check(err, "rt_table_rowsum")
 
 
-def table_rowsum(tab: torch.Tensor, idx: torch.Tensor, form: str = "sm") -> torch.Tensor:
+def table_rowsum(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K13 single: ``table_rowsum_plain`` of a [C, U] f32 table (records in
-    columns).  CUDA tensors launch ``rt_table_rowsum`` in ``form`` (``"sm"`` or
-    ``"first"``), counted under ``LAUNCH["rowsum"]``."""
+    columns).  CUDA tensors launch ``rt_table_rowsum``, counted under
+    ``LAUNCH["rowsum"]``."""
     _check("table_rowsum", tab, idx, 1)
-    code = _form("table_rowsum", form, K13_FORMS)
     if tab.device.type == "cpu":
         return table_rowsum_plain(tab, idx)
     out = torch.empty(idx.shape, dtype=torch.float32, device=tab.device)
     if idx.shape[0]:
-        _launch_rowsum(tab, idx, idx.shape[0], 1, out, None, code)
+        _launch_rowsum(tab, idx, idx.shape[0], 1, out, None)
     return out
 
 
-def table_rowsum_chain(tab: torch.Tensor, idx0: torch.Tensor, iters: int,
-                       form: str = "sm") -> tuple:
+def table_rowsum_chain(tab: torch.Tensor, idx0: torch.Tensor, iters: int) -> tuple:
     """K13 chained: (acc, j) of ``table_rowsum_chain_plain``.  CUDA tensors
-    launch ``rt_table_rowsum`` in ``form`` (as ``table_rowsum``), counted under
-    ``LAUNCH["rowsum_chain"]``."""
+    launch ``rt_table_rowsum``, counted under ``LAUNCH["rowsum_chain"]``."""
     _check("table_rowsum_chain", tab, idx0, 1)
     iters = _iters("table_rowsum_chain", iters, tab.shape[1])
-    code = _form("table_rowsum_chain", form, K13_FORMS)
     if tab.device.type == "cpu":
         return table_rowsum_chain_plain(tab, idx0, iters)
     n = idx0.shape[0]
     acc = torch.empty((n,), dtype=torch.float32, device=tab.device)
     j = torch.empty_like(idx0)
     if n:
-        _launch_rowsum(tab, idx0, n, iters, acc, j, code)
+        _launch_rowsum(tab, idx0, n, iters, acc, j)
     return acc, j

@@ -224,6 +224,11 @@ def pick_closest(prims, o, d):
     in ``trace.counters["launch.k9.closest"]``)."""
     if o.device.type == "cpu":
         return pick_closest_plain(prims, o, d)
+    return _closest_launch(prims, o, d)
+
+
+def _closest_launch(prims, o, d):
+    """One ``rt_prim_closest`` launch: (winner, t)."""
     n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3):
         raise ValueError("pick_closest: o, d [N,3] expected")
@@ -249,6 +254,11 @@ def pick_any(prims, o, d, max_distance, active):
     (counted in ``trace.counters["launch.k9.any"]``)."""
     if o.device.type == "cpu":
         return pick_any_plain(prims, o, d, max_distance, active)
+    return _any_launch(prims, o, d, max_distance, active)
+
+
+def _any_launch(prims, o, d, max_distance, active):
+    """One ``rt_prim_any`` launch: blocked."""
     n = o.shape[0]
     if (o.shape != (n, 3) or d.shape != (n, 3) or max_distance.shape != (n,)
             or active.shape != (n,) or active.dtype != torch.bool):

@@ -99,6 +99,12 @@ def sample_backward(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.
                          "on one device expected")
     if cot.device.type == "cpu":
         return sample_backward_plain(index, cot, rows)
+    return _backward_launch(index, cot, rows)
+
+
+def _backward_launch(index: torch.Tensor, cot: torch.Tensor, rows: int) -> torch.Tensor:
+    """One ``rt_sky_sample_bwd`` launch: the [rows,3] gradient of sky_data."""
+    n = index.shape[0]
     kernels.require_contiguous("sample_sky backward", index, cot)
     grad = torch.zeros((rows, 3), dtype=torch.float64, device=cot.device)
     if n == 0:

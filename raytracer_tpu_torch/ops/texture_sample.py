@@ -34,17 +34,6 @@ _EWA_TABLE_SIZE = 128  # Texture.h:52-62
 
 # the modes of ``sample``, in the order of texture.cuh's ``enum Mode``
 MODES = ("nearest", "bilinear", "trilinear", "aniso", "ewa")
-# K3's forms, in the order of texture.cu's ``enum Form``: "vector" (the
-# renderer's: the level read once a lane, 16-byte quad-row loads, the wrap
-# without division, EWA's weights from a table) and "first", the first design,
-# kept as the yardstick of chip_smoke.py's K3 rows and never picked by a render
-# or training path; both give the same bits
-FWD_FORMS = ("vector", "first")
-# K4's ways of adding into the atlas gradients, in the order of texture_bwd.cu's
-# ``enum Form``: "lane" is the earlier design (one-float atomics from every lane, zero
-# cotangents too; kept as the yardstick of chip_smoke.py's K4 rows), "scan"
-# the warp form (zero lanes skip, a warp's runs of one row summed first)
-BWD_FORMS = ("lane", "scan")
 
 _FILTERS = {MipmapFilter.TRILINEAR: "trilinear", MipmapFilter.ANISOTROPIC: "aniso",
             MipmapFilter.EWA: "ewa"}
@@ -247,14 +236,14 @@ def _ewa_weight(r2):
 
 
 def ewa_weight_table() -> torch.Tensor:
-    """[128] ``_ewa_weight`` at each of its indices, as K3's vector form builds
+    """[128] ``_ewa_weight`` at each of its indices, as K3 builds
     its table once a device (``csrc/texture.cu``: exp(-2 i / 127) - exp(-2))."""
     idx = torch.arange(_EWA_TABLE_SIZE, dtype=torch.float32)
     return torch.exp(-_EWA_ALPHA * (idx / (_EWA_TABLE_SIZE - 1))) - math.exp(-_EWA_ALPHA)
 
 
 def ewa_weight_lookup(table, r2):
-    """``_ewa_weight(r2)`` for r2 < 1 as the vector form reads it (``table_weight``):
+    """``_ewa_weight(r2)`` for r2 < 1 as K3 reads it (``table_weight``):
     the table at the rounded index, capped at 127; an index below 0 (r2 rounded
     below 0) takes ``_ewa_weight`` itself."""
     idx = torch.clamp_max(torch.floor(r2 * _EWA_TABLE_SIZE + 0.5), _EWA_TABLE_SIZE - 1)
@@ -474,7 +463,7 @@ class TapSlot(NamedTuple):
 
 @torch.no_grad()
 def tap_slots_plain(tex, lanes, cfg: RenderConfig, cot: torch.Tensor):
-    """K4's scatter slot by slot, as the warp form of ``csrc/texture_bwd.cu``
+    """K4's scatter slot by slot, as ``csrc/texture_bwd.cu`` adds it
     take it: yields a ``TapSlot`` for each tap slot of the mode (NEAREST's
     texel; BILINEAR's tap; TRILINEAR's lo and hi taps; ANISOTROPIC's
     ``max_anisotropy`` taps; a bilinear-branch lane's level-0 tap in the first
@@ -624,15 +613,12 @@ def _atlas_ptrs(tex, data4) -> list:
     return [_ptr(x) for x in (data, data4, width, height, levels, offsets)]
 
 
-def sample_forward(tex, lanes, filt: Filter, data4, form: str = "vector") -> torch.Tensor:
-    """K3, one ``rt_texture`` launch in ``filt.mode`` and ``form`` (one of
-    ``FWD_FORMS``; counted in ``trace.counters["launch.k3.<mode>"]``, the first
-    form apart in ``"launch.k3.<mode>.first"``).  lanes: (tex_id, s, t, ds_dx, ds_dy, dt_dx, dt_dy),
-    each [N]; data4 may be None under NEAREST."""
+def sample_forward(tex, lanes, filt: Filter, data4) -> torch.Tensor:
+    """K3, one ``rt_texture`` launch in ``filt.mode`` (counted in
+    ``trace.counters["launch.k3.<mode>"]``).  lanes: (tex_id, s, t, ds_dx, ds_dy,
+    dt_dx, dt_dy), each [N]; data4 may be None under NEAREST."""
     _check_inputs(tex, lanes, data4, filt)
-    if form not in FWD_FORMS:
-        raise ValueError(f"texture sample: form must be one of {FWD_FORMS}")
-    if form == "vector" and data4 is not None and data4.data_ptr() % 16:
+    if data4 is not None and data4.data_ptr() % 16:
         # its 48-byte rows are read as three 16-byte vectors
         raise ValueError("texture sample: data4 must be 16-byte aligned")
     n = lanes[1].shape[0]
@@ -641,20 +627,19 @@ def sample_forward(tex, lanes, filt: Filter, data4, form: str = "vector") -> tor
     if n == 0:
         return out
     P, I, F = kernels.P, kernels.I, kernels.F
-    fn = kernels.entry("texture", "rt_texture", [I, I] + [P] * 13 + [I, F, I, P, P])
-    err = fn(MODES.index(filt.mode), FWD_FORMS.index(form), *_atlas_ptrs(tex, data4),
+    fn = kernels.entry("texture", "rt_texture", [I] + [P] * 13 + [I, F, I, P, P])
+    err = fn(MODES.index(filt.mode), *_atlas_ptrs(tex, data4),
              *(x.data_ptr() for x in lanes), n, filt.max_anisotropy, filt.ewa_span,
              out.data_ptr(), kernels.stream_ptr(dev))
-    trace.count(f"launch.k3.{filt.mode}" + ("" if form == "vector" else ".first"))
-    kernels.check(err, f"rt_texture ({filt.mode}, {form})")
+    trace.count(f"launch.k3.{filt.mode}")
+    kernels.check(err, f"rt_texture ({filt.mode})")
     return out
 
 
 def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
-                    need_data4: bool, need_lanes: bool, form: str = "scan"):
+                    need_data4: bool, need_lanes: bool):
     """K4, one ``rt_texture_bwd`` launch in ``filt.mode`` (counted in
-    ``trace.counters["launch.k4.<mode>"]``), adding into the atlas gradients in ``form`` (one of
-    ``BWD_FORMS``).
+    ``trace.counters["launch.k4.<mode>"]``).
 
     Returns (grad data [X,3] or None, grad data4 [X,12] or None, lane gradients
     [6,N] (s, t, ds_dx, ds_dy, dt_dx, dt_dy) or None), each computed only when
@@ -668,8 +653,6 @@ def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
         raise ValueError("texture sample backward: cot [N,3] float32 on the lanes' device "
                          "expected")
     kernels.require_contiguous("texture sample backward", cot)
-    if form not in BWD_FORMS:
-        raise ValueError(f"texture sample backward: form must be one of {BWD_FORMS}")
     x = tex[0].shape[0]
     if x >= 2**31:
         raise ValueError("texture sample backward: fewer than 2^31 atlas rows expected")
@@ -686,8 +669,8 @@ def sample_backward(tex, lanes, filt: Filter, data4, cot, need_data: bool,
 
     P, I, F = kernels.P, kernels.I, kernels.F
     fn = kernels.entry("texture_bwd", "rt_texture_bwd",
-                       [I, I] + [P] * 14 + [I, F, I, P, P, P, P])
-    err = fn(MODES.index(filt.mode), BWD_FORMS.index(form), *_atlas_ptrs(tex, data4),
+                       [I] + [P] * 14 + [I, F, I, P, P, P, P])
+    err = fn(MODES.index(filt.mode), *_atlas_ptrs(tex, data4),
              *(x.data_ptr() for x in lanes), cot.data_ptr(), n, filt.max_anisotropy,
              filt.ewa_span, _ptr(grad_data), _ptr(grad_data4), _ptr(grad_lanes),
              kernels.stream_ptr(dev))

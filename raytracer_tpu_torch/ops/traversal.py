@@ -21,9 +21,8 @@ tensors and run ``trace_plain`` for CPU tensors.  The kernel reads one 32-byte
 record a node visit (``octant_records``, packed on the device by
 ``build_scene_bvh`` every frame) and an 80-byte row a triangle pair
 (``pair_rows``), each with 16-byte loads; ``trace_any`` walks only the active
-lanes, which K6 lists on the device first.  The first version's split tables
-stay, read by ``trace_form("split", ...)``, the yardstick, and by
-``trace_plain``.
+lanes, which K6 lists on the device first.  ``trace_plain`` reads the split
+tables (box, node, links, tri) from which the records are packed.
 """
 
 from __future__ import annotations
@@ -39,10 +38,6 @@ from ..utils import trace
 from . import compaction
 from .traversal_wide import TraceResult
 
-# rt_trace_threaded's form argument: "octant" (the renderer's) reads one 32-byte
-# record a node visit and 80-byte pair rows with 16-byte loads, "split" the
-# first version's tables (box, node, links, tri) with 32-bit loads
-FORMS = {"split": 0, "octant": 1}
 REC_WORDS = 8  # a node record: 32 bytes
 PAIR_FLOATS = 20  # a pair row: its two triangles' 18 floats and 2 of padding, 80 bytes
 # the octant layout's leaf payload in the near word (csrc/traverse_threaded.cu):
@@ -364,8 +359,8 @@ def _check_rays(what, bvh, o, d, t_max, active):
 
 
 def _check_records(what: str, bvh: SceneBVH) -> None:
-    """The octant form's tables: the records' and pair rows' shapes, and the
-    16-byte aligned bases its vector loads need."""
+    """The kernel's tables: the records' and pair rows' shapes, and the 16-byte
+    aligned bases its vector loads need."""
     if tuple(bvh.rec.shape) != (8 * bvh.n_nodes, REC_WORDS):
         raise ValueError(f"{what}: rec [8U, {REC_WORDS}] expected")
     if tuple(bvh.pairs.shape) != (bvh.tri.shape[0] // 2, PAIR_FLOATS):
@@ -374,22 +369,19 @@ def _check_records(what: str, bvh: SceneBVH) -> None:
         raise ValueError(f"{what}: rec, pairs and inst_mat must be 16-byte aligned")
 
 
-def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig,
-            form: str = "octant"):
-    """One rt_trace_threaded launch of ``form``; the octant form's any hit over
-    the active lanes listed by K6 (``compact_launch``, nothing read back).
-    Returns (t, best, steps, found, incomplete)."""
+def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig):
+    """One rt_trace_threaded launch; any hit over the active lanes listed by K6
+    (``compact_launch``, nothing read back).  Returns (t, best, steps, found,
+    incomplete)."""
     what = "threaded trace_any" if any_hit else "threaded trace_closest"
     _check_rays(what, bvh, o, d, t_max, active)
-    if form == "octant":
-        _check_records(what, bvh)
+    _check_records(what, bvh)
     n = o.shape[0]
     dev = o.device
     incomplete = torch.zeros((1,), dtype=torch.int32, device=dev)
-    compact = any_hit and form == "octant"
     if any_hit:
         t = best = steps = None
-        found = (torch.zeros if compact else torch.empty)((n,), dtype=torch.bool, device=dev)
+        found = torch.zeros((n,), dtype=torch.bool, device=dev)
     else:
         t = torch.empty((n,), dtype=torch.float32, device=dev)
         best = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -398,41 +390,23 @@ def _launch(any_hit: bool, bvh: SceneBVH, o, d, t_max, active, cfg: RenderConfig
     if n == 0:
         return t, best, steps, found, incomplete[0]
     lane_list = lane_count = None
-    if compact:
+    if any_hit:
         lane_list, lane_count = compaction.compact_launch(active)
     P, I = kernels.P, kernels.I
     fn = kernels.entry("traverse_threaded", "rt_trace_threaded",
-                       [I, I, P, P, P, P, P, I, P, P, P, I, P, P, P, P, I, P, P, P, P, P, P, P,
-                        P])
+                       [I, P, P, I, P, P, I, P, P, P, P, I, P, P, P, P, P, P, P, P])
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = fn(int(any_hit), FORMS[form], bvh.box.data_ptr(), bvh.node.data_ptr(),
-             bvh.links.data_ptr(), bvh.rec.data_ptr(), bvh.pairs.data_ptr(), bvh.n_nodes,
-             bvh.inst_mat.data_ptr(), bvh.inst_root.data_ptr(), bvh.tri.data_ptr(),
-             int(_ordered(cfg)), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-             active.data_ptr(), n, ptr(lane_list), ptr(lane_count), ptr(t), ptr(best),
-             ptr(steps), ptr(found), incomplete.data_ptr(), kernels.stream_ptr(dev))
-    trace.count("launch.k10." + ("split." if form == "split" else "")
-                + ("any" if any_hit else "closest"))
+    err = fn(int(any_hit), bvh.rec.data_ptr(), bvh.pairs.data_ptr(), bvh.n_nodes,
+             bvh.inst_mat.data_ptr(), bvh.inst_root.data_ptr(), int(_ordered(cfg)),
+             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
+             ptr(lane_list), ptr(lane_count), ptr(t), ptr(best), ptr(steps), ptr(found),
+             incomplete.data_ptr(), kernels.stream_ptr(dev))
+    trace.count("launch.k10." + ("any" if any_hit else "closest"))
     kernels.check(err, what)
     return t, best, steps, found, incomplete[0]
-
-
-def trace_form(form: str, any_hit: bool, bvh: SceneBVH, o, d, t_max, active,
-               cfg: RenderConfig):
-    """One K10 launch in ``form`` (``FORMS``: ``"octant"`` is the renderer's,
-    ``"split"`` the first version, the yardstick); returns (t, best, steps,
-    found, incomplete) as the kernel writes them (t, best and steps None for
-    any hit, found None for closest).  CUDA tensors only; the split form's
-    launches count in ``trace.counters["launch.k10.split.closest"]`` and
-    ``"launch.k10.split.any"``."""
-    if form not in FORMS:
-        raise ValueError(f"trace_form: form must be one of {tuple(FORMS)}")
-    if o.device.type != "cuda":
-        raise ValueError("trace_form: CUDA tensors expected")
-    return _launch(any_hit, bvh, o, d, t_max, active, cfg, form)
 
 
 def _ordered(cfg: RenderConfig) -> bool:

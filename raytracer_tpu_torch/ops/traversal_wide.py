@@ -18,8 +18,8 @@ The kernel decides most children from the quantised node records
 (``accel/wide.py:quantised_records``) and takes the exact test only where they
 cannot decide; ``node_bits_quantised_plain`` is that decision in PyTorch, and
 ``trace_plain(..., quantised=True)`` holds it to the exact test at every node
-visit.  ``trace_form`` launches the kernel's exact-record form (the first walk, the
-yardstick) and ``walk_stats`` its counters; the renderer uses neither.
+visit.  ``walk_stats`` launches the kernel's counting instance; the renderer
+does not use it.
 """
 
 from __future__ import annotations
@@ -41,8 +41,6 @@ EXIT = -2  # traversal finished
 
 _PAYLOAD_MASK = (1 << PAYLOAD_BITS) - 1
 
-FORMS = {"exact": 0, "quantised": 1}  # rt_trace's form argument
-_COUNTING = 2  # rt_trace's form: quantised, adding its counters (walk_stats)
 # walk_stats' counters, in csrc/traverse.cu's order
 STATS = ("quantised_node_visits", "exact_lane_node_visits", "undecided_children",
          "inner_hits", "leaf_visits", "wide_leaf_visits", "live_tests", "exact_lanes",
@@ -398,18 +396,17 @@ def _check_rays(what, bvh, o, d, t_max, active, stack_size):
 
 
 def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderConfig,
-            form: int = FORMS["quantised"], stats=None):
-    """One rt_trace launch of ``form`` (``FORMS``, or ``_COUNTING``, which adds
-    the counters to ``stats``); returns (t, best, steps, found, incomplete)."""
+            stats=None):
+    """One rt_trace launch, adding the kernel's counters to ``stats`` where it is
+    given; returns (t, best, steps, found, incomplete)."""
     what = "trace_any" if any_hit else "trace_closest"
     size = walk_stack(bvh, cfg.wide_stack_size)
     _check_rays(what, bvh, o, d, t_max, active, size)
-    if form != FORMS["exact"]:
-        if (bvh.qrec.dtype != torch.int32 or bvh.qrec.shape != (bvh.node_rows, QREC_WORDS)
-                or bvh.qrec.device != o.device or bvh.qrec.data_ptr() % 16):
-            raise ValueError(f"{what}: qrec [node_rows, 32] int32, 16-byte aligned, "
-                             "on the rays' device expected")
-        kernels.require_contiguous(what, bvh.qrec)
+    if (bvh.qrec.dtype != torch.int32 or bvh.qrec.shape != (bvh.node_rows, QREC_WORDS)
+            or bvh.qrec.device != o.device or bvh.qrec.data_ptr() % 16):
+        raise ValueError(f"{what}: qrec [node_rows, 32] int32, 16-byte aligned, "
+                         "on the rays' device expected")
+    kernels.require_contiguous(what, bvh.qrec)
     n = o.shape[0]
     dev = o.device
     incomplete = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -430,35 +427,15 @@ def _launch(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active, cfg: RenderCo
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    err = fn(int(any_hit), form, bvh.table.data_ptr(), bvh.qrec.data_ptr(), bvh.node_rows,
+    err = fn(int(any_hit), int(stats is not None), bvh.table.data_ptr(), bvh.qrec.data_ptr(), bvh.node_rows,
              bvh.root, bvh.inst_mat.data_ptr(), size,
              int(cfg.traversal_strategy == TraversalStrategy.ORDERED),
              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), active.data_ptr(), n,
              ptr(t), ptr(best), ptr(steps), ptr(found), incomplete.data_ptr(), ptr(stats),
              kernels.stream_ptr(dev))
-    trace.count(("launch.k2" if any_hit else "launch.k1")
-                + (".exact" if form == FORMS["exact"] else ""))
+    trace.count("launch.k2" if any_hit else "launch.k1")
     kernels.check(err, what)
     return t, best, steps, found, incomplete[0]
-
-
-def trace_form(form: str, any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
-               cfg: RenderConfig) -> tuple:
-    """(t, best, steps, found, incomplete) of one walk by the kernel's ``form``
-    (``FORMS``: "quantised" is the renderer's K1 / K2, "exact" the first walk of the
-    exact records, kept to time and hold the quantised one against; t, best
-    and steps are None for any hit, found for closest).  CPU tensors take
-    ``trace_plain``; CUDA tensors launch ``rt_trace`` (the exact form counted in
-    ``trace.counters["launch.k1.exact"]`` and ``"launch.k2.exact"``)."""
-    if form not in FORMS:
-        raise ValueError(f"trace_form: form must be one of {tuple(FORMS)}")
-    if o.device.type != "cpu":
-        return _launch(any_hit, bvh, o, d, t_max, active, cfg, FORMS[form])
-    w = trace_plain(bvh, o, d, t_max, active, cfg.wide_stack_size,
-                    cfg.traversal_strategy == TraversalStrategy.ORDERED, any_hit)
-    if any_hit:
-        return None, None, None, w.found, w.incomplete
-    return w.t, w.best, w.steps, None, w.incomplete
 
 
 def walk_stats(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
@@ -472,7 +449,7 @@ def walk_stats(any_hit: bool, bvh: WideSceneBVH, o, d, t_max, active,
                            cfg.traversal_strategy == TraversalStrategy.ORDERED, any_hit,
                            quantised=True).quant
     stats = torch.zeros((len(STATS),), dtype=torch.int64, device=o.device)
-    _launch(any_hit, bvh, o, d, t_max, active, cfg, _COUNTING, stats)
+    _launch(any_hit, bvh, o, d, t_max, active, cfg, stats)
     return dict(zip(STATS, (int(v) for v in stats.cpu())))
 
 

@@ -69,10 +69,3 @@ def test_fxaa_taps_stay_in_the_halo(h, w, special):
         assert not bool(finite.all())
     if h * w > 1000 and special == "finite":
         assert int(lo_x.min()) == -before and int(hi_x.max()) == after
-
-
-def test_fxaa_form_takes_only_a_cuda_image():
-    with pytest.raises(ValueError, match="form"):
-        fxaa.fxaa_form("other", torch.zeros((4, 4, 3)))
-    with pytest.raises(ValueError, match="CUDA"):
-        fxaa.fxaa_form("tile", torch.zeros((4, 4, 3)))

@@ -242,49 +242,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         gather.table_rowsum(table.t(), idx)
 
 
-@pytest.mark.parametrize("form", gather.K12_FORMS)
-def test_k12_forms_on_cpu_return_the_plain_result(form):
-    """On CPU tensors every K12 form (checked, then not used) gives the plain
-    loop's acc and j, chained with either loads and indep."""
+def test_k12_forms_on_cpu_return_the_plain_result():
+    """On CPU tensors K12 gives the plain loop's acc and j, chained with either
+    loads and indep."""
     table, idx, idx_all = (_t(_table("random", (300, 8), 13)), _t(_idx(300, 70, 14)),
                            _t(_idx(300, (3, 70), 15)))
     want = gather.chained_gather_plain(table, idx, 3)
-    for got in (gather.chained_gather(table, idx, 3, "vector", form),
+    for got in (gather.chained_gather(table, idx, 3, "vector"),
                 gather.chained_gather(table, idx, 3, "scalar")):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert torch.equal(gather.indep_gather(table, idx_all, form),
+    assert torch.equal(gather.indep_gather(table, idx_all),
                        gather.indep_gather_plain(table, idx_all))
 
 
 @pytest.mark.parametrize("shape", [(5, 33), (72, 128)])
-@pytest.mark.parametrize("form", gather.K13_FORMS)
-def test_k13_forms_on_cpu_return_the_plain_result(form, shape):
-    """On CPU tensors every K13 form gives the plain result, single and chained,
-    on an odd table and the harness's [72, 128]."""
+def test_k13_forms_on_cpu_return_the_plain_result(shape):
+    """On CPU tensors K13 gives the plain result, single and chained, on an odd
+    table and the harness's [72, 128]."""
     tab, idx = _t(_table("random", shape, 16)), _t(_idx(shape[1], 70, 17))
-    assert torch.equal(gather.table_rowsum(tab, idx, form), gather.table_rowsum_plain(tab, idx))
-    got = gather.table_rowsum_chain(tab, idx, 4, form)
+    assert torch.equal(gather.table_rowsum(tab, idx), gather.table_rowsum_plain(tab, idx))
+    got = gather.table_rowsum_chain(tab, idx, 4)
     assert all(torch.equal(a, b) for a, b in zip(got, gather.table_rowsum_chain_plain(tab, idx,
                                                                                       4)))
-
-
-def test_gather_wrappers_refuse_an_unknown_form():
-    """A form names one kernel: an unknown one raises on either device, as does
-    any form given with K12's scalar loads, which have one kernel."""
-    table, idx = torch.zeros((10, 8)), torch.zeros((4,), dtype=torch.int32)
-    with pytest.raises(ValueError, match="form must be one of"):
-        gather.chained_gather(table, idx, 2, form="sm")
-    with pytest.raises(ValueError, match="form must be one of"):
-        gather.chained_gather(table, idx, 2, loads="vector", form="tile")
-    for form in (*gather.K12_FORMS, "tile"):
-        with pytest.raises(ValueError, match="loads='scalar' has one form"):
-            gather.chained_gather(table, idx, 2, loads="scalar", form=form)
-    with pytest.raises(ValueError, match="form must be one of"):
-        gather.indep_gather(table, idx[None], form="tile")
-    with pytest.raises(ValueError, match="form must be one of"):
-        gather.table_rowsum(table, idx, form="warp")
-    with pytest.raises(ValueError, match="form must be one of"):
-        gather.table_rowsum_chain(table, idx, 2, form="warp")
 
 
 def test_bank_conflicts_counts_distinct_words_a_bank():

@@ -101,27 +101,20 @@ def _random_texture_inputs(cuda, seed=1, n=50_000):
     return tex, lanes, cot
 
 
-def _forward(form, tex, lanes, cfg, data4):
-    """K3 in ``form``: the renderer's form through ``sample``, the first through
-    ``sample_forward``; each launches once, on its own count."""
-    mode = texture_sample.filter_of(cfg).mode
-    key = f"launch.k3.{mode}" + ("" if form == "vector" else ".first")
+def _forward(tex, lanes, cfg, data4):
+    """K3 through ``sample``, which launches once, on its mode's count."""
+    key = f"launch.k3.{texture_sample.filter_of(cfg).mode}"
     before = trace.counters[key]
-    if form == "vector":
-        k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
-    else:
-        k = texture_sample.sample_forward(tex, lanes, texture_sample.filter_of(cfg), data4,
-                                          form)
+    k = texture_sample.sample(tex, *lanes, cfg, data4=data4)
     assert trace.counters[key] == before + 1
     return k
 
 
-@pytest.mark.parametrize("form", texture_sample.FWD_FORMS)
-def test_texture_kernel_matches_plain(cuda, form):
+def test_k3_matches_plain(cuda):
     tex, lanes, _ = _random_texture_inputs(cuda)
     cfg = RenderConfig()
     data4 = texture_sample.expand_quads(tex)
-    k = _forward(form, tex, lanes, cfg, data4)
+    k = _forward(tex, lanes, cfg, data4)
     p = texture_sample.sample_plain(tex, *lanes, cfg, data4)
     err = (k - p).abs().amax(dim=1)
     assert float((err <= 1e-5).float().mean()) >= 0.999
@@ -195,16 +188,14 @@ def _mode_inputs(cuda, mode):
     return tex, (tex_id, s, t, sx, sy.contiguous(), tx, ty.contiguous()), cot, cfg
 
 
-@pytest.mark.parametrize("form", texture_sample.FWD_FORMS)
 @pytest.mark.parametrize("mode", list(NEW_MODES))
-def test_texture_mode_kernel_matches_plain(cuda, mode, form):
-    """K3 in NEAREST, BILINEAR, TRILINEAR and EWA (16 x 16 window), in both
-    forms, against sample_plain: max abs <= 1e-5 on >= 99.9% of lanes, one
-    launch, and under TRILINEAR and EWA every branch (level-0 tap, top texel,
-    filter) taken."""
+def test_texture_mode_kernel_matches_plain(cuda, mode):
+    """K3 in NEAREST, BILINEAR, TRILINEAR and EWA (16 x 16 window) against
+    sample_plain: max abs <= 1e-5 on >= 99.9% of lanes, one launch, and under
+    TRILINEAR and EWA every branch (level-0 tap, top texel, filter) taken."""
     tex, lanes, _, cfg = _mode_inputs(cuda, mode)
     data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
-    k = _forward(form, tex, lanes, cfg, data4)
+    k = _forward(tex, lanes, cfg, data4)
     p = texture_sample.sample_plain(tex, *lanes, cfg, data4)
     err = (k - p).abs().amax(dim=1)
     assert float((err <= 1e-5).float().mean()) >= 0.999
@@ -221,10 +212,6 @@ def test_texture_mode_backward_kernel_matches_plain(cuda, mode):
 
 
 ALL_MODES = {"aniso": {}, **NEW_MODES}
-
-
-def _bits(x):
-    return x.contiguous().view(torch.int32)
 
 
 def _odd_texture_inputs(cuda, n=40_000, seed=11):
@@ -264,25 +251,22 @@ def _odd_texture_inputs(cuda, n=40_000, seed=11):
 
 @pytest.mark.parametrize("case", ["random", "edges"])
 @pytest.mark.parametrize("mode,span", [(m, 16) for m in ALL_MODES] + [("ewa", 3)])
-def test_texture_forms_bit_identical(cuda, mode, span, case):
-    """K3's vector form against its first form, every mode: the same bits on
-    every lane (EWA keeps the first form's dj-major order, and its table holds
-    the first form's weights); both within the texture tolerance of
-    sample_plain.  Seeded lanes over three textures, and made-up lanes on
-    textures of 1x1 and of widths that are not powers of 2, on texel edges,
-    wrapping across every edge, at mip-level rounding boundaries, and EWA
-    windows cut at ewa_max_span (16, and 3)."""
+def test_k3_matches_plain_on_odd_inputs(cuda, mode, span, case):
+    """K3 against sample_plain, every mode: NaN where the plain version has NaN,
+    and max abs <= 1e-5 on >= 99.9% of lanes.  Seeded lanes over three
+    textures, and made-up lanes on textures of 1x1 and of widths that are not
+    powers of 2, on texel edges, wrapping across every edge, at mip-level
+    rounding boundaries, and EWA windows cut at ewa_max_span (16, and 3)."""
     if case == "random":
         tex, lanes, _ = _random_texture_inputs(cuda, seed=21)
     else:
         tex, lanes = _odd_texture_inputs(cuda)
     cfg = RenderConfig(**ALL_MODES[mode], ewa_max_span=span)
     data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
-    vec = _forward("vector", tex, lanes, cfg, data4)
-    first = _forward("first", tex, lanes, cfg, data4)
-    assert torch.equal(_bits(vec), _bits(first))
+    vec = _forward(tex, lanes, cfg, data4)
     plain = texture_sample.sample_plain(tex, *lanes, cfg, data4)
-    err = (vec - plain).abs().amax(dim=1)
+    assert torch.equal(vec.isnan(), plain.isnan())
+    err = (vec.nan_to_num() - plain.nan_to_num()).abs().amax(dim=1)
     assert float((err <= 1e-5).float().mean()) >= 0.999
     if mode not in ("nearest", "bilinear"):
         work = texture_sample.lane_work(tex, lanes, cfg)
@@ -290,8 +274,8 @@ def test_texture_forms_bit_identical(cuda, mode, span, case):
 
 
 def test_texture_vector_form_refuses_a_misaligned_quad_atlas(cuda):
-    """The vector form reads data4's rows as 16-byte vectors: a view 4 bytes
-    off alignment raises, and nothing is launched; the first form takes it."""
+    """K3 reads data4's rows as 16-byte vectors: a view 4 bytes off alignment
+    raises, and nothing is launched."""
     tex, lanes, _ = _random_texture_inputs(cuda, n=1000)
     data4 = texture_sample.expand_quads(tex)
     flat = torch.empty(data4.numel() + 1, device=cuda)
@@ -303,9 +287,6 @@ def test_texture_vector_form_refuses_a_misaligned_quad_atlas(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         texture_sample.sample_forward(tex, lanes, filt, off)
     assert trace.counters == before
-    first = texture_sample.sample_forward(tex, lanes, filt, off, "first")
-    assert torch.equal(_bits(first), _bits(texture_sample.sample_forward(tex, lanes, filt,
-                                                                          data4)))
 
 
 def _pattern_inputs(cuda, mode, pattern, n):
@@ -342,11 +323,12 @@ def test_texture_backward_kernel_patterns(cuda, mode, pattern, n):
     """K4 in every mode where its warp aggregation matters: the data and data4
     gradients within 1e-5 l2-relative of the plain version's per-lane values
     summed in float64 (a float32 sum of 20,000 lanes on one row is itself
-    ~1e-5 off); the lane gradients equal the per-lane form's, and on 20,000
-    independent lanes each is within 1e-5 of its max against autograd of
-    sample_plain on >= 99.9% of lanes (a single lane may be 2e-5 off its own
-    max: the chain rule by hand and autograd round apart); a NaN cotangent
-    reaches its rows (NaN in both); zero lanes leave the gradients free of -0."""
+    ~1e-5 off); the lane gradients equal, value for value, those of each lane
+    alone in its warp, and on 20,000 independent lanes each is within 1e-5 of
+    its max against autograd of sample_plain on >= 99.9% of lanes (a single
+    lane may be 2e-5 off its own max: the chain rule by hand and autograd
+    round apart); a NaN cotangent reaches its rows (NaN in both); zero lanes
+    leave the gradients free of -0."""
     tex, lanes, cot, cfg = _pattern_inputs(cuda, mode, pattern, n)
     filt = texture_sample.filter_of(cfg)
     data4 = None if mode == "nearest" else texture_sample.expand_quads(tex)
@@ -372,11 +354,16 @@ def test_texture_backward_kernel_patterns(cuda, mode, pattern, n):
             assert not bool((torch.signbit(k) & (k == 0)).any()), name
     if pattern == "nan":  # the NaN lane reached its rows
         assert bool(kd.isnan().any()) or (kd4 is not None and bool(kd4.isnan().any()))
-    # the lane gradients are the per-lane form's, value for value (only the atlas sums'
-    # order changed), and, on 20,000 independent lanes, within 1e-5 of their
-    # max against autograd of sample_plain on >= 99.9% of lanes, as before
-    _, _, ll = texture_sample.sample_backward(tex, lanes, filt, data4, cot, False, False, True,
-                                              "lane")
+    # the lane gradients are each lane's alone in its warp (the warp's other 31
+    # lanes copies of it with a zero cotangent, which K4 skips), value for
+    # value, and, on 20,000 independent lanes, within 1e-5 of their max against
+    # autograd of sample_plain on >= 99.9% of lanes
+    alone_cot = torch.zeros((32 * n, 3), device=cot.device)
+    alone_cot[::32] = cot
+    _, _, ll = texture_sample.sample_backward(
+        tex, tuple(x.repeat_interleave(32) for x in lanes), filt, data4, alone_cot, False,
+        False, True)
+    ll = ll[:, ::32]
     assert bool(((kl == ll) | (kl.isnan() & ll.isnan())).all())
     if n < 20_000 or pattern == "one_row":
         return
@@ -608,26 +595,39 @@ def test_render_grads_on_card_match_cpu(cuda):
             assert float((g - c).norm() / c.norm()) <= 1e-3, k
 
 
-def _fxaa_form(form, img):
-    """K8 in ``form``: the renderer's through ``fxaa``, the first through
-    ``fxaa_form``; each launches once, on its own count."""
-    key = "launch.k8" if form == "tile" else "launch.k8.first"
-    before = trace.counters[key]
-    k = fxaa.fxaa(img) if form == "tile" else fxaa.fxaa_form(form, img)
-    assert trace.counters[key] == before + 1
+def _fxaa(img):
+    """K8 through ``fxaa``, which launches once, on its count."""
+    before = trace.counters["launch.k8"]
+    k = fxaa.fxaa(img)
+    assert trace.counters["launch.k8"] == before + 1
     return k
 
 
-@pytest.mark.parametrize("form", fxaa.FORMS)
+def _fxaa_plain_where_defined(img):
+    """fxaa_plain's expressions at each pixel whose blur direction is finite,
+    NaN elsewhere: there the plain version's taps name no texel (its index is
+    the integer of a NaN)."""
+    g = fxaa._gamma(img)
+    h, w = g.shape[:2]
+    dir_x, dir_y, l_min, l_max = fxaa.fxaa_direction(g)
+    finite = torch.isfinite(dir_x) & torch.isfinite(dir_y)
+    taps = [fxaa._bilinear_tap(g, x, y) for x, y in fxaa._tap_positions(
+        h, w, torch.where(finite, dir_x, 0.0), torch.where(finite, dir_y, 0.0))]
+    result_a = 0.5 * (taps[0] + taps[1])
+    result = 0.5 * (result_a + 0.5 * (taps[2] + taps[3]))
+    l_res = fxaa._luma(result)
+    out = torch.where(((l_res < l_min) | (l_res > l_max))[..., None], result_a, result)
+    return torch.where(finite[..., None], out, float("nan"))
+
+
 @pytest.mark.parametrize("h,w", [(1, 7), (37, 53), (600, 900)])
-def test_fxaa_kernel_matches_plain(cuda, h, w, form):
-    """K8 in both forms against fxaa_plain: values outside [0, 1], hard edges,
-    odd sizes."""
+def test_k8_matches_plain(cuda, h, w):
+    """K8 against fxaa_plain: values outside [0, 1], hard edges, odd sizes."""
     rng = np.random.default_rng(h * w)
     img = rng.uniform(-0.2, 1.4, (h, w, 3)).astype(np.float32)
     img[:, w // 2:] *= 0.05
     img = torch.from_numpy(img).to(cuda)
-    k = _fxaa_form(form, img)
+    k = _fxaa(img)
     p = fxaa.fxaa_plain(img)
     d = (k - p).abs().amax(dim=-1)
     assert float((d <= 1e-5).float().mean()) >= 0.999 and float(d.mean()) <= 1e-6
@@ -636,12 +636,14 @@ def test_fxaa_kernel_matches_plain(cuda, h, w, form):
 @pytest.mark.parametrize("special", ["none", "nan_inf"])
 @pytest.mark.parametrize("h,w", [(1, 7), (7, 1), (5, 5), (1, 1), (16, 32), (17, 33), (37, 53),
                                  (600, 900), (1080, 1920)])
-def test_fxaa_forms_bit_identical(cuda, h, w, special):
-    """K8's tile form against its first form, the same bits on every pixel:
-    images smaller than a tile, sizes that are and are not multiples of the
-    32 x 16 tile, hard edges on the tile boundaries (x = 32k, y = 16k), values
-    outside [0, 1], and NaN and inf pixels (a NaN centre or diagonal gives a
-    NaN direction, whose taps leave the tile and read the image)."""
+def test_k8_matches_plain_on_odd_images(cuda, h, w, special):
+    """K8 against the plain version: images smaller than a tile, sizes that
+    are and are not multiples of the 32 x 16 tile, hard edges on the tile
+    boundaries (x = 32k, y = 16k), values outside [0, 1], and NaN and inf
+    pixels (a NaN centre or diagonal gives a NaN direction, whose taps leave
+    the tile and read the image, and the pixel is NaN).  NaN where the plain
+    version's expressions give NaN, and elsewhere within 1e-5 on >= 99.9% of
+    pixels and 1e-6 on the mean."""
     rng = np.random.default_rng(h * 7919 + w)
     img = rng.uniform(-0.2, 1.4, (h, w, 3)).astype(np.float32)
     img[:, (np.arange(w) // 32) % 2 == 1] *= 0.05
@@ -652,14 +654,15 @@ def test_fxaa_forms_bit_identical(cuda, h, w, special):
             img[pick, rng.integers(0, 3)] = value
         img[0, 0, 0] = np.nan
     img = torch.from_numpy(img).to(cuda)
-    tile = _fxaa_form("tile", img)
-    first = _fxaa_form("first", img)
-    assert torch.equal(_bits(tile), _bits(first))
+    tile = _fxaa(img)
+    plain = _fxaa_plain_where_defined(img)
     if special == "none":
-        d = (tile - fxaa.fxaa_plain(img)).abs().amax(dim=-1)
-        assert float((d <= 1e-5).float().mean()) >= 0.999 and float(d.mean()) <= 1e-6
+        assert torch.equal(plain, fxaa.fxaa_plain(img))
     else:
         assert bool(tile.isnan().any())
+    assert torch.equal(tile.isnan(), plain.isnan())
+    d = (tile.nan_to_num() - plain.nan_to_num()).abs().amax(dim=-1)
+    assert float((d <= 1e-5).float().mean()) >= 0.999 and float(d.mean()) <= 1e-6
 
 
 def _primitive_inputs(cuda, n=200_000, seed=3):
@@ -836,37 +839,35 @@ def _threaded_scene(device, name, strategy):
     return bvh, cfg, prim, tuple(x.contiguous() for x in shadow)
 
 
-def _threaded_form_matches_plain(form, bvh, cfg, rays, any_hit):
-    """K10 in ``form`` equals trace_plain bit for bit: best, t, steps, found,
+def _threaded_kernel_matches_plain(bvh, cfg, rays, any_hit):
+    """K10's launch equals trace_plain bit for bit: best, t, steps, found,
     incomplete 0."""
     ordered = cfg.traversal_strategy == TraversalStrategy.ORDERED
     w = traversal.trace_plain(bvh, *rays, ordered, any_hit)
-    t, best, steps, found, inc = traversal.trace_form(form, any_hit, bvh, *rays, cfg)
+    t, best, steps, found, inc = traversal._launch(any_hit, bvh, *rays, cfg)
     if any_hit:
-        assert torch.equal(found, w.found), form
+        assert torch.equal(found, w.found)
     else:
-        assert torch.equal(best, w.best) and torch.equal(steps, w.steps), form
-        assert torch.equal(t.view(torch.int32), w.t.view(torch.int32)), form
-    assert int(inc) == 0, form
+        assert torch.equal(best, w.best) and torch.equal(steps, w.steps)
+        assert torch.equal(t.view(torch.int32), w.t.view(torch.int32))
+    assert int(inc) == 0
     return w
 
 
-@pytest.mark.parametrize("form", list(traversal.FORMS))
 @pytest.mark.parametrize("name, strategy", [("config1", "ORDERED"), ("config1", "NAIVE"),
                                             ("config4", "ORDERED"), ("config4", "NAIVE")])
-def test_threaded_traversal_kernels_match_plain(cuda, name, strategy, form):
-    """K10 closest and any hit in each form against traversal.trace_plain on the
-    card: ids, t, steps and found equal on every lane, on the primaries and the
-    shadow rays of every light (config4's axis-aligned directional light gives 0
+def test_threaded_traversal_kernels_match_plain(cuda, name, strategy):
+    """K10 closest and any hit against traversal.trace_plain on the card: ids,
+    t, steps and found equal on every lane, on the primaries and the shadow
+    rays of every light (config4's axis-aligned directional light gives 0
     direction components and infinite reciprocals); trace_closest / trace_any
-    launch the octant form (any hit over the active lanes K6 lists), each
-    launch counted where it is made."""
+    launch it (any hit over the active lanes K6 lists), each launch counted
+    where it is made."""
     bvh, cfg, prim, shadow = _threaded_scene(cuda, name, strategy)
-    w = _threaded_form_matches_plain(form, bvh, cfg, prim, any_hit=False)
-    wa = _threaded_form_matches_plain(form, bvh, cfg, shadow, any_hit=True)
+    w = _threaded_kernel_matches_plain(bvh, cfg, prim, any_hit=False)
+    wa = _threaded_kernel_matches_plain(bvh, cfg, shadow, any_hit=True)
     assert int(wa.found.sum()) > 0 and int(w.steps.sum()) > 0
-    keys = ("launch.k10.closest", "launch.k10.any", "launch.k10.split.closest",
-            "launch.k10.split.any")
+    keys = ("launch.k10.closest", "launch.k10.any")
     before = [trace.counters[k] for k in keys]
     k = traversal.trace_closest(bvh, *prim, cfg)
     found, inc = traversal.trace_any(bvh, *shadow, cfg)
@@ -874,7 +875,7 @@ def test_threaded_traversal_kernels_match_plain(cuda, name, strategy, form):
     assert torch.equal(best, w.best) and torch.equal(k.steps, w.steps)
     assert torch.equal(k.t, w.t) and int(k.incomplete) == 0
     assert torch.equal(found, wa.found) and int(inc) == 0
-    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1, *before[2:]]
+    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1]
 
 
 def _box_rays(bvh, n, seed):
@@ -907,27 +908,25 @@ def _box_rays(bvh, n, seed):
 
 @pytest.mark.parametrize("name", ["config1", "config4"])
 def test_threaded_kernels_made_up_rays(cuda, name):
-    """Every form against trace_plain on axis-parallel rays, origins inside
-    boxes, infinite and finite t_max, ORDERED and NAIVE, and on an all-inactive
+    """K10 against trace_plain on axis-parallel rays, origins inside boxes,
+    infinite and finite t_max, ORDERED and NAIVE, and on an all-inactive
     wavefront (t_max, -1, 0 steps and no hit on every lane)."""
     for strategy in ("ORDERED", "NAIVE"):
         bvh, cfg, _, _ = _threaded_scene(cuda, name, strategy)
         for label, arrays in _box_rays(bvh, 20_000, seed=3).items():
             rays = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in arrays)
             rays = (*rays, torch.rand((rays[0].shape[0],), device=cuda) < 0.9)
-            for form in traversal.FORMS:
-                _threaded_form_matches_plain(form, bvh, cfg, rays, any_hit=False)
-                _threaded_form_matches_plain(form, bvh, cfg, rays, any_hit=True)
+            _threaded_kernel_matches_plain(bvh, cfg, rays, any_hit=False)
+            _threaded_kernel_matches_plain(bvh, cfg, rays, any_hit=True)
         o, d, t_max = (torch.from_numpy(x).to(cuda) for x in _box_rays(bvh, 1000, 4)["axis_inf"])
         idle = (o, d, t_max, torch.zeros((1000,), dtype=torch.bool, device=cuda))
-        for form in traversal.FORMS:
-            w = _threaded_form_matches_plain(form, bvh, cfg, idle, any_hit=False)
-            assert int(w.steps.sum()) == 0 and bool((w.best == -1).all())
-            _threaded_form_matches_plain(form, bvh, cfg, idle, any_hit=True)
+        w = _threaded_kernel_matches_plain(bvh, cfg, idle, any_hit=False)
+        assert int(w.steps.sum()) == 0 and bool((w.best == -1).all())
+        _threaded_kernel_matches_plain(bvh, cfg, idle, any_hit=True)
 
 
 def test_threaded_walk_refuses_misaligned_or_misshapen_records(cuda):
-    """The octant form reads records, pair rows and matrices with 16-byte loads,
+    """K10 reads records, pair rows and matrices with 16-byte loads,
     and the records and pair rows in their own shapes."""
     bvh, cfg, prim, _ = _threaded_scene(cuda, "config1", "ORDERED")
     for field in ("rec", "pairs", "inst_mat"):
@@ -1084,9 +1083,8 @@ def _same_bits(got, want) -> bool:
 @pytest.mark.parametrize("n", [1, 31, 33, 65541])
 @pytest.mark.parametrize("width", [32, 72, 128, 20])
 def test_chained_gather_warp_form_matches_plain_and_first(cuda, width, n, iters):
-    """K12's warp form, chained and indep, on a wild table (NaNs, infinities,
-    any magnitude): equal to the plain loops on every lane and the same bits as
-    the first form; partial warps (n = 1, 31, 33, 65,541) load and write only
+    """K12, chained and indep, on a wild table (NaNs, infinities, any
+    magnitude): equal to the plain loops on every lane; partial warps (n = 1, 31, 33, 65,541) load and write only
     their own lanes; width 20 takes the kernel's generic row loop."""
     table = _gather_table(cuda, 5000, width, 10, wild=True)
     idx = _gather_idx(cuda, 5000, n, 11)
@@ -1095,32 +1093,28 @@ def test_chained_gather_warp_form_matches_plain_and_first(cuda, width, n, iters)
     before = [trace.counters[k] for k in keys]
     got = gather.chained_gather(table, idx, iters)
     assert _equal_nan(got, gather.chained_gather_plain(table, idx, iters))
-    assert _same_bits(got, gather.chained_gather(table, idx, iters, form="first"))
     got = gather.indep_gather(table, idx_all)
     assert _equal_nan(got, gather.indep_gather_plain(table, idx_all))
-    assert _same_bits(got, gather.indep_gather(table, idx_all, form="first"))
-    assert [trace.counters[k] for k in keys] == [before[0] + 2, before[1] + 2]
+    assert [trace.counters[k] for k in keys] == [before[0] + 1, before[1] + 1]
 
 
 def test_chained_gather_warp_form_on_the_harness_table(cuda):
-    """K12's warp form on ``microbench.table_gather``'s [4680, 128] table at its
-    131,072 lanes x 32 steps: the plain loop's and the first form's bits."""
+    """K12 on ``microbench.table_gather``'s [4680, 128] table at its 131,072
+    lanes x 32 steps: the plain loop's bits."""
     from raytracer_tpu_torch.microbench import table_gather
 
     table, idx = table_gather.inputs(cuda)
     got = gather.chained_gather(table, idx, 32)
     assert _same_bits(got, gather.chained_gather_plain(table, idx, 32))
-    assert _same_bits(got, gather.chained_gather(table, idx, 32, form="first"))
     idx_all = _gather_idx(cuda, table.shape[0], (32, idx.shape[0]), 13)
     got = gather.indep_gather(table, idx_all)
     assert _same_bits(got, gather.indep_gather_plain(table, idx_all))
-    assert _same_bits(got, gather.indep_gather(table, idx_all, form="first"))
 
 
 @pytest.mark.parametrize("c,u,n", [(72, 128, 131073), (5, 33, 1000)])
 def test_table_rowsum_sm_form_matches_plain(cuda, c, u, n):
-    """K13's form "sm", single and chained, against the plain versions and the
-    first form: the same bits on every lane, n not a multiple
+    """K13, single and chained, against the plain versions: the same bits on
+    every lane, n not a multiple
     of the 1024-thread block, and an odd [5, 33] table (its 165 floats no whole
     number of 16-byte pieces: the bulk copy takes the first 164, a thread the
     last)."""
@@ -1128,28 +1122,25 @@ def test_table_rowsum_sm_form_matches_plain(cuda, c, u, n):
     idx = _gather_idx(cuda, u, n, 15)
     got = gather.table_rowsum(tab, idx)
     assert _same_bits(got, gather.table_rowsum_plain(tab, idx))
-    assert _same_bits(got, gather.table_rowsum(tab, idx, form="first"))
     got = gather.table_rowsum_chain(tab, idx, 32)
     assert _same_bits(got, gather.table_rowsum_chain_plain(tab, idx, 32))
-    assert _same_bits(got, gather.table_rowsum_chain(tab, idx, 32, form="first"))
 
 
 def test_chained_gather_warp_form_refuses_rows_its_slot_cannot_hold(cuda):
     """A warp's slot holds 32 rows of at most 1,804 floats in the shared memory a
-    block may have; the first form takes any width."""
+    block may have; the scalar loads take any width."""
     table = _gather_table(cuda, 40, 1808, 23)
     idx = _gather_idx(cuda, 40, 33, 24)
     with pytest.raises(ValueError, match="at most 1804 floats"):
         gather.chained_gather(table, idx, 2)
-    assert _same_bits(gather.chained_gather(table, idx, 2, form="first"),
+    assert _same_bits(gather.chained_gather(table, idx, 2, "scalar"),
                       gather.chained_gather_plain(table, idx, 2))
     assert _same_bits(gather.chained_gather(table[:, :1804].contiguous(), idx, 2),
                       gather.chained_gather_plain(table[:, :1804].contiguous(), idx, 2))
 
 
 def test_table_rowsum_sm_form_from_an_unaligned_base(cuda):
-    """A table view 4 bytes past a 16-byte boundary: the form "sm"'s threads
-    copy it all (no bulk copy from a base that is not 16-byte aligned)."""
+    """A table view 4 bytes past a 16-byte boundary: K13's threads copy it all (no bulk copy from a base that is not 16-byte aligned)."""
     base = _gather_table(cuda, 1, 72 * 128 + 1, 16)[0]
     tab = base[1:].view(72, 128)
     assert tab.data_ptr() % 16
@@ -1170,33 +1161,26 @@ def _launched(fn) -> list:
 
 
 def test_each_gather_form_launches_the_kernel_it_names(cuda):
-    """Each form of K12 and K13 launches its own kernel (by name, in the
-    profiler's trace) and counts one launch under its kind's key, the first form
-    also under that key's ``.first``."""
+    """K12 and K13 launch their kernels (by name, in the profiler's trace) and
+    count one launch under their kind's key."""
     table, idx = _gather_table(cuda, 5000, 128, 18), _gather_idx(cuda, 5000, 4096, 19)
     idx_all = _gather_idx(cuda, 5000, (4, 4096), 20)
     tab, ridx = _gather_table(cuda, 72, 128, 21), _gather_idx(cuda, 128, 4096, 22)
     cases = [
         ("chained", "chain_warp_kernel", lambda: gather.chained_gather(table, idx, 4)),
-        ("chained", "chain_kernel",
-         lambda: gather.chained_gather(table, idx, 4, form="first")),
+        ("chained", "chain_scalar_kernel",
+         lambda: gather.chained_gather(table, idx, 4, "scalar")),
         ("indep", "chain_warp_kernel", lambda: gather.indep_gather(table, idx_all)),
-        ("indep", "chain_kernel", lambda: gather.indep_gather(table, idx_all, form="first")),
         ("rowsum", "rowsum_sm_kernel", lambda: gather.table_rowsum(tab, ridx)),
-        ("rowsum", "rowsum_kernel", lambda: gather.table_rowsum(tab, ridx, form="first")),
         ("rowsum_chain", "rowsum_sm_kernel", lambda: gather.table_rowsum_chain(tab, ridx, 4)),
-        ("rowsum_chain", "rowsum_kernel",
-         lambda: gather.table_rowsum_chain(tab, ridx, 4, form="first")),
     ]
-    kernels = {"chain_warp_kernel", "chain_kernel", "rowsum_sm_kernel", "rowsum_kernel"}
+    kernels = {"chain_warp_kernel", "chain_scalar_kernel", "rowsum_sm_kernel"}
     for key, kernel, fn in cases:
         fn()  # built and loaded outside the trace
-        count = (gather.LAUNCH[key], gather.LAUNCH[key] + ".first")
-        before = [trace.counters[k] for k in count]
+        before = trace.counters[gather.LAUNCH[key]]
         names = _launched(fn)
-        first = kernel in ("chain_kernel", "rowsum_kernel")
-        assert [trace.counters[k] for k in count] == [before[0] + 1, before[1] + first]
-        # demangled ("::chain_kernel<") or mangled ("12chain_kernelI")
+        assert trace.counters[gather.LAUNCH[key]] == before + 1
+        # demangled ("::chain_warp_kernel<") or mangled ("17chain_warp_kernelI")
         ran = {k for k in kernels for nm in names if re.search(rf"(::|\d){k}[<I]", nm)}
         assert ran == {kernel}, (key, kernel, names)
 
@@ -1234,21 +1218,20 @@ def _walk_scene(cuda, name, strategy=TraversalStrategy.ORDERED):
     return bvh, cfg, prim, shadow
 
 
-def _forms_match_plain(bvh, cfg, rays, any_hit):
-    """Both forms of K1 / K2 equal trace_plain bit for bit: best, t, steps,
-    found and incomplete; the quantised form's counters equal the plain walk's."""
+def _walk_matches_plain(bvh, cfg, rays, any_hit):
+    """K1 / K2 equal trace_plain bit for bit: best, t, steps, found and
+    incomplete; the kernel's counters equal the plain walk's."""
     w = traversal_wide.trace_plain(bvh, *rays, cfg.wide_stack_size,
                                    cfg.traversal_strategy == TraversalStrategy.ORDERED,
                                    any_hit, quantised=True)
     assert w.quant["bits_differ"] == 0
-    for form in traversal_wide.FORMS:
-        t, best, steps, found, inc = traversal_wide.trace_form(form, any_hit, bvh, *rays, cfg)
-        if any_hit:
-            assert torch.equal(found, w.found), form
-        else:
-            assert torch.equal(best, w.best) and torch.equal(steps, w.steps), form
-            assert torch.equal(t.view(torch.int32), w.t.view(torch.int32)), form
-        assert int(inc) == int(w.incomplete), form
+    t, best, steps, found, inc = traversal_wide._launch(any_hit, bvh, *rays, cfg)
+    if any_hit:
+        assert torch.equal(found, w.found)
+    else:
+        assert torch.equal(best, w.best) and torch.equal(steps, w.steps)
+        assert torch.equal(t.view(torch.int32), w.t.view(torch.int32))
+    assert int(inc) == int(w.incomplete)
     stats = traversal_wide.walk_stats(any_hit, bvh, *rays, cfg)
     assert stats == {k: w.quant[k] for k in traversal_wide.STATS}
 
@@ -1257,19 +1240,16 @@ def _forms_match_plain(bvh, cfg, rays, any_hit):
                                             ("config4", TraversalStrategy.ORDERED),
                                             ("config4", TraversalStrategy.NAIVE)])
 def test_quantised_walks_match_plain(cuda, name, strategy):
-    """K1 and K2, the renderer's quantised form and the exact-record form, on
-    primary and shadow rays (NAIVE: every ray reads octant 0's rows);
-    trace_closest / trace_any launch the quantised form, trace_form("exact")
-    the other, each counted where it launches."""
+    """K1 and K2 on primary and shadow rays (NAIVE: every ray reads octant 0's
+    rows); trace_closest / trace_any launch them, each counted where it
+    launches."""
     bvh, cfg, prim, shadow = _walk_scene(cuda, name, strategy)
-    _forms_match_plain(bvh, cfg, prim, any_hit=False)
-    _forms_match_plain(bvh, cfg, shadow, any_hit=True)
-    keys = ("launch.k1", "launch.k2", "launch.k1.exact", "launch.k2.exact")
+    _walk_matches_plain(bvh, cfg, prim, any_hit=False)
+    _walk_matches_plain(bvh, cfg, shadow, any_hit=True)
+    keys = ("launch.k1", "launch.k2")
     before = [trace.counters[k] for k in keys]
     res = traversal_wide.trace_closest(bvh, *prim, cfg)
     found, _ = traversal_wide.trace_any(bvh, *shadow, cfg)
-    traversal_wide.trace_form("exact", False, bvh, *prim, cfg)
-    traversal_wide.trace_form("exact", True, bvh, *shadow, cfg)
     assert [trace.counters[k] for k in keys] == [b + 1 for b in before]
     w = traversal_wide.trace_plain(bvh, *prim, cfg.wide_stack_size,
                                    strategy == TraversalStrategy.ORDERED, any_hit=False)
@@ -1278,7 +1258,7 @@ def test_quantised_walks_match_plain(cuda, name, strategy):
 
 @pytest.mark.parametrize("name", ["config1", "config4"])
 def test_quantised_walks_made_up_rays(cuda, name):
-    """Both forms on rays with +-0 direction components, origins on child
+    """K1 / K2 on rays with +-0 direction components, origins on child
     planes, through corners and edges, and t_max at a child's entry t (aimed at
     the children of the table's node rows, taken as world space)."""
     bvh, cfg, _, _ = _walk_scene(cuda, name)
@@ -1287,13 +1267,13 @@ def test_quantised_walks_made_up_rays(cuda, name):
         rays = tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(cuda)
                      for x in (o, d, t_max))
         rays = (*rays, torch.ones((o.shape[0],), dtype=torch.bool, device=cuda))
-        _forms_match_plain(bvh, cfg, rays, any_hit=False)
-        _forms_match_plain(bvh, cfg, rays, any_hit=True)
+        _walk_matches_plain(bvh, cfg, rays, any_hit=False)
+        _walk_matches_plain(bvh, cfg, rays, any_hit=True)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_walks_at_the_stack_bound_lose_no_ray(cuda, any_hit):
-    """K1 / K2 in both forms on the deep scene (its stack bound above 16): at the
+    """K1 / K2 on the deep scene (its stack bound above 16): at the
     default stack, the scene's bound, bit-equal to trace_plain with no ray lost;
     at a set 16 entries they lose the rays the plain walk loses."""
     scene, o, d = deep_scene(cuda)
@@ -1304,14 +1284,14 @@ def test_walks_at_the_stack_bound_lose_no_ray(cuda, any_hit):
              else torch.full((n,), float("inf"), device=cuda))
     rays = (o, d, t_max, torch.ones((n,), dtype=torch.bool, device=cuda))
     cfg = RenderConfig(width=DEEP_SIZE, height=DEEP_SIZE)
-    _forms_match_plain(bvh, cfg, rays, any_hit)
+    _walk_matches_plain(bvh, cfg, rays, any_hit)
     assert int(traversal_wide.trace_plain(bvh, *rays, None, True, any_hit).incomplete) == 0
-    _forms_match_plain(bvh, cfg.replace(wide_stack_size=16), rays, any_hit)
+    _walk_matches_plain(bvh, cfg.replace(wide_stack_size=16), rays, any_hit)
     assert int(traversal_wide.trace_plain(bvh, *rays, 16, True, any_hit).incomplete) > 0
 
 
 def test_quantised_walk_refuses_a_misaligned_record_table(cuda):
-    """The quantised form reads its records with 16-byte loads."""
+    """K1 / K2 read their records with 16-byte loads."""
     bvh, cfg, prim, _ = _walk_scene(cuda, "config1")
     flat = torch.zeros(bvh.qrec.numel() + 1, dtype=torch.int32, device=cuda)
     bad = bvh._replace(qrec=flat[1:].view(bvh.qrec.shape))

@@ -145,9 +145,7 @@ def test_warp_runs_counts_runs_within_warps():
 def test_k4_patterns_and_run_counts(atlas):
     """microbench.scatter's K4 patterns and counts on seeded lanes: one_row puts
     every lane of a warp on one row a slot, the permutation keeps the lanes'
-    rows, zero90 zeroes ~90% of the cotangents; the per-lane form's atomics are 12 a quad
-    tap and 3 a texel of every lane (lane_work's count, zero lanes too), the
-    warp form's 3 a run."""
+    rows, zero90 zeroes ~90% of the cotangents; K4's atomics are 3 a run."""
     from raytracer_tpu_torch.microbench import scatter
 
     tex, cfg = atlas
@@ -156,24 +154,21 @@ def test_k4_patterns_and_run_counts(atlas):
     lanes = tuple(torch.from_numpy(a) for a in texture_lanes(tex, n=2048, seed=8))
     cot = torch.from_numpy(np.random.default_rng(4).normal(size=(2048, 3)).astype(np.float32))
     runs = scatter.k4_runs(ttex, lanes, tcfg, cot)
-    work = texture_sample.lane_work(ttex, lanes, tcfg)
-    assert runs["atomics_lane_form"] == 12 * (work["bilinear"] + work["taps"]) + 3 * work["top"]
-    assert runs["atomics_warp_form"] == 3 * sum(x["runs"] for x in runs["slots"])
+    assert runs["atomics"] == 3 * sum(x["runs"] for x in runs["slots"])
     assert [x["slot"] for x in runs["slots"]] == [f"quad {k}" for k in range(8)] + ["top texel"]
     pats = scatter.k4_patterns(lanes, cot, ttex, tcfg)
     assert list(pats) == list(scatter.K4_PATTERNS)
     one = scatter.k4_runs(ttex, pats["one_row"][0], tcfg, pats["one_row"][1])
     assert [x["runs"] for x in one["slots"] if x["runs"]] == [2048 // 32]
     perm = scatter.k4_runs(ttex, pats["permutation"][0], tcfg, pats["permutation"][1])
-    assert perm["atomics_lane_form"] == runs["atomics_lane_form"]
     assert [x["lanes"] for x in perm["slots"]] == [x["lanes"] for x in runs["slots"]]
     zero = scatter.k4_runs(ttex, pats["zero90"][0], tcfg, pats["zero90"][1])
     assert 0.85 <= zero["zero_cotangent_share"] <= 0.95
-    assert zero["atomics_warp_form"] < 0.2 * runs["atomics_warp_form"]
+    assert zero["atomics"] < 0.2 * runs["atomics"]
 
 
 def test_ewa_weight_table_matches_jax():
-    """EWA's weights as K3's vector form reads them: the 128-entry table
+    """EWA's weights as K3 reads them: the 128-entry table
     (``ewa_weight_table``, built as ``csrc/texture.cu`` builds it) at every
     bucket against JAX's ``_ewa_weight``, and through the kernel's lookup
     (``ewa_weight_lookup``) on 200,000 seeded r2 in [-0.01, 1) and every bucket
@@ -197,9 +192,9 @@ def test_ewa_weight_table_matches_jax():
 
 
 def test_sample_forward_refuses_before_launching():
-    """K3's wrapper checks its form and, for the vector form, data4's 16-byte
-    alignment before it builds or launches anything (here, on the CPU, there is
-    nothing to launch: a check that passed would try to build the kernels)."""
+    """K3's wrapper checks data4's 16-byte alignment before it builds or
+    launches anything (here, on the CPU, there is nothing to launch: a check
+    that passed would try to build the kernels)."""
     rng = np.random.default_rng(1)
     tex = (torch.from_numpy(rng.random((5, 3), dtype=np.float32)),
            *(torch.ones(1, dtype=torch.int32) for _ in range(3)),
@@ -211,5 +206,3 @@ def test_sample_forward_refuses_before_launching():
     filt = texture_sample.Filter("bilinear", 8.0, 16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         texture_sample.sample_forward(tex, lanes, filt, off)
-    with pytest.raises(ValueError, match="form"):
-        texture_sample.sample_forward(tex, lanes, filt, data4, "other")

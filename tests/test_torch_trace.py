@@ -15,7 +15,8 @@ from raytracer_tpu_torch import kernels
 from raytracer_tpu_torch.accel.blas import build_blas
 from raytracer_tpu_torch.config import MeshAccelerator, RenderConfig
 from raytracer_tpu_torch.ops import (
-    compaction, framebuffer, intersect, shade, sky_sample, spawn, traversal, traversal_wide,
+    compaction, framebuffer, fxaa, hits, intersect, shade, sky_sample, spawn, texture_sample,
+    traversal, traversal_wide,
 )
 from raytracer_tpu_torch.render import renderer
 from raytracer_tpu_torch.scene import meshgen
@@ -262,6 +263,35 @@ def _parents(n=4):
                        intersect.make_miss_hits(n, "cpu"), z3, z3, z3, torch.zeros(n))
 
 
+def _texture(s, mode, n=4):
+    """K3's and K4's arguments for n lanes of texture 1 in ``mode``."""
+    tex = renderer._tex_tuple(s)
+    lanes = (torch.ones(n, dtype=torch.int32), *(torch.full((n,), 0.25) for _ in range(6)))
+    return tex, lanes, texture_sample.Filter(mode, 8.0, 8), texture_sample.expand_quads(tex)
+
+
+def _mesh(s, n=4):
+    """K7's ids, rays and tables for n lanes: (tri, inst, rays, geom, material,
+    inst_inv, inst_world)."""
+    ids = torch.zeros(n, dtype=torch.int32)
+    rays = intersect.Rays(*(torch.zeros((n, 3)) for _ in intersect.Rays._fields))
+    return (ids, ids, rays, tuple(getattr(s, k) for k in hits.GEOMETRY), s.tr_material,
+            s.inst_inv, s.inst_world)
+
+
+def _mesh_forward(s, n=4):
+    tri, inst, *rest = _mesh(s, n)
+    return hits.hits_forward(tri, inst, torch.zeros(n, dtype=torch.int32), *rest,
+                             intersect.make_miss_hits(n, "cpu"), False)
+
+
+def _mesh_backward(s, n=4):
+    miss = intersect.make_miss_hits(n, "cpu")
+    cots = [getattr(miss, f).contiguous() for f in hits.FLOAT_FIELDS]
+    return hits.hits_backward(*_mesh(s, n), cots, False, [True] * len(intersect.Rays._fields),
+                              [True] * len(cots), [True] * len(hits.GEOMETRY), [True, True])
+
+
 LAUNCHES = {
     "launch.k6": lambda s: compaction._launch(torch.tensor([True, False, True])),
     "launch.fb_scatter": lambda s: framebuffer.scatter_add(
@@ -270,12 +300,20 @@ LAUNCHES = {
         s.sky_data, torch.nn.functional.normalize(torch.ones((4, 3)), dim=1), False),
     "launch.k10.closest": lambda s: traversal._launch(False, *_threaded(s), CFG),
     "launch.k10.any": lambda s: traversal._launch(True, *_threaded(s), CFG),
-    "launch.k10.split.closest": lambda s: traversal._launch(False, *_threaded(s), CFG,
-                                                            "split"),
     "launch.k1": lambda s: traversal_wide._launch(False, *_wide(s), CFG),
     "launch.k2": lambda s: traversal_wide._launch(True, *_wide(s), CFG),
-    "launch.k2.exact": lambda s: traversal_wide._launch(True, *_wide(s), CFG,
-                                                        traversal_wide.FORMS["exact"]),
+    **{f"launch.k3.{mode}": lambda s, mode=mode: texture_sample.sample_forward(
+        *_texture(s, mode)) for mode in texture_sample.MODES},
+    **{f"launch.k4.{mode}": lambda s, mode=mode: texture_sample.sample_backward(
+        *_texture(s, mode), torch.ones((4, 3)), True, True, True)
+       for mode in texture_sample.MODES},
+    "launch.k5.bwd": lambda s: sky_sample._backward_launch(
+        torch.zeros(4, dtype=torch.int32), torch.ones((4, 3)), 16),
+    "launch.k7": _mesh_forward,
+    "launch.k7.bwd": _mesh_backward,
+    "launch.k8": lambda s: fxaa._launch(torch.zeros((4, 4, 3))),
+    "launch.k9.closest": lambda s: intersect._closest_launch(s, *_wide(s)[1:3]),
+    "launch.k9.any": lambda s: intersect._any_launch(s, *_wide(s)[1:]),
     "launch.shade.tex_id": lambda s: shade.tex_ids(s, intersect.make_miss_hits(4, "cpu")),
     "launch.shade.surface": lambda s: shade.surface_launch(
         s, intersect.make_miss_hits(4, "cpu"), torch.ones((4, 3)), torch.zeros((4, 3)),
@@ -295,6 +333,8 @@ def test_a_launch_counts_once_under_its_key(scene, monkeypatch, key):
     _, s = scene
     monkeypatch.setattr(kernels, "entry", lambda *a: lambda *args: 0)
     monkeypatch.setattr(kernels, "stream_ptr", lambda device: 0)
+    # K7's contract asks for CUDA tensors: its check goes with the entry
+    monkeypatch.setattr(hits, "_check", lambda what, tri, *args: tri.shape[0])
     before = dict(trace.counters)
     LAUNCHES[key](s)
     after = dict(trace.counters)
