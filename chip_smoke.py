@@ -16,6 +16,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the median frame time of 3 frames after a warm-up, forward MRays/s, the time
    of each kernel inside a frame by CUDA events, peak device memory, and one
    frame under torch.profiler (device busy share, top operators by device time);
+   every frame after the first must reuse the scene's tables
+   (``tables.reuse``, as in the threaded phase);
 4. the training path: fwd+bwd of ``image_loss(render_with_stats(...))`` against
    a zero target over the 17 differentiable fields, one autograd graph over the
    whole 1080p frame — the launch counts of all nine kernels in one step (the
@@ -1160,6 +1162,7 @@ def main(argv=None) -> int:
     from raytracer_tpu_torch.scene import scenes
     from raytracer_tpu_torch.scene.device import ScenePacker
     from raytracer_tpu_torch.utils import image as image_util
+    from raytracer_tpu_torch.utils import trace
 
     # -------------------------------------------------------------- 1. environment
     smi = nvidia_smi_line()
@@ -1243,7 +1246,9 @@ def main(argv=None) -> int:
     img_mean = float(image.mean())
     finite = bool(torch.isfinite(image).all())
 
-    # timed frames: one warm-up, then the median of 3
+    # timed frames: one warm-up, then the median of 3; every frame after the
+    # first reuses the scene's tables (Renderer._scene_tables)
+    tables_reused = trace.counters["tables.reuse"]
     torch.cuda.reset_peak_memory_stats()
     rend(scene)
     torch.cuda.synchronize()
@@ -1259,6 +1264,7 @@ def main(argv=None) -> int:
         rend(scene)
         frame_kernel_ms = timer.kernel_ms()
     profile = profile_frame(lambda: rend(scene))
+    tables_reused = trace.counters["tables.reuse"] - tables_reused
     frame_ms = statistics.median(frame_s) * 1e3
     rays = rays_of(counters)
     emit("frame", config="config3_sponza", width=WIDTH, height=HEIGHT,
@@ -1266,9 +1272,11 @@ def main(argv=None) -> int:
          fwd_mrays_per_s=rays / (frame_ms / 1e3) / 1e6, counters=counters,
          image_shape=list(image.shape), image_mean=img_mean, image_finite=finite,
          launches=launches, kernel_ms_in_frame=frame_kernel_ms, profile=profile,
-         max_memory_allocated_bytes=peak_mem, nvidia_smi=smi)
+         tables_reused=tables_reused, max_memory_allocated_bytes=peak_mem, nvidia_smi=smi)
     problems = [f"{k} launched {n} times in the main path" for k, n in launches.items()
                 if n <= 0]
+    if tables_reused < 1:
+        problems.append("the main frame's later calls reused no tables")
     problems += [f"{k} launched {launches[k]} times in a frame of {cfg.num_bounces} bounces"
                  for k in SPAWN_KERNELS if launches[k] != cfg.num_bounces]
     if counters["num_dropped"] or counters["num_incomplete"]:
@@ -1629,6 +1637,7 @@ def main(argv=None) -> int:
     th_finite = bool(torch.isfinite(th_img).all())
     th_diff = (th_img - image).abs().amax(dim=-1)
     share_off = float((th_diff > 1e-3).float().mean())
+    th_reused = trace.counters["tables.reuse"]
     th_rend(scene)
     torch.cuda.synchronize()
     th_frame_s = []
@@ -1638,9 +1647,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         th_frame_s.append(time.perf_counter() - t0)
     th_profile = profile_frame(lambda: th_rend(scene))
+    th_reused = trace.counters["tables.reuse"] - th_reused
 
-    # the records' packing, every frame in build_scene_bvh (one host read of
-    # the packer's checks), beside the rest of the frame
+    # the records' packing in build_scene_bvh (one host read of the packer's
+    # checks), once a scene in Renderer, beside the rest of the frame
     th_pack_ms = cuda_ms(lambda: traversal.build_scene_bvh(scene), 5)
     th_pack_device_ms = profile_frame(lambda: traversal.build_scene_bvh(scene))["device_busy_ms"]
     th_params = train.extract_params(scene)
@@ -1665,6 +1675,7 @@ def main(argv=None) -> int:
          pixels_off_wide_share=share_off, pixels_off_wide_bound=THREADED_PIXEL_SHARE,
          max_abs_off_wide=float(th_diff.max()),
          launches={k: n for k, n in threaded_launches.items() if n}, profile=th_profile,
+         tables_reused=th_reused,
          frame_device_ms=th_profile["device_busy_ms"],
          step_device_ms=th_step_profile["device_busy_ms"],
          k10_device_ms_in_frame={k["name"]: k["ms"]
@@ -1681,6 +1692,8 @@ def main(argv=None) -> int:
                 for k in threaded_kernels if threaded_launches[k] <= 0]
     problems += [f"{k} launched {threaded_launches[k]} times under the threaded walk"
                  for k in ("traverse_closest", "traverse_any") if threaded_launches[k]]
+    if th_reused < 1:
+        problems.append("the threaded frame's later calls reused no tables")
     if th_step_launches["threaded_closest"] <= 0 or th_step_launches["hits_bwd"] <= 0:
         problems.append(f"the threaded step launched {th_step_launches}")
     for c in (th_counters, th_scounters):

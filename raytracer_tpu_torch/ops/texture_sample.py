@@ -58,10 +58,15 @@ def filter_of(cfg: RenderConfig) -> Filter:
     return Filter(mode, float(cfg.max_anisotropy), int(cfg.ewa_max_span))
 
 
+# the scene fields expand_quads reads: what the renderer's table cache keys on
+QUAD_FIELDS = ("tex_data", "tex_quad")
+
+
 def expand_quads(tex) -> torch.Tensor:
     """[X,12] quad-row atlas: each row holds a texel's full 2x2 bilinear footprint
     (wrap baked into tex.quad_idx at pack time), so one tap reads ONE row.
-    Scene-only: the renderer builds it once per frame.  A torch gather, so its
+    Scene-only (``QUAD_FIELDS``): the renderer builds it once per frame, and
+    ``Renderer`` once per scene.  A torch gather, so its
     autograd carries the [X,12] row gradient back to tex data, as the transpose
     of ``jnp.take`` does in JAX."""
     data, _w, _h, _l, _o, quad = tex

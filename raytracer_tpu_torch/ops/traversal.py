@@ -19,7 +19,7 @@ octant 0's links.  The walk runs until done: it has no iteration budget, so
 ``trace_closest`` / ``trace_any`` launch ``csrc/traverse_threaded.cu`` for CUDA
 tensors and run ``trace_plain`` for CPU tensors.  The kernel reads one 32-byte
 record a node visit (``octant_records``, packed on the device by
-``build_scene_bvh`` every frame) and an 80-byte row a triangle pair
+``build_scene_bvh``; ``Renderer`` keeps them while the scene is unchanged) and an 80-byte row a triangle pair
 (``pair_rows``), each with 16-byte loads; ``trace_any`` walks only the active
 lanes, which K6 lists on the device first.  ``trace_plain`` reads the split
 tables (box, node, links, tri) from which the records are packed.
@@ -68,16 +68,21 @@ class SceneBVH(NamedTuple):
         return self.box.shape[0]
 
 
+# the scene fields build_scene_bvh reads: what it detaches, and what the
+# renderer's table cache keys on (render/renderer.py)
+TABLE_FIELDS = ("tl_min", "tl_max", "tl_count", "tl_left", "tl_links", "nd_min", "nd_max",
+                "nd_count", "nd_left", "nd_links", "inst_root", "inst_inv", "tr_p0", "tr_e1",
+                "tr_e2")
+
+
 def build_scene_bvh(scene) -> SceneBVH:
     """Assemble the frame's threaded traversal arrays (``traversal.py:88-153`` of
     the JAX package) from the packed ``tl_*``, ``nd_*``, ``inst_*`` and ``tr_*``
-    fields.  JAX's fused octant records and triangle-pair rows were a TPU gather
-    trick; here the node's box, its integer fields and the links are three
-    arrays, and the integers stay int32.  The walk is discrete, so the tables
-    carry no gradient, whatever ``scene``'s fields do."""
-    scene = scene._replace(**{k: getattr(scene, k).detach()
-                              for k in ("tl_min", "tl_max", "nd_min", "nd_max", "inst_inv",
-                                        "tr_p0", "tr_e1", "tr_e2")})
+    fields (``TABLE_FIELDS``).  JAX's fused octant records and triangle-pair rows
+    were a TPU gather trick; here the node's box, its integer fields and the
+    links are three arrays, and the integers stay int32.  The walk is discrete,
+    so the tables carry no gradient, whatever ``scene``'s fields do."""
+    scene = scene._replace(**{k: getattr(scene, k).detach() for k in TABLE_FIELDS})
     n_tlas = scene.tl_min.shape[0]
     n_inst = scene.inst_root.shape[0]
     # JAX's bounds (traversal.py:96-98), kept so both walk the same scenes

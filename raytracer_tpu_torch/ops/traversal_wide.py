@@ -62,14 +62,20 @@ class WideSceneBVH(NamedTuple):
         return self.node_rows // 8
 
 
+# the scene fields build_scene_bvh reads (``stack_bound`` a Python int): what
+# it detaches, and what the renderer's table cache keys on (render/renderer.py)
+TABLE_FIELDS = ("wd_rec", "wt_rec", "wq_rec", "wtq_rec", "inst_inv", "tr_p0", "tr_e1", "tr_e2",
+                "stack_bound")
+
+
 def build_scene_bvh(scene) -> WideSceneBVH:
     """Assemble the frame's unified wide traversal table (traversal_wide.py:71-103
-    of the JAX package): static BLAS records, the per-frame TLAS after them, then
-    the component-major 8-triangle leaf records (col c*8 + j).  The walk is
-    discrete, so the table carries no gradient, whatever ``scene``'s fields do."""
-    scene = scene._replace(**{k: getattr(scene, k).detach()
-                              for k in ("wd_rec", "wt_rec", "wq_rec", "wtq_rec", "inst_inv",
-                                        "tr_p0", "tr_e1", "tr_e2")})
+    of the JAX package) from ``TABLE_FIELDS``: static BLAS records, the per-frame
+    TLAS after them, then the component-major 8-triangle leaf records (col c*8 +
+    j).  The walk is discrete, so the table carries no gradient, whatever
+    ``scene``'s fields do."""
+    scene = scene._replace(**{k: getattr(scene, k).detach() for k in TABLE_FIELDS
+                              if k != "stack_bound"})
     n_tri = scene.tr_p0.shape[0]
     n_inst = scene.inst_inv.shape[0]
     # id encodings: best = tri << 8 | inst1 (scene/device.py), inst1 in 8 bits

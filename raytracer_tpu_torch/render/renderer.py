@@ -579,6 +579,18 @@ def _compact(cand: dict) -> _Generation:
 # ---------------------------------------------------------------------------
 
 
+def _build_tables(scene, cfg: RenderConfig, bvh=None, tex4=None):
+    """(bvh, tex4): the frame's traversal table and quad atlas, each built from
+    the scene where not given (no table without instances; no quad atlas
+    under NEAREST, which reads only the base atlas, as in the JAX package)."""
+    if bvh is None and scene.n_instances > 0:
+        bvh = _traversal_module(cfg).build_scene_bvh(scene)
+    if (tex4 is None and scene.tex_data.shape[0] > 1
+            and cfg.texture_sample_mode != TextureSampleMode.NEAREST):
+        tex4 = texture_sample.expand_quads(_tex_tuple(scene))
+    return bvh, tex4
+
+
 def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=None):
     """Render a batch of pixels as one wavefront; returns (rgb [n,3], RenderStats).
 
@@ -586,8 +598,7 @@ def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=No
     (default: the whole frame); row k of the result is pixel ``pixel_idx[k]``.
     Negative indices are padding lanes: they trace nothing and contribute zero.
     ``bvh`` and ``tex4`` are the frame's traversal table and quad atlas, built
-    here when not given (no quad atlas under NEAREST, which reads only the base
-    atlas, as in the JAX package).
+    here when not given (``_build_tables``).
 
     The call is span ``rt.render``, tiled by ``rt.tables`` (the tables built
     here), ``rt.primary`` (the stats, the primary rays and the buffers) and one
@@ -595,18 +606,15 @@ def render_wavefront(scene, cfg: RenderConfig, pixel_idx=None, bvh=None, tex4=No
     (the next queue)."""
     n = cfg.num_pixels if pixel_idx is None else pixel_idx.shape[0]
     with trace.span("rt.render"):
-        return _render(scene, cfg, n, pixel_idx, bvh, tex4)
+        return _render(scene, cfg, n, pixel_idx, lambda: _build_tables(scene, cfg, bvh, tex4))
 
 
-def _render(scene, cfg: RenderConfig, n: int, pixel_idx, bvh, tex4):
-    """``render_wavefront`` inside its span: everything this frame makes is freed
-    by the time the span ends."""
+def _render(scene, cfg: RenderConfig, n: int, pixel_idx, tables):
+    """``render_wavefront`` inside its span, ``tables()`` giving (bvh, tex4)
+    inside ``rt.tables``: everything this frame makes is freed by the time the
+    span ends."""
     with trace.span("rt.tables"):
-        if bvh is None and scene.n_instances > 0:
-            bvh = _traversal_module(cfg).build_scene_bvh(scene)
-        if (tex4 is None and scene.tex_data.shape[0] > 1
-                and cfg.texture_sample_mode != TextureSampleMode.NEAREST):
-            tex4 = texture_sample.expand_quads(_tex_tuple(scene))
+        bvh, tex4 = tables()
     with trace.span("rt.primary"):
         dev = scene.cam_pos.device
         if pixel_idx is None:
@@ -683,13 +691,62 @@ def render_frames(scenes, cfg: RenderConfig):
     return torch.stack(images), RenderStats(*(torch.stack(c) for c in zip(*stats)))
 
 
+def _table_key(scene, cfg: RenderConfig):
+    """What the frame's tables are built from: (objects, values), or None where
+    a tensor keeps no version counter (an inference tensor).  The objects are
+    ``cfg`` and the tensors of the walk's ``TABLE_FIELDS`` and of
+    ``texture_sample.QUAD_FIELDS``, compared by identity (holding them keeps
+    their storage from being reused); the values are the instance count, each
+    tensor's ``_version`` (bumped by any in-place write, through a view or a
+    detached alias too) and the Python ints among the fields."""
+    objs, vals = [cfg], [scene.n_instances]
+    for f in (*_traversal_module(cfg).TABLE_FIELDS, *texture_sample.QUAD_FIELDS):
+        x = getattr(scene, f)
+        if not torch.is_tensor(x):
+            vals.append(x)
+        elif x.is_inference():
+            return None
+        else:
+            objs.append(x)
+            vals.append(x._version)
+    return objs, vals
+
+
+def _same_key(key, old) -> bool:
+    return (old is not None and len(key[0]) == len(old[0])
+            and all(a is b for a, b in zip(key[0], old[0])) and key[1] == old[1])
+
+
 class Renderer:
     """Entry point: renders packed scenes on one device (``cuda`` by default;
-    ``device="cpu"`` runs the plain PyTorch versions of the kernels)."""
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels).
+
+    A frame's tables (the walk's ``bvh`` and the quad atlas ``tex4``) depend on
+    the scene alone: the renderer keeps the last scene's, and builds them again
+    only when a tensor they are built from is another object or was written in
+    place (``_table_key``).  A camera moved through a resident scene
+    (``scene._replace`` of the ``cam_*`` fields) reuses them; a scene uploaded
+    anew builds.  ``trace.counters["tables.build"]`` and ``["tables.reuse"]``
+    count the two."""
 
     def __init__(self, cfg: RenderConfig, device=None):
         self.cfg = cfg
         self.device = devices.resolve(device)
+        self._key = self._tables = None  # the last scene's table key and (bvh, tex4)
+
+    def _scene_tables(self, scene):
+        """(bvh, tex4) of ``scene``: the kept ones while its key matches, else
+        built (the old ones dropped first, so that one set at most is held)."""
+        key = _table_key(scene, self.cfg)
+        if key is not None and _same_key(key, self._key):
+            trace.count("tables.reuse")
+            return self._tables
+        self._key = self._tables = None
+        tables = _build_tables(scene, self.cfg)
+        trace.count("tables.build")
+        if key is not None:
+            self._key, self._tables = key, tables
+        return tables
 
     def upload(self, packed):
         """A packed scene (``ScenePacker.frame()``, or any mapping of its fields)
@@ -699,6 +756,11 @@ class Renderer:
             return scene_from_numpy(fields, self.device)
 
     def __call__(self, scene):
-        """(linear [H,W,3] image, RenderStats) of one frame, forward only."""
+        """(linear [H,W,3] image, RenderStats) of one frame, forward only: the
+        frame of ``render_with_stats``, its tables from ``_scene_tables``."""
+        cfg = self.cfg
         with torch.no_grad():
-            return render_with_stats(scene, self.cfg)
+            with trace.span("rt.render"):
+                fb, stats = _render(scene, cfg, cfg.num_pixels, None,
+                                    lambda: self._scene_tables(scene))
+        return fb.reshape(cfg.height, cfg.width, 3), stats

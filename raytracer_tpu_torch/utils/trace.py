@@ -10,8 +10,9 @@ the card is named by the innermost stage the host was in.  A span never
 synchronises the device.  Every span name starts with ``rt.``.
 
 ``counters`` is one ``collections.Counter``, always on: the launch count of each
-kernel wrapper (``launch.<kernel>[.<variant>]``).  Readers take differences;
-``counters.clear()`` resets all.
+kernel wrapper (``launch.<kernel>[.<variant>]``), and ``Renderer``'s frames
+that built the scene's tables (``tables.build``) or reused the kept ones
+(``tables.reuse``).  Readers take differences; ``counters.clear()`` resets all.
 """
 
 from __future__ import annotations
